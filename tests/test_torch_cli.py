@@ -1,0 +1,70 @@
+"""The port's guided repaint CLI on the CPU, end to end, at a tiny size."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from worldforge_tpu_torch.cli import infer_worldforge as cli
+from worldforge_tpu_torch.io import frames as tframes
+from worldforge_tpu_torch.warp import masks as tmasks
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def warp_dir(tmp_path):
+    """A synthesized warp-stage directory: 5 frames + 5 masks, 40x56."""
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (40, 56, 3), np.uint8) for _ in range(5)]
+    masks = [np.zeros((40, 56), np.uint8) for _ in range(5)]
+    for i, m in enumerate(masks):
+        m[8:32, 8 + i:40 + i] = 1
+    d = str(tmp_path / "warp")
+    tframes.save_warp_outputs(d, images, masks)
+    return d
+
+
+def test_cli_random_init_guided_on_cpu(warp_dir, tmp_path):
+    out = str(tmp_path / "out.mp4")
+    cli.main(["--video-ref", warp_dir, "--random-init", "--device", "cpu",
+              "--guided", "--resize", "16", "16", "--num-frames", "5",
+              "--num-inference-steps", "2", "--resample-steps", "2",
+              "--guide-steps", "2", "--resample-round", "2",
+              "--soften-mask", "--transition-distance", "3", "--save-png",
+              "--output", out])
+    assert os.path.getsize(out) > 0
+    pngs = sorted(os.listdir(str(tmp_path / "out_frames")))
+    assert len(pngs) == 5
+
+
+def test_cli_later_slices_raise(warp_dir, tmp_path):
+    base = ["--video-ref", warp_dir, "--random-init", "--device", "cpu",
+            "--guided", "--resize", "16", "16", "--num-frames", "5",
+            "--num-inference-steps", "1", "--output",
+            str(tmp_path / "x.mp4")]
+    for flag in ("--use-pca-channel-selection", "--fused",
+                 "--streaming-vae"):
+        with pytest.raises(NotImplementedError):
+            cli.main(base + [flag])
+
+
+def test_host_side_copies_match_jax(warp_dir):
+    """The port keeps its own copies of the JAX package's host helpers."""
+    from worldforge_tpu.io import frames as jframes
+    from worldforge_tpu.utils import prompts as jprompts
+    from worldforge_tpu.warp import masks as jmasks
+    from worldforge_tpu_torch.utils import prompts as tprompts
+
+    jf, jm, _ = jframes.read_frames_from_directory(warp_dir)
+    tf, tm, _ = tframes.read_frames_from_directory(warp_dir)
+    np.testing.assert_array_equal(np.stack(tf), np.stack(jf))
+    np.testing.assert_array_equal(np.stack(tm), np.stack(jm))
+    for decay in ("linear", "exponential", "sine", "cosine"):
+        np.testing.assert_array_equal(
+            tmasks.soften_mask(np.stack(tm), 3, decay),
+            jmasks.soften_mask(np.stack(jm), 3, decay))
+    assert tprompts.SCENE_PROMPTS == jprompts.SCENE_PROMPTS
+    assert tprompts.get_negative_prompt(True) == \
+        jprompts.get_negative_prompt(True)

@@ -1,0 +1,80 @@
+"""The port stands alone: no module of ``worldforge_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
+on the card unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "worldforge_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0:
+                yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "flax", "worldforge_tpu"}, roots
+
+
+def test_port_has_kernels_and_plain_versions():
+    from worldforge_tpu_torch.ops import (conv3d, flash_attention,
+                                          fused_norm, rope)
+    for wrapper, plain in (
+            (flash_attention.flash_attention,
+             flash_attention.flash_attention_plain),
+            (rope.apply_rope_qk, rope.apply_rope_qk_plain),
+            (fused_norm.modulated_layer_norm,
+             fused_norm.modulated_layer_norm_ref),
+            (conv3d.conv3d_causal, conv3d.conv3d_causal_plain)):
+        assert isinstance(wrapper.launches, int) and callable(plain)
+    csrc = ROOT / "worldforge_tpu_torch" / "csrc"
+    assert (csrc / "flash_attention.cu").exists()
+    assert (csrc / "conv3d.cu").exists()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from worldforge_tpu_torch.core.dtypes import resolve_device
+    from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_wan_pipeline()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_launch_counters_stay_zero():
+    """CPU tensors take the plain versions; the counters count kernel
+    launches only."""
+    from worldforge_tpu_torch.ops import fused_norm
+    before = fused_norm.modulated_layer_norm.launches
+    fused_norm.modulated_layer_norm(torch.zeros(1, 2, 8), torch.zeros(1, 1, 8),
+                                    torch.zeros(1, 1, 8))
+    assert fused_norm.modulated_layer_norm.launches == before
+
+
+def test_random_init_pipeline_on_cpu():
+    from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
+    pipe, enc_t, enc_i = load_wan_pipeline(random_init=True, device="cpu")
+    assert pipe.device == torch.device("cpu")
+    assert enc_t("a prompt").shape == (1, 512, 4096)
+    torch.testing.assert_close(enc_t("a prompt"), enc_t("a prompt"))
+    import numpy as np
+    assert enc_i(np.zeros((4, 4, 3), np.uint8)).shape == (1, 257, 1280)
+    assert pipe.dit_params["head"]["head"]["w"].abs().sum() > 0
+    with pytest.raises(NotImplementedError):
+        load_wan_pipeline("/nonexistent", device="cpu")

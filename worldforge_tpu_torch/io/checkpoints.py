@@ -1,0 +1,88 @@
+"""Pipeline assembly (the random-init branch).
+
+Counterpart of ``worldforge_tpu/io/checkpoints.py::load_wan_pipeline``.
+``random_init=True`` (or no ``models_dir``) builds a random-weight pipeline
+on the device: by default the JAX package's reduced random-init sizes, or
+the configs the caller passes (``chip_smoke.py`` passes the full-width
+Wan2.1-I2V-14B DiT and the Wan2.1 VAE). Converting real checkpoints
+(``io/convert_wan.py``) waits until the weights are in the repository, and
+so do the text and image encoders: at random init, hash embeddings stand in
+for them, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from worldforge_tpu_torch.core import params as P
+from worldforge_tpu_torch.core.dtypes import (DEFAULT_POLICY, Policy,
+                                              resolve_device)
+from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, init_wan_dit
+from worldforge_tpu_torch.models.wan.vae import WanVAEConfig, init_wan_vae
+from worldforge_tpu_torch.pipelines.wan_i2v import WanI2VPipeline
+
+DEFAULT_RANDOM_DIT = WanDiTConfig(model_type="i2v", in_dim=36, out_dim=16,
+                                  dim=256, ffn_dim=512, num_heads=4,
+                                  num_layers=4)
+DEFAULT_RANDOM_VAE = WanVAEConfig(dim=32, z_dim=16, dim_mult=(1, 2, 2, 2),
+                                  num_res_blocks=1)
+
+
+def _seed_of(data: bytes) -> int:
+    return int.from_bytes(hashlib.sha256(data).digest()[:4], "little")
+
+
+def _hash_embed(text: str, shape, device, scale: float = 1.0
+                ) -> torch.Tensor:
+    """Deterministic pseudo-embedding from text (random-init path)."""
+    gen = torch.Generator().manual_seed(_seed_of(text.encode()))
+    return (scale * torch.randn(shape, generator=gen)).to(device)
+
+
+def load_wan_pipeline(models_dir: Optional[str] = None,
+                      variant: str = "480p",
+                      random_init: bool = False, *,
+                      device: Optional[Union[str, torch.device]] = None,
+                      dit_cfg: Optional[WanDiTConfig] = None,
+                      vae_cfg: Optional[WanVAEConfig] = None,
+                      policy: Policy = DEFAULT_POLICY,
+                      seed: int = 0,
+                      ) -> Tuple[WanI2VPipeline, Callable, Callable]:
+    """Returns (pipeline, encode_text(str)->[1,L,D],
+    encode_image(img)->[1,257,1280]).
+
+    device: None means the card (raises when there is none); the CPU only
+    when asked for by name. The DiT is built in bf16 (fp32 under an fp32
+    policy), the VAE in fp32, from generators seeded ``seed``, ``seed + 1``
+    and ``seed + 99`` (the randomized head)."""
+    dev = resolve_device(device)
+    if not (random_init or models_dir is None):
+        raise NotImplementedError(
+            "loading converted Wan checkpoints (io/convert_wan.py) waits "
+            "until the weights are in the repository; use random_init=True")
+    dit_cfg = dit_cfg or DEFAULT_RANDOM_DIT
+    vae_cfg = vae_cfg or DEFAULT_RANDOM_VAE
+    dit_params = init_wan_dit(P.make_generator(seed, dev), dit_cfg,
+                              dtype=policy.param_dtype)
+    # non-zero head so the random-init output isn't the trivial zero field
+    head = dit_params["head"]["head"]
+    head["w"] = (0.02 * P.normal(P.make_generator(seed + 99, dev),
+                                 tuple(head["w"].shape))).to(head["w"].dtype)
+    vae_params = init_wan_vae(P.make_generator(seed + 1, dev), vae_cfg)
+    pipe = WanI2VPipeline(dit_params=dit_params, dit_cfg=dit_cfg,
+                          vae_params=vae_params, vae_cfg=vae_cfg,
+                          policy=policy)
+
+    def encode_text(text: str) -> torch.Tensor:
+        return _hash_embed(text, (1, dit_cfg.text_len, dit_cfg.text_dim), dev)
+
+    def encode_image(img: np.ndarray) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(
+            _seed_of(np.ascontiguousarray(img).tobytes()))
+        return torch.randn((1, 257, dit_cfg.clip_dim), generator=gen).to(dev)
+
+    return pipe, encode_text, encode_image

@@ -1,0 +1,74 @@
+"""Bring a JAX parameter tree into the port.
+
+The JAX package keeps parameters as nested dicts of arrays; the Wan DiT
+stacks its transformer blocks on a leading ``[L, ...]`` axis for
+``lax.scan`` (``worldforge_tpu/models/wan/dit.py:129``). The port keeps the
+same layouts (dense kernels ``[in, out]``, conv kernels spatial-first
+``(D)HWIO``) and holds the blocks as a list of per-layer dicts, so the only
+change is the unstacking. Leaves arrive as numpy arrays (``np.asarray`` of
+each JAX leaf); bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) are carried
+over bit for bit. A Wan VAE tree needs no unstacking: ``tree_from_numpy``
+carries it over as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a, device: Optional[Union[str, torch.device]] = None,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """numpy (or anything ``np.asarray`` takes) -> torch, bf16 bit-exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device) if device is not None else t
+
+
+def tree_from_numpy(tree, device=None, dtype=None):
+    """Map ``tensor_from_numpy`` over a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device, dtype) for v in tree]
+    return tensor_from_numpy(tree, device, dtype)
+
+
+def unstack_layers(stacked: dict) -> list:
+    """``{name: [L, ...]}`` (nested) -> ``[{name: [...]}] * L``."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+
+    walk(stacked)
+    n = leaves[0].shape[0]
+
+    def take(t, i):
+        if isinstance(t, dict):
+            return {k: take(v, i) for k, v in t.items()}
+        return t[i]
+
+    return [take(stacked, i) for i in range(n)]
+
+
+def dit_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` Wan DiT param tree -> the port's DiT params
+    (``models/wan/dit.py``): same keys, blocks unstacked into a list."""
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out = tree_from_numpy(out, device, dtype)
+    out["blocks"] = [tree_from_numpy(layer, device, dtype)
+                     for layer in unstack_layers(tree["blocks"])]
+    return out
+
