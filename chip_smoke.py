@@ -7,17 +7,27 @@ Run from the repository root on a machine with a CUDA card::
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. device  -- the card's name and power limit (``nvidia-smi``).
-2. build   -- compiles the CUDA C++ kernels from ``worldforge_tpu_torch/csrc``.
-3. kernels -- each of the four kernels against its plain PyTorch version at
-   the main path's shapes: error, kernel time, plain time, the time of one
-   PyTorch library call for the same function (a yardstick only, never used
-   by the port), and the card's bound for the same work.
+2. build   -- compiles the CUDA C++ kernels from ``worldforge_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together).
+3. kernels -- each of the five kernels against its plain PyTorch version at
+   the main paths' shapes (the Wan repaint's and the LongCat refine's):
+   error, kernel time, plain time, the time of one PyTorch library call for
+   the same function where there is one (a yardstick only, never used by
+   the port), and the card's bound for the same work.
 4. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
    480x832x49 frames (20,280 tokens).
 5. generate -- the guided repaint (CFG + IRR + VAE fuse + DSG + final decode)
    through ``load_wan_pipeline`` and ``WanI2VPipeline.generate`` at full
-   width with the cuts listed on its line; every kernel's launch count must
-   rise during this phase.
+   width with the cuts listed on its line; every kernel of that path must
+   launch during this phase.
+6. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
+   ``load_longcat_pipeline`` and ``LongCatPipeline.generate_refine``: the
+   13.6B DiT at full width and depth, the streaming Wan2.1 VAE, a 49-frame
+   480x832 stage-1 video refined to 704x1280 (56,320 tokens, block-sparse
+   attention at sparsity 0.875), with the step cut listed on its line; the
+   kernels of that path must launch during this phase. Before it, the
+   reduced random-init refine at 128x256 runs on the card and on the CPU
+   from one set of weights and one noise stream, and the two must agree.
 
 The line before the last holds the kernel table; the last line is the device
 summary.
@@ -25,6 +35,7 @@ summary.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -51,6 +62,22 @@ DIT_FRAMES, HEIGHT, WIDTH = 49, 480, 832
 GEN_FRAMES = 17
 GEN_STEPS = 3
 GEN_LAYERS = 40          # DiT depth of the generate phase (of 40)
+
+# LongCat refine: a 49 x 480 x 832 stage-1 video refined spatially to
+# 704 x 1280; 64 frames after the BSA padding, 61 encoded -> 16 x 88 x 160
+# latents -> 16 x 44 x 80 = 56,320 DiT tokens = 440 (4,4,8) chunks.
+REFINE_FRAMES, REFINE_H, REFINE_W = 49, 704, 1280
+STAGE1_H, STAGE1_W = 480, 832
+REFINE_GRID = (16, 44, 80)
+REFINE_TOKENS = 16 * 44 * 80
+REFINE_STEPS = 4         # num_inference_steps: t_thresh 0.5 keeps 3 steps
+LC_HEADS = 32
+BSA_SPARSITY = 0.875
+REFINE_PROMPT = ("a slow camera pan along a rainy city street at dusk, neon "
+                 "signs reflected in puddles, pedestrians with umbrellas "
+                 "crossing, cinematic lighting, high detail, 720p")
+TEXT_LEN = 512
+REFINE_KV_LEN = min(max(len(REFINE_PROMPT) // 4, 1), TEXT_LEN)  # hash mask
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -124,19 +151,22 @@ def phase_build():
 
 
 def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
-                 label, iters):
+                 label, iters, kv_len=None):
     """Kernel 1 against its plain version. The gates scale with the output:
     the largest error over the largest |ref| (a bf16 output is rounded to
     within 2^-8 of itself on both sides) and the relative L2 error (leaving
     out one 64-key tile of 20,280 moves the self-attention output by about
-    8 / sqrt(20280) = 6% in L2)."""
+    8 / sqrt(20280) = 6% in L2). ``kv_len``: every batch row's key length
+    (``kv_lens``); the bound and the SDPA yardstick count those keys."""
     from worldforge_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
-    out = flash_attention(q, k, v)
-    ref = flash_attention_plain(q, k, v)
+    kl = None if kv_len is None else torch.full(
+        (b,), kv_len, dtype=torch.int32, device="cuda")
+    out = flash_attention(q, k, v, kv_lens=kl)
+    ref = flash_attention_plain(q, k, v, kv_lens=kl)
     torch.cuda.synchronize()
     diff = out.float() - ref.float()
     err = float(diff.abs().max())
@@ -144,15 +174,19 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
     rel_l2 = float(diff.norm() / ref.float().norm().clamp_min(1e-12))
     ok = (bool(torch.isfinite(out).all()) and rel <= tol_rel
           and rel_l2 <= tol_l2)
-    ms = cuda_ms(lambda: flash_attention(q, k, v), iters)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 1)
-    flops = 4.0 * b * h * sq * sk * d
+    ms = cuda_ms(lambda: flash_attention(q, k, v, kv_lens=kl), iters)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens=kl), 1)
+    keys = sk if kv_len is None else kv_len
+    flops = 4.0 * b * h * sq * keys * d
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    bms, by = bound(flops, nbytes(q, k, v) + nbytes(q), peak)
+    bms, by = bound(flops, 2 * nbytes(q) + 2 * nbytes(k) * keys / sk, peak)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None if kv_len is None else (
+        torch.arange(sk, device="cuda") < kv_len)[None, None, None, :]
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt), iters)
+        qt, kt, vt, attn_mask=mask), iters)
     rec = {"check": label, "shape": [b, sq, sk, h, d], "dtype": str(dtype),
+           "kv_len": kv_len,
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol_rel,
            "rel_l2_err": rel_l2, "tol_rel_l2": tol_l2,
            "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -196,26 +230,159 @@ def _check_flash_masked(gen, records, d, dtype):
     return rec
 
 
-def _check_rope(gen, records, s, h, d, iters):
+def _bsa_inputs(gen, bh, s, d, scale=1.0):
+    return [(torch.randn((bh, s, d), generator=gen, device="cuda")
+             * scale).bfloat16() for _ in range(3)]
+
+
+def _flex_bsa(q, k, v, indices, counts):
+    """Kernel 5's function as one PyTorch library call, a yardstick only that
+    the port never calls: compiled ``flex_attention`` over a ``BlockMask``
+    built from the same per-(head, 128-query chunk) index rows and counts,
+    each selected chunk listed as a full block (no mask inside it). The rows
+    are padded to every key chunk; slots at or past the count are not read."""
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+    from worldforge_tpu_torch.ops.bsa import CHUNK_K
+    bh, nq, kmax = indices.shape
+    pad = torch.zeros((bh, nq, k.shape[1] // CHUNK_K - kmax),
+                      dtype=torch.int32, device=indices.device)
+    rows = torch.cat([indices.int(), pad], dim=-1)[None]
+    cnt = counts.int()[None]
+    # the empty partial-block list gets its own tensor: one tensor passed in
+    # both places fails to compile (inductor's flex template)
+    mask = BlockMask.from_kv_blocks(torch.zeros_like(cnt), rows.clone(),
+                                    cnt, rows, BLOCK_SIZE=CHUNK_K)
+    flex = torch.compile(flex_attention)
+    q4, k4, v4 = (x[None] for x in (q, k, v))
+    return lambda: flex(q4, k4, v4, block_mask=mask)[0]
+
+
+def _check_bsa(gen, records, iters):
+    """Kernel 5 at the refine shape: 32 heads of 128, 56,320 tokens (440
+    chunks), top-k 0.875 from random q/k (55 chunks each), against
+    ``bsa_plain``. Gates as for kernel 1. ``library_ms`` is compiled
+    ``flex_attention`` with the same block table (held to the same gates
+    against ``bsa_plain``); ``dense_ms`` is kernel 1 dense on the same q, k
+    and v."""
+    from worldforge_tpu_torch.ops.bsa import (CHUNK_Q, bsa_bhsd, bsa_plain,
+                                              select_blocks)
+    from worldforge_tpu_torch.ops.flash_attention import flash_attention
+    bh, s, d = LC_HEADS, REFINE_TOKENS, 128
+    q, k, v = _bsa_inputs(gen, bh, s, d)
+    idx, cnt = select_blocks(q, k, sparsity=BSA_SPARSITY)
+    out = bsa_bhsd(q, k, v, idx, cnt)
+    ref = bsa_plain(q, k, v, idx, cnt)
+    library = _flex_bsa(q, k, v, idx, cnt)
+    lib_out = library()
+    torch.cuda.synchronize()
+
+    def errors(x):
+        diff = x.float() - ref.float()
+        err = float(diff.abs().max())
+        return (err, err / max(float(ref.float().abs().max()), 1e-12),
+                float(diff.norm() / ref.float().norm().clamp_min(1e-12)))
+
+    err, rel, rel_l2 = errors(out)
+    _, lib_rel, lib_rel_l2 = errors(lib_out)
+    ok = (bool(torch.isfinite(out).all()) and rel <= 2e-2 and rel_l2 <= 1e-2
+          and lib_rel <= 2e-2 and lib_rel_l2 <= 1e-2)
+    del lib_out
+    ms = cuda_ms(lambda: bsa_bhsd(q, k, v, idx, cnt), iters)
+    plain_ms = cuda_ms(lambda: bsa_plain(q, k, v, idx, cnt), 1)
+    lib_ms = cuda_ms(library, iters)
+    qd, kd, vd = (x.reshape(1, bh, s, d).transpose(1, 2).contiguous()
+                  for x in (q, k, v))
+    dense_ms = cuda_ms(lambda: flash_attention(qd, kd, vd), 2)
+    # the work this selection needs: every query row against count * 128
+    # keys, 2 products of d multiply-adds each
+    flops = 4.0 * CHUNK_Q * CHUNK_Q * d * float(cnt.sum())
+    bms, by = bound(flops, nbytes(q, k, v, idx, cnt) + nbytes(q),
+                    PEAK_BF16_FLOPS)
+    rec = {"check": "bsa refine", "shape": [bh, s, d],
+           "kmax": idx.shape[-1], "count_mean": float(cnt.float().mean()),
+           "dtype": str(q.dtype), "max_abs_err": err, "max_rel_err": rel,
+           "tol_rel": 2e-2, "rel_l2_err": rel_l2, "tol_rel_l2": 1e-2,
+           "library_max_rel_err": lib_rel, "library_rel_l2_err": lib_rel_l2,
+           "ok": ok, "ms": ms, "plain_ms": plain_ms, "dense_ms": dense_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "library": "torch.compile(flex_attention), BlockMask.from_kv_blocks"}
+    records.append(rec)
+    return rec
+
+
+def _check_bsa_small(gen, records, d):
+    """Kernel 5's counts, zero rows and m/l at a small shape: CDF selection
+    (variable counts) with one count forced to 0, held against
+    ``bsa_plain`` with ``return_lse``; then sparsity 0 (every chunk
+    selected) against kernel 1 dense on the same q, k and v."""
+    from worldforge_tpu_torch.ops.bsa import (NEG_INF, bsa_bhsd, bsa_plain,
+                                              select_blocks)
+    from worldforge_tpu_torch.ops.flash_attention import flash_attention
+    bh, sq, sk = 3, 512, 768
+    q = _bsa_inputs(gen, bh, sq, d, 3.0)[0]
+    k, v = _bsa_inputs(gen, bh, sk, d, 3.0)[:2]
+    idx, cnt = select_blocks(q, k, sparsity=None, cdf_threshold=0.5)
+    cnt[1, 2] = 0
+    o, m, l = bsa_bhsd(q, k, v, idx, cnt, return_lse=True)
+    ro, rm, rl = bsa_plain(q, k, v, idx, cnt, return_lse=True)
+    torch.cuda.synchronize()
+    z = slice(2 * 128, 3 * 128)
+    zero_row = (bool((o[1, z] == 0).all()) and bool((m[1, z] == NEG_INF).all())
+                and bool((l[1, z] == 0).all()))
+    live = l > 0
+    o_rel = float((o.float() - ro.float()).abs().max() / ro.float().abs().max())
+    m_err = float(((m - rm).abs() / (1.0 + rm.abs()))[live].max())
+    l_rel = float(((l - rl).abs() / rl.clamp_min(1e-30))[live].max())
+    ok = (zero_row and bool(torch.isfinite(o).all()) and o_rel <= 2e-2
+          and m_err <= 1e-4 and l_rel <= 1e-4)
+    records.append({
+        "check": f"bsa counts+lse d{d}", "shape": [bh, sq, sk, d],
+        "counts": cnt.tolist(), "zero_row_exact": zero_row,
+        "o_max_rel_err": o_rel, "tol_o_rel": 2e-2, "m_err": m_err,
+        "l_rel_err": l_rel, "tol_m_l": 1e-4, "ok": ok})
+    idx, cnt = select_blocks(q, k, sparsity=0.0)
+    o = bsa_bhsd(q, k, v, idx, cnt)
+    dense = flash_attention(*(x[None].transpose(1, 2) for x in (q, k, v)))
+    dense = dense.transpose(1, 2)[0]
+    torch.cuda.synchronize()
+    diff = o.float() - dense.float()
+    rel = float(diff.abs().max() / dense.float().abs().max())
+    rel_l2 = float(diff.norm() / dense.float().norm())
+    records.append({
+        "check": f"bsa sparsity 0 vs flash dense d{d}",
+        "shape": [bh, sq, sk, d], "max_rel_err": rel, "tol_rel": 2e-2,
+        "rel_l2_err": rel_l2, "tol_rel_l2": 1e-2,
+        "ok": bool(torch.isfinite(o).all()) and rel <= 2e-2 and
+        rel_l2 <= 1e-2})
+
+
+def _check_rope(gen, records, grid, h, d, iters, in_dtype=torch.bfloat16,
+                label="rope_qk"):
+    """Kernel 2 on q, k [1, f*h*w, heads, d] of ``in_dtype``, bf16 out (the
+    Wan DiT rotates bf16 q/k, the LongCat DiT fp32 q/k after its RMSNorm)."""
     from worldforge_tpu_torch.ops.rope import (apply_rope_qk,
                                                apply_rope_qk_plain,
                                                rope_cos_sin)
-    q = torch.randn((1, s, h, d), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((1, s, h, d), generator=gen, device="cuda").bfloat16()
-    cos, sin = rope_cos_sin(DIT_FRAMES // 4 + 1, HEIGHT // 16, WIDTH // 16,
-                            d, device="cuda")
-    qo, ko = apply_rope_qk(q, k, cos, sin)
-    qr, kr = apply_rope_qk_plain(q, k, cos, sin)
+    s = math.prod(grid)
+    q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(in_dtype)
+    k = torch.randn((1, s, h, d), generator=gen, device="cuda").to(in_dtype)
+    cos, sin = rope_cos_sin(*grid, d, device="cuda")
+    out_dtype = torch.bfloat16
+    qo, ko = apply_rope_qk(q, k, cos, sin, out_dtype=out_dtype)
+    qr, kr = apply_rope_qk_plain(q, k, cos, sin, out_dtype=out_dtype)
     torch.cuda.synchronize()
     ulps = max(bf16_ulps(qo, qr), bf16_ulps(ko, kr))
     err = max(float((qo.float() - qr.float()).abs().max()),
               float((ko.float() - kr.float()).abs().max()))
-    ms = cuda_ms(lambda: apply_rope_qk(q, k, cos, sin), iters)
-    plain_ms = cuda_ms(lambda: apply_rope_qk_plain(q, k, cos, sin), 3)
+    ms = cuda_ms(lambda: apply_rope_qk(q, k, cos, sin, out_dtype=out_dtype),
+                 iters)
+    plain_ms = cuda_ms(lambda: apply_rope_qk_plain(q, k, cos, sin,
+                                                   out_dtype=out_dtype), 3)
     flops = 6.0 * q.numel()    # 4 multiplies + 2 adds per pair, q and k
-    bms, by = bound(flops, 2 * nbytes(q, k) + nbytes(cos, sin),
+    bms, by = bound(flops, nbytes(q, k) + nbytes(qo, ko) + nbytes(cos, sin),
                     PEAK_FP32_FLOPS)
-    rec = {"check": "rope_qk", "shape": list(q.shape), "max_abs_err": err,
+    rec = {"check": label, "shape": list(q.shape), "dtype_in": str(in_dtype),
+           "max_abs_err": err,
            "max_ulps_bf16": ulps, "tol_ulps": 1, "ok": ulps <= 1, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "library_ms": None}
@@ -301,7 +468,9 @@ def phase_kernels():
                         (torch.float32, (64, 128, 384))):
         for d in dims:
             _check_flash_masked(gen, records, d, dtype)
-    main["rope_qk"] = _check_rope(gen, records, s, 40, 128, 20)
+    main["rope_qk"] = _check_rope(
+        gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16, WIDTH // 16), 40,
+        128, 20)
     main["modulated_layer_norm"] = _check_mod_ln(gen, records, s, 5120, 20)
     main["conv3d_causal"] = _check_conv(
         gen, records, GEN_FRAMES, HEIGHT, WIDTH, 96, 96, 3,
@@ -313,6 +482,21 @@ def phase_kernels():
     _check_conv(gen, records, GEN_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8,
                 384, 384, 5, "conv3d 384->384 latent res",
                 with_library=False)
+    # the LongCat refine's shapes (56,320 tokens, the VAE at 704x1280)
+    main["bsa"] = _check_bsa(gen, records, 5)
+    for d in (64, 128):
+        _check_bsa_small(gen, records, d)
+    _check_flash(gen, records, 1, REFINE_TOKENS, TEXT_LEN, LC_HEADS, 128,
+                 torch.bfloat16, 2e-2, 1e-2,
+                 "flash_attention refine text cross-attn kv_lens", 10,
+                 kv_len=REFINE_KV_LEN)
+    _check_flash(gen, records, 1, (REFINE_H // 8) * (REFINE_W // 8),
+                 (REFINE_H // 8) * (REFINE_W // 8), 1, 384, torch.float32,
+                 1e-4, 1e-4, "flash_attention refine vae fp32 d384", 3)
+    _check_rope(gen, records, REFINE_GRID, LC_HEADS, 128, 20,
+                in_dtype=torch.float32, label="rope_qk refine fp32 in")
+    _check_conv(gen, records, 4, REFINE_H, REFINE_W, 96, 96, 3,
+                "conv3d 96->96 refine 704x1280 T'6")
     for rec in records:
         emit({"phase": "kernels", **rec})
     bad = [r["check"] for r in records if not r["ok"]]
@@ -338,17 +522,33 @@ KERNEL_META = {
     "conv3d_causal": {
         "route": "cuda", "source": "worldforge_tpu_torch/csrc/conv3d.cu",
         "replaces": "worldforge_tpu/ops/conv3d.py:39"},
+    "bsa": {
+        "route": "cuda", "source": "worldforge_tpu_torch/csrc/bsa.cu",
+        "replaces": "worldforge_tpu/ops/bsa.py:100"},
 }
 
 
 def kernel_counters():
+    from worldforge_tpu_torch.ops.bsa import bsa_bhsd
     from worldforge_tpu_torch.ops.conv3d import conv3d_causal
     from worldforge_tpu_torch.ops.flash_attention import flash_attention
     from worldforge_tpu_torch.ops.fused_norm import modulated_layer_norm
     from worldforge_tpu_torch.ops.rope import apply_rope_qk
     return {"flash_attention": flash_attention, "rope_qk": apply_rope_qk,
             "modulated_layer_norm": modulated_layer_norm,
-            "conv3d_causal": conv3d_causal}
+            "conv3d_causal": conv3d_causal, "bsa": bsa_bhsd}
+
+
+WAN_PATH_KERNELS = ("flash_attention", "rope_qk", "modulated_layer_norm",
+                    "conv3d_causal")
+REFINE_PATH_KERNELS = ("flash_attention", "rope_qk", "conv3d_causal", "bsa")
+
+
+def _require_launches(launches, names, phase):
+    idle = [k for k in names if launches[k] == 0]
+    if idle:
+        raise SystemExit(f"chip_smoke: kernels not launched on the {phase} "
+                         f"path: {idle}")
 
 
 def _reset_counters():
@@ -539,11 +739,234 @@ def phase_generate():
           torch.cuda.max_memory_allocated() / 2 ** 30})
     if not (ok_shape and finite):
         raise SystemExit("chip_smoke: generate output is wrong")
-    idle = [k for k, v in launches.items() if v == 0]
-    if idle:
-        raise SystemExit(f"chip_smoke: kernels not launched on the main "
-                         f"path: {idle}")
+    _require_launches(launches, WAN_PATH_KERNELS, "generate")
+    del pipe, out
     return launches
+
+
+def _stage1_video(t, h, w, seed=0):
+    """A smooth moving pattern with a little noise, [T, H, W, 3] in [0, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = np.empty((t, h, w, 3), np.float32)
+    for i in range(t):
+        base = 0.5 + 0.4 * np.sin((xx + 6 * i) / 41.0) * np.cos(yy / 29.0)
+        for c in range(3):
+            frames[i, ..., c] = base * (0.8 + 0.1 * c)
+    frames += 0.03 * rng.standard_normal(frames.shape).astype(np.float32)
+    return np.clip(frames, 0.0, 1.0)
+
+
+def _small_refine_check():
+    """The reduced random-init LongCat refine (the loader's default configs,
+    default bf16 policy; weights drawn on the CPU and copied to the card) at
+    13 x 64 x 128 -> 128 x 256, spatial only, block-sparse attention at
+    sparsity 0.5 on its 4 chunks: run on the card with the kernels and on
+    the CPU with their plain versions, from one noise stream."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.checkpoints import load_longcat_pipeline
+    pipe, enc_t = load_longcat_pipeline(random_init=True, device="cpu")
+    on_card = dataclasses.replace(
+        pipe, dit_params=P.tree_map(lambda t: t.cuda(), pipe.dit_params),
+        vae_params=P.tree_map(lambda t: t.cuda(), pipe.vae_params))
+    stage1 = _stage1_video(13, 64, 128, seed=3)
+    pe, pmask = enc_t(REFINE_PROMPT)
+    _reset_counters()
+    outs = {}
+    for dev, p in (("cuda", on_card), ("cpu", pipe)):
+        noise = np.random.default_rng(11)
+        outs[dev] = p.generate_refine(
+            None, stage1, pe, pmask, height=128, width=256,
+            num_inference_steps=4, t_thresh=0.5, spatial_refine_only=True,
+            bsa_sparsity=0.5, output_type="latent",
+            noise_fn=lambda s: noise.standard_normal(s).astype(np.float32)
+        ).float().cpu()
+        if dev == "cuda":
+            launches = _read_counters()
+    a, b = outs["cuda"], outs["cpu"]
+    rel_l2 = float((a - b).norm() / b.norm())
+    rel_max = float((a - b).abs().max() / b.abs().max())
+    # bf16 policy: the DiT's bf16 products and the conv's bf16 input
+    # rounding differ in the last bits between cuBLAS / the kernels and the
+    # CPU, and flips compound over the steps: bf16 noise level
+    tol = 2e-2
+    ok = (bool(torch.isfinite(a).all()) and tuple(a.shape) == (1, 16, 4, 16, 32)
+          and rel_l2 < tol)
+    emit({"phase": "refine_small_vs_cpu", "shape": list(a.shape),
+          "rel_l2": rel_l2, "rel_max": rel_max, "tol_rel_l2": tol,
+          "launches_on_card": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: small refine disagrees with the CPU "
+                         "run of the plain versions")
+    _require_launches(launches, REFINE_PATH_KERNELS, "small refine")
+
+
+def phase_refine():
+    """The LongCat 480p -> 720p refine at full width and depth through the
+    user's entry points (``run_upscale`` calls the same two)."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.checkpoints import load_longcat_pipeline
+    from worldforge_tpu_torch.models.longcat.dit import LongCatDiTConfig
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
+
+    _small_refine_check()
+
+    before_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe, encode_text = load_longcat_pipeline(
+        random_init=True, device="cuda",
+        dit_cfg=LongCatDiTConfig.longcat_13b(),
+        vae_cfg=WanVAEConfig.wan_2_1())
+    pipe = dataclasses.replace(pipe, streaming_vae=True)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    sizes = []
+    P.tree_map(lambda t: sizes.append(t.numel() * t.element_size()),
+               pipe.dit_params)
+    dit_gb = sum(sizes) / 2 ** 30
+
+    stage1 = _stage1_video(REFINE_FRAMES, STAGE1_H, STAGE1_W)
+    pe, pmask = encode_text(REFINE_PROMPT)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    marks = []
+
+    def on_step(i, lat):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    encode = {}
+    prepare = pipe.prepare_refine_latents
+
+    def timed_prepare(*args, **kwargs):
+        t1 = time.time()
+        lat = prepare(*args, **kwargs)
+        torch.cuda.synchronize()
+        encode["s"] = time.time() - t1
+        encode["shape"] = list(lat.shape)
+        return lat
+
+    pipe.prepare_refine_latents = timed_prepare
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = pipe.generate_refine(
+        gen, stage1, pe, pmask, height=REFINE_H, width=REFINE_W,
+        num_inference_steps=REFINE_STEPS, t_thresh=0.5,
+        spatial_refine_only=True, use_bsa=True, bsa_sparsity=BSA_SPARSITY,
+        callback=on_step)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    launches = _read_counters()
+    step_s = [b - a for a, b in zip([t0 + encode["s"]] + marks[:-1], marks)]
+    want = (1, 3, REFINE_FRAMES, REFINE_H, REFINE_W)
+    ok_shape = out.shape == want
+    finite = bool(np.isfinite(out).all())
+    emit({"phase": "refine", "config": "longcat_13b + wan_2_1 vae (streaming)",
+          "cuts": {"steps": f"num_inference_steps {REFINE_STEPS} of 50: "
+                   f"{len(marks)} steps below t_thresh 0.5 (production: 26)"},
+          "stage1": [REFINE_FRAMES, STAGE1_H, STAGE1_W],
+          "height": REFINE_H, "width": REFINE_W,
+          "latents": encode.get("shape"), "tokens": REFINE_TOKENS,
+          "bsa_sparsity": BSA_SPARSITY, "kv_len": int(pmask.sum()),
+          "dit_weights_gb": dit_gb, "init_s": init_s,
+          "encode_s": encode.get("s"), "step_s": step_s,
+          "decode_s": total_s - (marks[-1] - t0), "total_s": total_s,
+          "launches": launches, "memory_allocated_before_gb": before_gb,
+          "launches_per_step": {k: launches[k] / len(marks)
+                                for k in ("rope_qk", "bsa")},
+          "out_shape": list(out.shape), "finite": finite,
+          "out_range": [float(out.min()), float(out.max())],
+          "max_memory_allocated_gb":
+          torch.cuda.max_memory_allocated() / 2 ** 30})
+    if not (ok_shape and finite):
+        raise SystemExit("chip_smoke: refine output is wrong")
+    _require_launches(launches, REFINE_PATH_KERNELS, "refine")
+    _profile_refine_forward(pipe, encode["shape"], pe, pmask)
+    return launches
+
+
+KERNEL_GROUPS = (
+    ("bsa (kernel 5)", ("bsa_bf16_kernel",)),
+    ("flash attention (kernel 1)", ("fa_bf16_kernel", "fa_f32_kernel")),
+    ("rope (kernel 2)", ("rope_qk_kernel",)),
+    ("conv3d (kernel 4)", ("conv3d_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+    ("memcpy / memset", ("memcpy", "memset")),
+)
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other PyTorch kernels"
+
+
+def _profile_refine_forward(pipe, latent_shape, pe, pmask):
+    """One DiT forward at the refine shape (the BSA step's model call) under
+    ``torch.profiler``: device time by kernel group, the device's busy and
+    idle share of the forward's wall time, and the largest kernels. After
+    the main path's counts are read; a measurement, not a check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from worldforge_tpu_torch.models.longcat.dit import longcat_dit_forward
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(latent_shape, generator=gen, device="cuda")
+    t = torch.full((1, latent_shape[2]), 333.0, device="cuda")
+    pe, pmask = pe.cuda(), pmask.cuda()
+
+    def forward():
+        return longcat_dit_forward(
+            pipe.dit_params, pipe.dit_cfg, x, t, pe,
+            encoder_attention_mask=pmask, policy=pipe.policy,
+            bsa_params={"sparsity": BSA_SPARSITY})
+
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        forward()
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+    spans, groups, kernels = [], {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+        g = _kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + us / 1e6
+        ms, n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (ms + us / 1e3, n + 1)
+    busy_us, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    emit({"phase": "refine_profile", "what": "one LongCat-13.6B DiT forward "
+          "at the refine shape, BSA 0.875, under torch.profiler",
+          "latents": list(latent_shape), "wall_s": wall_s,
+          "device_events": len(spans), "device_busy_s": busy_us / 1e6,
+          "device_idle_share": (1.0 - busy_us / 1e6 / wall_s)
+          if spans else None,
+          "by_group_s": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+          "top_kernels": [{"name": n[:90], "ms": ms, "calls": c}
+                          for n, (ms, c) in top]})
 
 
 def main() -> int:
@@ -551,8 +974,14 @@ def main() -> int:
     phase_build()
     main_recs = phase_kernels()
     phase_dit()
-    launches = phase_generate()
+    by_path = {"generate": phase_generate()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["refine"] = phase_refine()
 
+    launches = {name: sum(counts[name] for counts in by_path.values())
+                for name in KERNEL_META}
+    emit({"phase": "launches", "by_path": by_path, "total": launches})
     table = []
     for name, meta in KERNEL_META.items():
         rec = main_recs[name]

@@ -39,15 +39,57 @@ def test_cli_random_init_guided_on_cpu(warp_dir, tmp_path):
     assert len(pngs) == 5
 
 
+def test_cli_streaming_vae_on_cpu(warp_dir, tmp_path):
+    """``--streaming-vae`` runs the streaming encode and decode."""
+    out = str(tmp_path / "stream.mp4")
+    cli.main(["--video-ref", warp_dir, "--random-init", "--device", "cpu",
+              "--guided", "--resize", "16", "16", "--num-frames", "5",
+              "--num-inference-steps", "2", "--streaming-vae",
+              "--output", out])
+    assert os.path.getsize(out) > 0
+
+
 def test_cli_later_slices_raise(warp_dir, tmp_path):
     base = ["--video-ref", warp_dir, "--random-init", "--device", "cpu",
             "--guided", "--resize", "16", "16", "--num-frames", "5",
             "--num-inference-steps", "1", "--output",
             str(tmp_path / "x.mp4")]
-    for flag in ("--use-pca-channel-selection", "--fused",
-                 "--streaming-vae"):
+    for flag in ("--use-pca-channel-selection", "--fused"):
         with pytest.raises(NotImplementedError):
             cli.main(base + [flag])
+
+
+def test_upscale_cli_random_init_on_cpu(tmp_path):
+    """``run_upscale`` on a directory of 5 frames at 16x16, refined to
+    32x32 (the reduced random-init LongCat, 2 steps), writes a video."""
+    from PIL import Image
+
+    from worldforge_tpu_torch.cli import run_upscale
+    rng = np.random.default_rng(1)
+    d = tmp_path / "stage1"
+    d.mkdir()
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 256, (16, 16, 3), np.uint8)).save(
+            str(d / f"{i:02d}.png"))
+    d = str(d)
+    out = str(tmp_path / "up.mp4")
+    run_upscale.main(["--input", d, "--random-init",
+                      "--device", "cpu", "--spatial-refine-only",
+                      "--target-height", "32", "--target-width", "32",
+                      "--num-inference-steps", "2", "--prompt", "a street",
+                      "--output", out])
+    assert os.path.getsize(out) > 0
+    with pytest.raises(NotImplementedError):
+        run_upscale.main(["--input", d, "--random-init", "--device", "cpu",
+                          "--context_parallel_size", "2"])
+
+
+def test_load_frames_matches_jax(warp_dir):
+    """``io/frames.load_frames`` is a copy of the JAX package's
+    ``cli/warp_depthcrafter.py::_load_frames``."""
+    from worldforge_tpu.cli.warp_depthcrafter import _load_frames
+    np.testing.assert_array_equal(tframes.load_frames(warp_dir),
+                                  _load_frames(warp_dir))
 
 
 def test_host_side_copies_match_jax(warp_dir):

@@ -27,6 +27,7 @@ from worldforge_tpu_torch.core import params as TP
 from worldforge_tpu_torch.core.dtypes import FP32_POLICY as T_FP32
 from worldforge_tpu_torch.models.wan import dit as tdit
 from worldforge_tpu_torch.models.wan import vae as tvae
+from worldforge_tpu_torch.models.wan.vae_stream import vae_decode_streaming
 from worldforge_tpu_torch.pipelines.wan_i2v import WanI2VPipeline as TPipe
 from worldforge_tpu_torch.sampling.guidance import GuidanceConfig as TGuide
 from worldforge_tpu_torch.utils.torch_rng import TorchCompatibleRNG
@@ -136,15 +137,40 @@ def test_generate_pixels_and_unguided(pipes):
 
 @pytest.mark.parametrize("what", ["flf", "fused", "streaming"])
 def test_later_slices_raise(pipes, what):
+    """'streaming': the streaming VAE is ported; its H-strip tiling
+    (``spatial_chunks`` > 1) is a later slice."""
     tp, _ = pipes
+    if what == "streaming":
+        z = torch.zeros((1, tp.vae_cfg.z_dim, 2, 2, 2))
+        with pytest.raises(NotImplementedError, match="H-strip"):
+            vae_decode_streaming(tp.vae_params, tp.vae_cfg, z,
+                                 spatial_chunks=2)
+        return
     x = _inputs()
     kw = dict(height=16, width=16, num_frames=5, num_inference_steps=2,
               video_ref=x["ref"], mask=x["mask"],
               guidance=TGuide(**dict(GUIDE, use_flf=what == "flf")),
               fused=what == "fused")
-    tp.streaming_vae = what == "streaming"
+    with pytest.raises(NotImplementedError):
+        tp.generate(None, x["image"], x["pe"], x["ne"], x["ie"], **kw)
+
+
+def test_streaming_vae_generate_matches_single_pass(pipes):
+    """The guided generate with the streaming VAE against the single-pass
+    VAE: the same per-frame arithmetic, with bf16 rounding flips of the conv
+    inputs between the two passes (see ``test_torch_vae_stream.py``, which
+    also covers the decoder's ``chunk``); held at 1e-2 relative max."""
+    tp, _ = pipes
+    x = _inputs(frames=9)
+    kw = dict(height=16, width=16, num_frames=9, num_inference_steps=3,
+              guidance_scale=4.0, video_ref=x["ref"], mask=x["mask"],
+              guidance=TGuide(**GUIDE), output_type="latent")
+    args = (None, x["image"], x["pe"], x["ne"], x["ie"])
+    want = tp.generate(*args, noise_fn=_noise(3), **kw).numpy()
+    tp.streaming_vae = True
     try:
-        with pytest.raises(NotImplementedError):
-            tp.generate(None, x["image"], x["pe"], x["ne"], x["ie"], **kw)
+        got = tp.generate(*args, noise_fn=_noise(3), **kw).numpy()
     finally:
         tp.streaming_vae = False
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert got.shape == want.shape == (1, 4, 3, 2, 2) and rel < 1e-2, rel

@@ -11,8 +11,9 @@ mp4 (and optional PNGs)::
 ``--device`` defaults to the card and fails when there is none; pass
 ``--device cpu`` to run the plain PyTorch path on the CPU. ``--random-init``
 runs the full pipeline with random weights at a reduced size (converted
-checkpoints are a later slice). ``--use-pca-channel-selection`` (FLF),
-``--fused`` and ``--streaming-vae`` are later slices of the port and raise.
+checkpoints are a later slice). ``--use-pca-channel-selection`` (FLF)
+and ``--fused`` are later slices of the port and raise; ``--streaming-vae``
+runs the streaming VAE.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused", action="store_true",
                    help="not ported: the whole-loop fused runner")
     p.add_argument("--streaming-vae", action="store_true",
-                   help="not ported: the scan-streaming VAE")
+                   help="streaming VAE (bounded memory at 480p+)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default the CUDA card (fails without "
                         "one); 'cpu' runs the plain PyTorch path")

@@ -1,13 +1,15 @@
 """Pipeline assembly (the random-init branch).
 
-Counterpart of ``worldforge_tpu/io/checkpoints.py::load_wan_pipeline``.
-``random_init=True`` (or no ``models_dir``) builds a random-weight pipeline
-on the device: by default the JAX package's reduced random-init sizes, or
-the configs the caller passes (``chip_smoke.py`` passes the full-width
-Wan2.1-I2V-14B DiT and the Wan2.1 VAE). Converting real checkpoints
-(``io/convert_wan.py``) waits until the weights are in the repository, and
-so do the text and image encoders: at random init, hash embeddings stand in
-for them, as in the JAX package.
+Counterpart of ``worldforge_tpu/io/checkpoints.py::load_wan_pipeline`` and
+``load_longcat_pipeline``. ``random_init=True`` (or no checkpoint
+directory) builds a random-weight pipeline on the device: by default the
+JAX package's reduced random-init sizes, or the configs the caller passes
+(``chip_smoke.py`` passes the full-width Wan2.1-I2V-14B and
+LongCat-Video-13.6B DiTs and the Wan2.1 VAE). Converting real checkpoints
+(``io/convert_wan.py``, ``io/convert_longcat.py``) and the LongCat
+refinement LoRA wait until the weights are in the repository, and so do the
+text and image encoders: at random init, hash embeddings stand in for them,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,8 +23,11 @@ import torch
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import (DEFAULT_POLICY, Policy,
                                               resolve_device)
+from worldforge_tpu_torch.models.longcat.dit import (LongCatDiTConfig,
+                                                     init_longcat_dit)
 from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, init_wan_dit
 from worldforge_tpu_torch.models.wan.vae import WanVAEConfig, init_wan_vae
+from worldforge_tpu_torch.pipelines.longcat import LongCatPipeline
 from worldforge_tpu_torch.pipelines.wan_i2v import WanI2VPipeline
 
 DEFAULT_RANDOM_DIT = WanDiTConfig(model_type="i2v", in_dim=36, out_dim=16,
@@ -30,6 +35,9 @@ DEFAULT_RANDOM_DIT = WanDiTConfig(model_type="i2v", in_dim=36, out_dim=16,
                                   num_layers=4)
 DEFAULT_RANDOM_VAE = WanVAEConfig(dim=32, z_dim=16, dim_mult=(1, 2, 2, 2),
                                   num_res_blocks=1)
+DEFAULT_RANDOM_LONGCAT = LongCatDiTConfig(hidden_size=256, depth=4,
+                                          num_heads=4, caption_channels=4096,
+                                          adaln_tembed_dim=64)
 
 
 def _seed_of(data: bytes) -> int:
@@ -86,3 +94,45 @@ def load_wan_pipeline(models_dir: Optional[str] = None,
         return torch.randn((1, 257, dit_cfg.clip_dim), generator=gen).to(dev)
 
     return pipe, encode_text, encode_image
+
+
+def load_longcat_pipeline(checkpoint_dir: Optional[str] = None,
+                          random_init: bool = False, *,
+                          device: Optional[Union[str, torch.device]] = None,
+                          dit_cfg: Optional[LongCatDiTConfig] = None,
+                          vae_cfg: Optional[WanVAEConfig] = None,
+                          policy: Policy = DEFAULT_POLICY,
+                          seed: int = 0,
+                          ) -> Tuple[LongCatPipeline, Callable]:
+    """Returns (LongCatPipeline, encode_text(str) -> (embeds [1, L, caption],
+    mask [1, L] int32)).
+
+    device: None means the card (raises when there is none); the CPU only
+    when asked for by name. The DiT is built in bf16 (fp32 under an fp32
+    policy) one layer at a time on the device, the VAE in fp32, from
+    generators seeded ``seed`` and ``seed + 1``. The JAX loader's
+    ``use_distill`` (the distill LoRA of a converted checkpoint) comes with
+    checkpoint conversion."""
+    dev = resolve_device(device)
+    if not (random_init or checkpoint_dir is None):
+        raise NotImplementedError(
+            "loading converted LongCat checkpoints (io/convert_longcat.py) "
+            "and the refinement LoRA wait until the weights are in the "
+            "repository; use random_init=True")
+    dit_cfg = dit_cfg or DEFAULT_RANDOM_LONGCAT
+    vae_cfg = vae_cfg or DEFAULT_RANDOM_VAE
+    dit_params = init_longcat_dit(P.make_generator(seed, dev), dit_cfg,
+                                  dtype=policy.param_dtype)
+    vae_params = init_wan_vae(P.make_generator(seed + 1, dev), vae_cfg)
+    pipe = LongCatPipeline(dit_params=dit_params, dit_cfg=dit_cfg,
+                           vae_params=vae_params, vae_cfg=vae_cfg,
+                           policy=policy)
+
+    def encode_text(text: str, max_len: int = 512):
+        emb = _hash_embed(text, (1, max_len, dit_cfg.caption_channels), dev)
+        n = min(max(len(text) // 4, 1), max_len)
+        mask = torch.zeros((1, max_len), dtype=torch.int32, device=dev)
+        mask[:, :n] = 1
+        return emb, mask
+
+    return pipe, encode_text

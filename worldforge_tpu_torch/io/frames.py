@@ -97,6 +97,28 @@ def load_image(path: str, size: Optional[Tuple[int, int]] = None
     return np.asarray(img)
 
 
+def load_frames(path: str) -> np.ndarray:
+    """[T, H, W, 3] float32 in [0, 1] from a video file or a frame directory
+    (a copy of ``worldforge_tpu/cli/warp_depthcrafter.py::_load_frames``)."""
+    from PIL import Image
+    if os.path.isdir(path):
+        names = sorted(n for n in os.listdir(path)
+                       if n.lower().endswith((".png", ".jpg", ".jpeg")))
+        frames = [np.asarray(Image.open(os.path.join(path, n)).convert("RGB"))
+                  for n in names]
+        return np.stack(frames).astype(np.float32) / 255.0
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(fr, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return np.stack(frames).astype(np.float32) / 255.0
+
+
 def resize_to_mod(frames: np.ndarray, mod: int = 16) -> np.ndarray:
     """Resize [T,H,W,3] so H,W are divisible by mod (infer_worldforge
     :219-222 mod-value resize)."""

@@ -72,3 +72,9 @@ def dit_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
                      for layer in unstack_layers(tree["blocks"])]
     return out
 
+
+def longcat_dit_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` LongCat DiT param tree -> the port's
+    (``models/longcat/dit.py``): same keys, the ``[L, ...]`` blocks
+    unstacked into a list, as for the Wan DiT."""
+    return dit_params_from_jax(tree, device, dtype)

@@ -15,7 +15,7 @@ The other convs (the 3x1x1 time convs, 1x1x1 shortcuts and projections, the
 2D up/down-sampling convs) are PyTorch convolutions, as they stay XLA convs
 in JAX, with TF32 off (``core/params.py::no_tf32``).
 
-The streaming decoder (``vae_stream.py``) is a later slice of the port.
+The streaming encoder and decoder are in ``vae_stream.py``.
 """
 
 from __future__ import annotations

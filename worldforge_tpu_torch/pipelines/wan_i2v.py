@@ -14,8 +14,9 @@ Counterpart of ``worldforge_tpu/pipelines/wan_i2v.py`` on its host-loop path
     redo the UniP update from the ORIGINAL x of this step.
 
 The whole-loop fused and chunked runners (``fused=True``, ``exec_chunk``,
-``auto_layout``), the streaming VAE, meshes, ``token_chunk`` > 1 and FLF
-channel selection are later slices of the port and raise.
+``auto_layout``), meshes, ``token_chunk`` > 1 and FLF channel selection are
+later slices of the port and raise. ``streaming_vae`` runs the
+streaming VAE (``models/wan/vae_stream.py``).
 """
 
 from __future__ import annotations
