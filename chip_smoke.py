@@ -15,7 +15,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the same function where there is one (a yardstick only, never used by
    the port), and the card's bound for the same work.
 4. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
-   480x832x49 frames (20,280 tokens).
+   480x832x49 frames (20,280 tokens), then one more under ``torch.profiler``
+   (the dit_profile line: device time by kernel group).
 5. generate -- the guided repaint (CFG + IRR + VAE fuse + DSG + final decode)
    through ``load_wan_pipeline`` and ``WanI2VPipeline.generate`` at full
    width with the cuts listed on its line; every kernel of that path must
@@ -50,9 +51,10 @@ sys.path.insert(0, HERE)
 
 import worldforge_tpu_torch  # noqa: E402,F401  (fails outside the checkout)
 
-# H100 SXM data sheet: dense bf16 tensor-core rate, fp32 rate outside the
-# tensor cores, and device memory rate.
+# H100 SXM data sheet: dense bf16 and TF32 tensor-core rates, fp32 rate
+# outside the tensor cores, and device memory rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -178,8 +180,16 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens=kl), 1)
     keys = sk if kv_len is None else kv_len
     flops = 4.0 * b * h * sq * keys * d
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    bms, by = bound(flops, 2 * nbytes(q) + 2 * nbytes(k) * keys / sk, peak)
+    io_bytes = 2 * nbytes(q) + 2 * nbytes(k) * keys / sk
+    extra = {}
+    if dtype == torch.bfloat16:
+        bms, by = bound(flops, io_bytes, PEAK_BF16_FLOPS)
+    else:
+        # fp32 runs on the tensor cores as 3 TF32 products (3xTF32); the
+        # bound of the same work on the fp32 FMA units stands beside it
+        bms, by = bound(3 * flops, io_bytes, PEAK_TF32_FLOPS)
+        extra = {"bound_basis": "3 TF32 products at 495 TFLOP/s",
+                 "fma_bound_ms": bound(flops, io_bytes, PEAK_FP32_FLOPS)[0]}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask = None if kv_len is None else (
         torch.arange(sk, device="cuda") < kv_len)[None, None, None, :]
@@ -190,33 +200,39 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol_rel,
            "rel_l2_err": rel_l2, "tol_rel_l2": tol_l2,
            "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-           "bound_by": by, "library_ms": lib_ms}
+           "bound_by": by, **extra, "library_ms": lib_ms}
     records.append(rec)
     return rec
 
 
-def _check_flash_masked(gen, records, d, dtype):
+def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
+                        kv_lens=(0, 77, 300)):
     """Kernel 1's kv_lens masking and return_lse outputs at a small shape:
-    batch rows with kv_len 0, a ragged length (not a multiple of any kv
-    tile) and the full length. o, m and l are held against the plain
-    version; the kv_len = 0 row must be exactly zero with m = -1e30, l = 0."""
+    by default batch rows with kv_len 0, a ragged length (not a multiple of
+    any kv tile) and the full length; with B = 2 and Sq = Sk = 333, a ragged
+    last query and key tile in every batch row, which TMA must zero-fill
+    without reading the next batch row. o, m and l are held against the
+    plain version; a kv_len = 0 row must be exactly zero with m = -1e30,
+    l = 0."""
     from worldforge_tpu_torch.ops.flash_attention import (
         NEG_INF, flash_attention, flash_attention_plain)
-    b, sq, sk, h = 3, 200, 300, 2
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
-    kv_lens = torch.tensor([0, 77, sk], dtype=torch.int32, device="cuda")
+    kv_lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     o, m, l = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
     ro, rm, rl = flash_attention_plain(q, k, v, kv_lens=kv_lens,
                                        return_lse=True)
     torch.cuda.synchronize()
-    zero_row = (bool((o[0] == 0).all()) and bool((m[0] == NEG_INF).all())
-                and bool((l[0] == 0).all()))
-    of, rof = o[1:].float(), ro[1:].float()
+    empty = kv_lens == 0
+    zero_row = (bool((o[empty] == 0).all()) and
+                bool((m[empty] == NEG_INF).all()) and
+                bool((l[empty] == 0).all()))
+    live = ~empty
+    of, rof = o[live].float(), ro[live].float()
     o_rel = float((of - rof).abs().max() / rof.abs().max())
-    m_err = float(((m[1:] - rm[1:]).abs() / (1.0 + rm[1:].abs())).max())
-    l_rel = float(((l[1:] - rl[1:]).abs() / rl[1:]).max())
+    m_err = float(((m[live] - rm[live]).abs() / (1.0 + rm[live].abs())).max())
+    l_rel = float(((l[live] - rl[live]).abs() / rl[live]).max())
     tol_o = 2e-2 if dtype == torch.bfloat16 else 1e-4
     tol_ml = 1e-4
     ok = (zero_row and bool(torch.isfinite(o).all()) and o_rel <= tol_o
@@ -226,6 +242,35 @@ def _check_flash_masked(gen, records, d, dtype):
            "zero_row_exact": zero_row, "o_max_rel_err": o_rel,
            "tol_o_rel": tol_o, "m_err": m_err, "l_rel_err": l_rel,
            "tol_m_l": tol_ml, "ok": ok}
+    records.append(rec)
+    return rec
+
+
+def _check_flash_f32_precision(gen, records, b, s, d):
+    """Kernel 1's fp32 path on inputs scaled x8 (scores 64x larger), where
+    one TF32 pass misses the 1e-4 gate: the kernel's error beside that of
+    the plain version run with TF32 matmuls (one pass) on the same inputs,
+    both against the plain version in full fp32."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    q, k, v = (torch.randn((b, s, 1, d), generator=gen, device="cuda") * 8.0
+               for _ in range(3))
+    out = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = flash_attention_plain(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    top = max(float(ref.abs().max()), 1e-12)
+    rel = float((out - ref).abs().max()) / top
+    tf32_rel = float((one_pass - ref).abs().max()) / top
+    rec = {"check": f"flash_attention fp32 d{d} inputs x8 (3xTF32)",
+           "shape": [b, s, s, 1, d], "max_rel_err": rel, "tol_rel": 1e-4,
+           "one_pass_tf32_matmul_max_rel_err": tf32_rel,
+           "ok": bool(torch.isfinite(out).all()) and rel <= 1e-4}
     records.append(rec)
     return rec
 
@@ -385,7 +430,8 @@ def _check_rope(gen, records, grid, h, d, iters, in_dtype=torch.bfloat16,
            "max_abs_err": err,
            "max_ulps_bf16": ulps, "tol_ulps": 1, "ok": ulps <= 1, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           "library_ms": None}
+           "library_ms": None,
+           "library": "none: no PyTorch call rotates interleaved pairs"}
     records.append(rec)
     return rec
 
@@ -405,10 +451,16 @@ def _check_mod_ln(gen, records, s, d, iters):
     plain_ms = cuda_ms(lambda: modulated_layer_norm_ref(x, sc, sh), 3)
     bms, by = bound(8.0 * x.numel(), nbytes(x, sc, sh) + nbytes(out),
                     PEAK_FP32_FLOPS)
+    # at B = 1 one LayerNorm with weight 1 + scale and bias shift, then a
+    # cast, computes the same function
+    w, bias = 1.0 + sc[0, 0], sh[0, 0]
+    lib_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(
+        x, (d,), weight=w, bias=bias).to(torch.bfloat16), iters)
     rec = {"check": "modulated_layer_norm", "shape": list(x.shape),
            "max_abs_err": err, "max_ulps_bf16": ulps, "tol_ulps": 1,
            "ok": ulps <= 1, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-           "bound_by": by, "library_ms": None}
+           "bound_by": by, "library_ms": lib_ms,
+           "library": "F.layer_norm(weight=1+scale, bias=shift) + bf16 cast"}
     records.append(rec)
     return rec
 
@@ -468,6 +520,11 @@ def phase_kernels():
                         (torch.float32, (64, 128, 384))):
         for d in dims:
             _check_flash_masked(gen, records, d, dtype)
+    for d, dtype in ((128, torch.bfloat16), (384, torch.float32)):
+        _check_flash_masked(gen, records, d, dtype, b=2, sq=333, sk=333,
+                            kv_lens=(333, 129))
+    _check_flash_f32_precision(gen, records, 1, (HEIGHT // 8) * (WIDTH // 8),
+                               384)
     main["rope_qk"] = _check_rope(
         gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16, WIDTH // 16), 40,
         128, 20)
@@ -608,7 +665,12 @@ def phase_dit():
           torch.cuda.max_memory_allocated() / 2 ** 30})
     if not finite or tuple(out.shape) != (1, 16, t_lat, h_lat, w_lat):
         raise SystemExit("chip_smoke: DiT forward output is wrong")
-    del params, out
+    del out
+    _profile_forward(
+        lambda: wan_dit_forward(params, cfg, x, t, ctx, clip_fea=clip, y=y),
+        "dit_profile", "one Wan2.1-I2V-14B DiT forward at 20,280 tokens under "
+        "torch.profiler", {"tokens": t_lat * (h_lat // 2) * (w_lat // 2)})
+    del params
     torch.cuda.empty_cache()
 
 
@@ -894,9 +956,10 @@ def phase_refine():
 
 
 KERNEL_GROUPS = (
-    ("bsa (kernel 5)", ("bsa_bf16_kernel",)),
-    ("flash attention (kernel 1)", ("fa_bf16_kernel", "fa_f32_kernel")),
+    ("bsa (kernel 5)", ("bsatiles",)),
+    ("flash attention (kernel 1)", ("densetiles", "fa_f32_tf32_kernel")),
     ("rope (kernel 2)", ("rope_qk_kernel",)),
+    ("modulated LN (kernel 3)", ("mod_ln_kernel",)),
     ("conv3d (kernel 4)", ("conv3d_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
     ("memcpy / memset", ("memcpy", "memset")),
@@ -912,13 +975,7 @@ def _kernel_group(name: str) -> str:
 
 
 def _profile_refine_forward(pipe, latent_shape, pe, pmask):
-    """One DiT forward at the refine shape (the BSA step's model call) under
-    ``torch.profiler``: device time by kernel group, the device's busy and
-    idle share of the forward's wall time, and the largest kernels. After
-    the main path's counts are read; a measurement, not a check."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One DiT forward at the refine shape (the BSA step's model call)."""
     from worldforge_tpu_torch.models.longcat.dit import longcat_dit_forward
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(latent_shape, generator=gen, device="cuda")
@@ -930,6 +987,19 @@ def _profile_refine_forward(pipe, latent_shape, pe, pmask):
             pipe.dit_params, pipe.dit_cfg, x, t, pe,
             encoder_attention_mask=pmask, policy=pipe.policy,
             bsa_params={"sparsity": BSA_SPARSITY})
+
+    _profile_forward(forward, "refine_profile", "one LongCat-13.6B DiT "
+                     "forward at the refine shape, BSA 0.875, under "
+                     "torch.profiler", {"latents": list(latent_shape)})
+
+
+def _profile_forward(forward, phase, what, extra):
+    """``forward`` (warmed up once) under ``torch.profiler``: device time by
+    kernel group, the device's busy and idle share of the forward's wall
+    time, and the largest kernels. After the main path's counts are read; a
+    measurement, not a check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     forward()
     torch.cuda.synchronize()
@@ -958,9 +1028,7 @@ def _profile_refine_forward(pipe, latent_shape, pe, pmask):
             busy_us += b - end
             end = b
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "refine_profile", "what": "one LongCat-13.6B DiT forward "
-          "at the refine shape, BSA 0.875, under torch.profiler",
-          "latents": list(latent_shape), "wall_s": wall_s,
+    emit({"phase": phase, "what": what, **extra, "wall_s": wall_s,
           "device_events": len(spans), "device_busy_s": busy_us / 1e6,
           "device_idle_share": (1.0 - busy_us / 1e6 / wall_s)
           if spans else None,

@@ -13,58 +13,63 @@
 // What bounds it on the H100: operations. At the Wan2.1-14B 480p shape
 // (20,280 tokens, 40 heads of 128) one self-attention is 4*S^2*D*H = 8.4
 // TFLOP against 0.83 GB of q/k/v/o, far above the card's ~295 FLOP/byte
-// ridge. The design keeps S, P and the output accumulator on chip and feeds
-// the bf16 products to the tensor cores:
-//   * bf16 (d = 64, 128): one block of 4 warps per (b*h, 64-query tile); each
-//     warp owns 16 query rows. K and V tiles of 64 keys are double-buffered
-//     in shared memory with cp.async; Q.K^T and P.V run as m16n8k16 bf16
-//     mma.sync products (operands through ldmatrix) with fp32 accumulation,
-//     and the scores, probabilities and output accumulator never leave the
-//     registers (the mma accumulator layout of S is the A-operand layout of
-//     P), so a kv tile needs no shared-memory round trip besides K and V.
-//   * fp32 (d = 64, 128, 384; the VAE's single-head attention is d = 384):
-//     full fp32 FMA arithmetic, no tensor cores (TF32 would round the inputs
-//     to 10 mantissa bits). One block of 128 threads per 16-query tile, 8
-//     threads per query row with the q slice in registers; kv tiles of 16
-//     keys in shared memory (48 KB at d = 384, so the launch raises the
-//     dynamic shared-memory limit), read by broadcast.
-// Simple and correct first: no TMA and no wgmma (Hopper's full tensor-core
-// rate needs both; a later change).
+// ridge; the VAE's fp32 single-head attention (d = 384) likewise, where
+// plain FMAs run at a seventh of the TF32 tensor-core rate. So both dtypes
+// run on the tensor cores:
+//   * bf16 (d = 64, 128): the shared wgmma / TMA main loop of
+//     attention_sm90.cuh with the dense tile source: 128 query rows per
+//     block, a producer warp keeping two 128-key K/V stages in flight with
+//     TMA, S and O += P.V as wgmma from shared memory and registers. The
+//     tensor maps are 4D (D, H, S, B), so the ragged last tile of a batch
+//     row is zero-filled by TMA instead of reading the next batch row.
+//   * fp32 (d = 64, 128, 384): the tensor cores through 3xTF32: every fp32
+//     product is three TF32 mma.sync m16n8k8 products hi.hi + hi.lo + lo.hi
+//     (hi = the input rounded to TF32, lo = the rest rounded again), summed
+//     in fp32, which keeps fp32 accuracy (one TF32 pass keeps about three
+//     decimal digits). mma.sync, not wgmma: TF32 wgmma takes only K-major
+//     operands and V [keys, D] is not K-major for P.V. A block holds 64
+//     query rows; a 16x384 fp32 accumulator would be 192 registers a
+//     thread in one warp, so each 16-row group has two warps, each owning
+//     half of O's columns and computing half of S's depth; the two halves
+//     of S meet in shared memory, which also turns S from the accumulator
+//     layout into P's A-operand layout. K and V tiles of 32 keys are loaded
+//     with cp.async, each while the other one is in use. The tensor cores
+//     truncate as they add into an fp32 accumulator, a bias that grows with
+//     the count of products, so each product is summed in short runs (a few
+//     k-steps of S, one kv tile of O) that are then added in fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attention_sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// ----------------------------------------------------------- bf16 mma.sync
+// ---------------------------------------------------------- fp32 3xTF32
 
-constexpr int kBQ = 64;       // query rows per block (16 per warp)
-constexpr int kBK = 64;       // keys per kv tile
-constexpr int kWarps = 4;
+constexpr int kFQ = 64;          // query rows per block: 4 groups of 16
+constexpr int kFK = 32;          // keys per kv tile
+constexpr int kFThreads = 256;   // 8 warps: two per 16-row group
 
 template <int D>
-struct Bf16Smem {
-  // Row stride of the Q/K/V tiles: D + 8 bf16 shifts each row by 16 bytes
-  // of bank, so the 8 row addresses of an ldmatrix hit 8 distinct banks.
-  static constexpr int LD = D + 8;
-  static constexpr int tile = kBK * LD;                 // one K or V stage
-  static constexpr size_t bytes =
-      sizeof(__nv_bfloat16) * (kBQ * LD + 4 * tile);    // Q, 2 K, 2 V
+struct F32Smem {
+  // Row strides (floats) chosen so the fragment loads hit 32 distinct banks:
+  // Q and K rows are read as (row lane/4, column lane%4), so a stride of 4
+  // mod 32; V rows as (row lane%4, column lane/4), so 8 mod 32.
+  static constexpr int LQ = D + 4, LK = D + 4, LV = D + 8, LS = kFK + 4;
+  static constexpr int q = 0, k = kFQ * LQ, v = k + kFK * LK,
+                       s = v + kFK * LV;
+  static constexpr size_t bytes = sizeof(float) * (s + 2 * kFQ * LS);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global->shared copy that bypasses the registers; zero-fills the
-// destination when !valid (src-size 0 reads nothing).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -74,149 +79,182 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// Stage `rows` rows of D floats (global row stride `gs`) into shared memory
+// with row stride `ld`; rows at or past `valid` are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          int rows, int valid, long gs,
+                                          int ld) {
+  constexpr int VPR = D / 4;
+  for (int i = threadIdx.x; i < rows * VPR; i += kFThreads) {
+    const int r = i / VPR, c = (i % VPR) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * ld + c, src + (long)(ok ? r : 0) * gs + c, ok);
+  }
 }
 
-// c += a . b for a 16x16 (row) bf16 A, a 16x8 (col) bf16 B, fp32 C.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+// x = hi + lo, both TF32 (round to nearest, ties away).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// c += a . b for a 16x8 (row) TF32 A, an 8x8 (col) TF32 B, fp32 C.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// c += a . b in fp32 accuracy: the small cross terms first, lo.lo dropped
+// (it is below fp32 rounding).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const float (&b)[2]) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b[0], h0, l0);
+  split_tf32(b[1], h1, l1);
+  mma_tf32(c, alo, h0, h1);
+  mma_tf32(c, ahi, l0, l1);
+  mma_tf32(c, ahi, h0, h1);
 }
 
-// Stage a [rows, D] bf16 tile (global row stride `gs` elements) into shared
-// memory with row stride LD; rows at or past `valid` are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int rows,
-                                           int valid, long gs) {
-  constexpr int VPR = D / 8;                  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * VPR; i += blockDim.x) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LD + c, src + (long)(ok ? r : 0) * gs + c, ok);
-  }
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
 }
 
-// One block per (b*h, 64-query tile), 4 warps of 16 query rows. The
-// accumulator, the scores and the probabilities live in registers in the
-// mma fragment layouts: a thread owns rows g and g+8 of its warp's 16
-// (g = lane / 4) and, in every 8-wide column tile, columns 2*(lane%4) and
-// 2*(lane%4)+1. K and V tiles are double-buffered with cp.async, so the
-// next tile loads while this one computes.
+// One block per (64-query tile, b*h); warp w takes rows 16*(w/2) .. +16 and
+// half w%2: O's columns [half*D/2, +D/2) and S's depth [half*D/2, +D/2).
+// m16n8k8 fragments (g = lane/4, t = lane%4): A holds (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); C holds
+// (g, 2t..2t+1) and (g+8, 2t..2t+1).
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ o,
-               float* __restrict__ m_out, float* __restrict__ l_out,
-               int Sq, int Sk, int H, float scale) {
-  using L = Bf16Smem<D>;
-  constexpr int NS = kBK / 8;                 // score column tiles
-  constexpr int NO = D / 8;                   // output column tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kBQ * L::LD;       // stages at 0 and L::tile
-  __nv_bfloat16* Vs = Ks + 2 * L::tile;
+__global__ void __launch_bounds__(kFThreads, 1)
+fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const int* __restrict__ kv_lens, float* __restrict__ o,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
+                   int Sq, int Sk, int H, float scale) {
+  using L = F32Smem<D>;
+  constexpr int HD = D / 2;      // O columns / S depth per warp
+  constexpr int NO = HD / 8;     // O column blocks per warp
+  // The tensor cores add into their fp32 accumulator with truncation, a
+  // bias that grows with the number of products summed: so each product
+  // is summed over at most KC k-steps (S) or one kv tile (O), NG column
+  // blocks at a time, and those partial sums are added in fp32.
+  constexpr int KC = HD / 8 < 8 ? HD / 8 : 8;
+  constexpr int NG = NO < 8 ? NO : 8;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm + L::q;
+  float* Ks = fsm + L::k;
+  float* Vs = fsm + L::v;
+  float* Ss = fsm + L::s;        // [2 halves][64 rows][LS]
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kFQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const long rs = (long)H * D;                       // token stride
+  const int g = lane / 4, t4 = lane % 4;
+  const int rg = warp / 2, half = warp % 2;
+  const int r0 = rg * 16 + g, r1 = r0 + 8;       // this thread's rows
+  const long rs = (long)H * D;                   // token stride
   const int kv_len = max(0, min(kv_lens[b], Sk));
-  const int ntiles = (kv_len + kBK - 1) / kBK;       // tiles past kv_len skip
-  const __nv_bfloat16* qb = q + ((long)b * Sq + q0) * rs + (long)h * D;
-  const __nv_bfloat16* kb = k + (long)b * Sk * rs + (long)h * D;
-  const __nv_bfloat16* vb = v + (long)b * Sk * rs + (long)h * D;
+  const int ntiles = (kv_len + kFK - 1) / kFK;   // tiles past kv_len skip
+  const float* qb = q + ((long)b * Sq + q0) * rs + (long)h * D;
+  const float* kb = k + (long)b * Sk * rs + (long)h * D;
+  const float* vb = v + (long)b * Sk * rs + (long)h * D;
 
-  stage_tile<D, L::LD>(Qs, qb, kBQ, min(kBQ, Sq - q0), rs);
   if (ntiles > 0) {
-    stage_tile<D, L::LD>(Ks, kb, kBK, min(kBK, Sk), rs);
-    stage_tile<D, L::LD>(Vs, vb, kBK, min(kBK, Sk), rs);
+    stage_f32<D>(Qs, qb, kFQ, min(kFQ, Sq - q0), rs, L::LQ);
+    stage_f32<D>(Ks, kb, kFK, min(kFK, Sk), rs, L::LK);
   }
   cp_async_commit();
+  if (ntiles > 0) stage_f32<D>(Vs, vb, kFK, min(kFK, Sk), rs, L::LV);
+  cp_async_commit();
 
-  uint32_t qf[D / 16][4];
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;   // running max of rows g and g+8
+  float m0 = kNegInf, m1 = kNegInf;   // running max of rows r0, r1
   float l0 = 0.f, l1 = 0.f;           // this thread's part of their sums
 
   for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < ntiles) {
-      const int k1 = (t + 1) * kBK;
-      stage_tile<D, L::LD>(Ks + (st ^ 1) * L::tile, kb + (long)k1 * rs, kBK,
-                           min(kBK, Sk - k1), rs);
-      stage_tile<D, L::LD>(Vs + (st ^ 1) * L::tile, vb + (long)k1 * rs, kBK,
-                           min(kBK, Sk - k1), rs);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int key0 = t * kFK;
+    cp_async_wait<1>();               // Q and K(t) have landed
     __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * L::LD + kk * 16 +
-                                (lane >> 4) * 8);
-    }
-    const __nv_bfloat16* Kt = Ks + st * L::tile;
-    const __nv_bfloat16* Vt = Vs + st * L::tile;
 
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float sc[NS][4];
+    // half of S's depth: rows r0, r1 x 32 keys x D/2, summed in chunks of
+    // KC k-steps that are added in fp32
+    float sp[4][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    for (int j = 0; j < 4; ++j) sp[j][0] = sp[j][1] = sp[j][2] = sp[j][3] = 0.f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < HD / 8; k0 += KC) {
+      float tp[4][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int j = 0; j < 4; ++j)
+        tp[j][0] = tp[j][1] = tp[j][2] = tp[j][3] = 0.f;
 #pragma unroll
-      for (int j2 = 0; j2 < NS / 2; ++j2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                 L::LD + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[2 * j2], qf[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * j2 + 1], qf[kk], bk[2], bk[3]);
+      for (int kk = k0; kk < k0 + KC; ++kk) {
+        const int d0 = half * HD + kk * 8 + t4;
+        const float a[4] = {Qs[r0 * L::LQ + d0], Qs[r1 * L::LQ + d0],
+                            Qs[r0 * L::LQ + d0 + 4], Qs[r1 * L::LQ + d0 + 4]};
+        uint32_t ahi[4], alo[4];
+        split4(a, ahi, alo);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* kr = Ks + (8 * j + g) * L::LK + d0;
+          const float bk[2] = {kr[0], kr[4]};
+          mma_3xtf32(tp[j], ahi, alo, bk);
+        }
       }
-    }
-
-    // online softmax on rows g (elements 0, 1) and g+8 (elements 2, 3)
-    const int kbase = t * kBK + tig * 2;
-    float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sp[j][e] += tp[j][e];
+    }
+    float* sh = Ss + half * kFQ * L::LS;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<float2*>(sh + r0 * L::LS + 8 * j + 2 * t4) =
+          make_float2(sp[j][0], sp[j][1]);
+      *reinterpret_cast<float2*>(sh + r1 * L::LS + 8 * j + 2 * t4) =
+          make_float2(sp[j][2], sp[j][3]);
+    }
+    __syncthreads();                  // S halves written; K(t) is free
+    if (t + 1 < ntiles)
+      stage_f32<D>(Ks, kb + (long)(key0 + kFK) * rs, kFK,
+                   min(kFK, Sk - key0 - kFK), rs, L::LK);
+    cp_async_commit();
+
+    // S = both halves, read in P's A-operand layout: k-step kk covers keys
+    // 8kk .. 8kk+7, s[kk] = (r0, t4), (r1, t4), (r0, t4+4), (r1, t4+4)
+    float s[4][4];
+    const float* s0p = Ss;
+    const float* s1p = Ss + kFQ * L::LS;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float val = sc[j][e] * scale;
-        if (kbase + j * 8 + (e & 1) >= kv_len) val = kNegInf;
-        sc[j][e] = val;
+        const int row = (e & 1) ? r1 : r0;
+        const int col = 8 * kk + t4 + (e >> 1) * 4;
+        const float val = (s0p[row * L::LS + col] + s1p[row * L::LS + col]) *
+                          scale;
+        s[kk][e] = key0 + col < kv_len ? val : kNegInf;
       }
-      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mx0 = fmaxf(mx0, fmaxf(s[kk][0], s[kk][2]));
+      mx1 = fmaxf(mx1, fmaxf(s[kk][1], s[kk][3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -224,48 +262,58 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
-    float s0 = 0.f, s1 = 0.f;
+    float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      sc[j][0] = __expf(sc[j][0] - mn0);
-      sc[j][1] = __expf(sc[j][1] - mn0);
-      sc[j][2] = __expf(sc[j][2] - mn1);
-      sc[j][3] = __expf(sc[j][3] - mn1);
-      s0 += sc[j][0] + sc[j][1];
-      s1 += sc[j][2] + sc[j][3];
+    for (int kk = 0; kk < 4; ++kk) {
+      s[kk][0] = expf(s[kk][0] - mn0);
+      s[kk][1] = expf(s[kk][1] - mn1);
+      s[kk][2] = expf(s[kk][2] - mn0);
+      s[kk][3] = expf(s[kk][3] - mn1);
+      sum0 += s[kk][0] + s[kk][2];
+      sum1 += s[kk][1] + s[kk][3];
     }
-    l0 = al0 * l0 + s0;
-    l1 = al1 * l1 + s1;
+    l0 = al0 * l0 + sum0;
+    l1 = al1 * l1 + sum1;
+    uint32_t phi[4][4], plo[4][4];
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= al0;
-      acc[n][1] *= al0;
-      acc[n][2] *= al1;
-      acc[n][3] *= al1;
-    }
+    for (int kk = 0; kk < 4; ++kk) split4(s[kk], phi[kk], plo[kk]);
 
-    // O += P V, with P rounded to bf16 (the Pallas kernel's p.astype(v))
+    cp_async_wait<1>();               // V(t) has landed
+    __syncthreads();
+    // O = alpha O + P V over this warp's D/2 columns, NG column blocks at a
+    // time: each tile's product is summed apart and added in fp32
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+    for (int n0 = 0; n0 < NO; n0 += NG) {
+      float tp[NG][4];
 #pragma unroll
-      for (int n2 = 0; n2 < NO / 2; ++n2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, Vt + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * L::LD +
-                                  n2 * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * n2], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * n2 + 1], pa, bv[2], bv[3]);
+      for (int i = 0; i < NG; ++i)
+        tp[i][0] = tp[i][1] = tp[i][2] = tp[i][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* vr = Vs + (8 * kk + t4) * L::LV + half * HD + g;
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const float bv[2] = {vr[8 * (n0 + i)], vr[4 * L::LV + 8 * (n0 + i)]};
+          mma_3xtf32(tp[i], phi[kk], plo[kk], bv);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        float* a = acc[n0 + i];
+        a[0] = fmaf(a[0], al0, tp[i][0]);
+        a[1] = fmaf(a[1], al0, tp[i][1]);
+        a[2] = fmaf(a[2], al1, tp[i][2]);
+        a[3] = fmaf(a[3], al1, tp[i][3]);
       }
     }
-    __syncthreads();   // every warp is done with this stage before refill
+    __syncthreads();                  // V(t) and the S halves are free
+    if (t + 1 < ntiles)
+      stage_f32<D>(Vs, vb + (long)(key0 + kFK) * rs, kFK,
+                   min(kFK, Sk - key0 - kFK), rs, L::LV);
+    cp_async_commit();
   }
   cp_async_wait<0>();
 
@@ -277,153 +325,27 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const bool ok0 = q0 + r0 < Sq, ok1 = q0 + r1 < Sq;
+  float* o0 = o + ((long)b * Sq + q0 + r0) * rs + (long)h * D + half * HD;
+  float* o1 = o + ((long)b * Sq + q0 + r1) * rs + (long)h * D + half * HD;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (r0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(o + ((long)b * Sq + r0) * rs +
-                                         (long)h * D + c) =
-          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(o + ((long)b * Sq + r1) * rs +
-                                         (long)h * D + c) =
-          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
+    const int c = 8 * n + 2 * t4;
+    if (ok0)
+      *reinterpret_cast<float2*>(o0 + c) =
+          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (ok1)
+      *reinterpret_cast<float2*>(o1 + c) =
+          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
   }
-  if (m_out != nullptr && tig == 0) {
-    if (r0 < Sq) {
-      m_out[(long)bh * Sq + r0] = m0;
-      l_out[(long)bh * Sq + r0] = l0;
+  if (m_out != nullptr && half == 0 && t4 == 0) {
+    if (ok0) {
+      m_out[(long)bh * Sq + q0 + r0] = m0;
+      l_out[(long)bh * Sq + q0 + r0] = l0;
     }
-    if (r1 < Sq) {
-      m_out[(long)bh * Sq + r1] = m1;
-      l_out[(long)bh * Sq + r1] = l1;
-    }
-  }
-}
-
-// ----------------------------------------------------------------- fp32 FMA
-
-constexpr int kFQ = 16;         // query rows per block
-constexpr int kFK = 16;         // keys per kv tile
-constexpr int kFThreads = 128;  // 8 threads per query row
-
-template <int D>
-struct F32Smem {
-  static constexpr size_t bytes = sizeof(float) * 2 * kFK * D;   // K, V
-};
-
-// Eight threads share a query row; thread `sub` owns the dims
-// d = 32*j + 4*sub + {0..3}, holds its q slice in registers for the whole
-// kv loop and reads K and V as float4. The four rows of a warp read the
-// same K / V addresses, which shared memory broadcasts, so each 128-byte
-// wavefront feeds 128 FMAs. Each score is reduced over the 8 threads with
-// three xor-shuffles, which leaves it in all 8; the softmax state is kept
-// redundantly in all 8.
-template <int D>
-__global__ void __launch_bounds__(kFThreads, 3)
-fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ kv_lens,
-              float* __restrict__ o, float* __restrict__ m_out,
-              float* __restrict__ l_out, int Sq, int Sk, int H, float scale) {
-  constexpr int NJ = D / 32;            // float4 slices per thread
-  extern __shared__ __align__(16) unsigned char smem_f[];
-  float* Ks = reinterpret_cast<float*>(smem_f);
-  float* Vs = Ks + kFK * D;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int row = threadIdx.x / 8, sub = threadIdx.x % 8;
-  const int qi = blockIdx.x * kFQ + row;
-  const long rs = (long)H * D;
-  const int kv_len = max(0, min(kv_lens[b], Sk));
-  const float* kb = k + (long)b * Sk * rs + (long)h * D;
-  const float* vb = v + (long)b * Sk * rs + (long)h * D;
-
-  float4 qv[NJ], acc[NJ];
-  const float* qrow = q + ((long)b * Sq + min(qi, Sq - 1)) * rs + (long)h * D;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    qv[j] = *reinterpret_cast<const float4*>(qrow + 32 * j + 4 * sub);
-    acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m_i = kNegInf, l_i = 0.f;
-
-  for (int k0 = 0; k0 < kv_len; k0 += kFK) {
-    __syncthreads();   // every thread is done with the previous tiles
-    const int kvalid = min(kFK, Sk - k0);
-    for (int i = threadIdx.x; i < kFK * D / 4; i += kFThreads) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kz = make_float4(0.f, 0.f, 0.f, 0.f), vz = kz;
-      if (r < kvalid) {
-        kz = *reinterpret_cast<const float4*>(kb + (long)(k0 + r) * rs + c);
-        vz = *reinterpret_cast<const float4*>(vb + (long)(k0 + r) * rs + c);
-      }
-      *reinterpret_cast<float4*>(Ks + r * D + c) = kz;
-      *reinterpret_cast<float4*>(Vs + r * D + c) = vz;
-    }
-    __syncthreads();
-
-    float s[kFK];
-    float mx = kNegInf;
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float* krow = Ks + kk * D + 4 * sub;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 kf = *reinterpret_cast<const float4*>(krow + 32 * j);
-        part = fmaf(qv[j].x, kf.x, part);
-        part = fmaf(qv[j].y, kf.y, part);
-        part = fmaf(qv[j].z, kf.z, part);
-        part = fmaf(qv[j].w, kf.w, part);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      s[kk] = k0 + kk < kv_len ? part * scale : kNegInf;
-      mx = fmaxf(mx, s[kk]);
-    }
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = expf(m_i - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      s[kk] = expf(s[kk] - m_new);
-      sum += s[kk];
-    }
-    l_i = alpha * l_i + sum;
-    m_i = m_new;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc[j].x *= alpha; acc[j].y *= alpha;
-      acc[j].z *= alpha; acc[j].w *= alpha;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float p = s[kk];
-      const float* vrow = Vs + kk * D + 4 * sub;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 vf = *reinterpret_cast<const float4*>(vrow + 32 * j);
-        acc[j].x = fmaf(p, vf.x, acc[j].x);
-        acc[j].y = fmaf(p, vf.y, acc[j].y);
-        acc[j].z = fmaf(p, vf.z, acc[j].z);
-        acc[j].w = fmaf(p, vf.w, acc[j].w);
-      }
-    }
-  }
-
-  if (qi < Sq) {
-    const float inv = l_i == 0.f ? 0.f : 1.f / l_i;
-    float* orow = o + ((long)b * Sq + qi) * rs + (long)h * D + 4 * sub;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      *reinterpret_cast<float4*>(orow + 32 * j) =
-          make_float4(acc[j].x * inv, acc[j].y * inv, acc[j].z * inv,
-                      acc[j].w * inv);
-    if (m_out != nullptr && sub == 0) {
-      m_out[(long)bh * Sq + qi] = m_i;
-      l_out[(long)bh * Sq + qi] = l_i;
+    if (ok1) {
+      m_out[(long)bh * Sq + q0 + r1] = m1;
+      l_out[(long)bh * Sq + q0 + r1] = l1;
     }
   }
 }
@@ -433,17 +355,29 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int* kv_lens, void* o, float* m, float* l,
                         int B, int Sq, int Sk, int H, float scale,
                         cudaStream_t stream) {
-  const size_t bytes = Bf16Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  // 4D maps (D, H, S, B): the ragged end of a batch row is zero-filled
+  const uint64_t e = sizeof(__nv_bfloat16);
+  const uint64_t dq[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t dk[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)(Sk > 0 ? Sk : 1),
+                          (uint64_t)B};
+  const uint64_t sq[3] = {D * e, H * D * e, (uint64_t)Sq * H * D * e};
+  const uint64_t sk[3] = {D * e, H * D * e, (uint64_t)Sk * H * D * e};
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_map(&tq, q, 4, dq, sq, 2);
+  if (err == cudaSuccess) err = sm90::make_map(&tk, k, 4, dk, sk, 2);
+  if (err == cudaSuccess) err = sm90::make_map(&tv, v, 4, dk, sk, 2);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  fa_bf16_kernel<D><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), kv_lens,
-      static_cast<__nv_bfloat16*>(o), m, l, Sq, Sk, H, scale);
-  return cudaGetLastError();
+  sm90::Params p{};
+  p.kv_lens = kv_lens;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.m = m;
+  p.l = l;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.scale = scale;
+  dim3 grid((Sq + sm90::kRows - 1) / sm90::kRows, B * H);
+  return sm90::launch<D, sm90::DenseTiles>(tq, tk, tv, p, grid, stream);
 }
 
 template <int D>
@@ -453,11 +387,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   const size_t bytes = F32Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_f32_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + kFQ - 1) / kFQ, B * H);
-  fa_f32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
+  fa_f32_tf32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), kv_lens, static_cast<float*>(o), m, l,
       Sq, Sk, H, scale);
@@ -470,7 +404,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. m/l may be null (no return_lse).
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// (dtype, head_dim) pair that has no instantiation.
+// (dtype, head_dim) pair that has no instantiation or a tensor the TMA
+// descriptors refuse.
 int wf_flash_attention(const void* q, const void* k, const void* v,
                        const void* kv_lens, void* o, void* m, void* l, int B,
                        int Sq, int Sk, int H, int D, float scale, int dtype,

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/kernels/<name>-<hash>.so`` at the repository root; the hash
-covers the source and the flags, so an edited source is never served by a
-stale library. Nothing is built when a module is imported: the CPU tests
+covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edited source or header is never served by a stale library. Nothing is built when a module is imported: the CPU tests
 import every module on a host without ``nvcc``.
 """
 
@@ -43,9 +43,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -12,7 +12,8 @@ as plain JAX: the scores are tiny ([BH, Nq, Nk]). The sparse attention
 ``bsa_bhsd`` replaces the Pallas TPU kernel ``_bsa_kernel`` (:100,
 ``pallas_call`` :209, through ``_bsa_bhsd`` :174, ``_bsa_bhsd_grouped``
 :295 and ``_bsa_dispatch`` :321) with the CUDA C++ kernel in
-``csrc/bsa.cu`` (the design note and what bounds it on the H100 are at the
+``csrc/bsa.cu`` on the wgmma / TMA main loop of ``csrc/attention_sm90.cuh``
+(the design note and what bounds it on the H100 are at the
 top of that file). CUDA tensors launch the kernel; CPU tensors take
 ``bsa_plain``, which follows the kernel's contract: fp32 scores, the
 probabilities cast to v's dtype before the P.V product, and zeros for a
@@ -178,6 +179,10 @@ def _launch(q, k, v, indices, counts, scale, return_lse):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("bsa kernel: q, k and v must be 16-byte aligned "
                          "(the kernel copies 16-byte vectors)")
+    if any(st * t.element_size() % 16 for t in (q, k, v)
+           for st in t.stride()[:-1]):
+        raise ValueError("bsa kernel: every stride of q, k and v must be a "
+                         "multiple of 16 bytes (TMA)")
     idx = indices.to(torch.int32).contiguous()
     cnt = counts.to(torch.int32).contiguous()
     o = torch.empty_like(q)

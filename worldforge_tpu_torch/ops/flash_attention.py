@@ -90,6 +90,11 @@ def _launch(q, k, v, kv_lens, scale, return_lse):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention kernel: q, k and v must be 16-byte "
                          "aligned (the kernel copies 16-byte vectors)")
+    if q.dtype == torch.bfloat16 and any(
+            st * t.element_size() % 16 for t in (q, k, v)
+            for st in t.stride()[:-1]):
+        raise ValueError("flash_attention kernel: every stride of q, k and v "
+                         "must be a multiple of 16 bytes (TMA)")
     if kv_lens is None:
         kv_lens = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
