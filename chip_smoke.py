@@ -10,18 +10,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build   -- compiles the CUDA C++ kernels from ``worldforge_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together).
 3. kernels -- each of the five kernels against its plain PyTorch version at
-   the main paths' shapes (the Wan repaint's and the LongCat refine's):
+   the main paths' shapes (the Wan repaint's and the LongCat refine's) and
+   at small ragged shapes (kernels 2 and 4):
    error, kernel time, plain time, the time of one PyTorch library call for
    the same function where there is one (a yardstick only, never used by
    the port), and the card's bound for the same work.
-4. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
+4. vae     -- the vae_profile lines: one single-pass Wan2.1 VAE decode +
+   encode at the generate shape and one streaming decode at the refine
+   shape under ``torch.profiler`` (device time of kernel 4, the other
+   convs, the elementwise work, and idle).
+5. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
    480x832x49 frames (20,280 tokens), then one more under ``torch.profiler``
    (the dit_profile line: device time by kernel group).
-5. generate -- the guided repaint (CFG + IRR + VAE fuse + DSG + final decode)
+6. generate -- the guided repaint (CFG + IRR + VAE fuse + DSG + final decode)
    through ``load_wan_pipeline`` and ``WanI2VPipeline.generate`` at full
    width with the cuts listed on its line; every kernel of that path must
    launch during this phase.
-6. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
+7. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
    ``load_longcat_pipeline`` and ``LongCatPipeline.generate_refine``: the
    13.6B DiT at full width and depth, the streaming Wan2.1 VAE, a 49-frame
    480x832 stage-1 video refined to 704x1280 (56,320 tokens, block-sparse
@@ -402,15 +407,16 @@ def _check_bsa_small(gen, records, d):
 
 
 def _check_rope(gen, records, grid, h, d, iters, in_dtype=torch.bfloat16,
-                label="rope_qk"):
-    """Kernel 2 on q, k [1, f*h*w, heads, d] of ``in_dtype``, bf16 out (the
-    Wan DiT rotates bf16 q/k, the LongCat DiT fp32 q/k after its RMSNorm)."""
+                label="rope_qk", b=1):
+    """Kernel 2 on q, k [b, f*h*w, heads, d] of ``in_dtype``, bf16 out (the
+    Wan DiT rotates bf16 q/k, the LongCat DiT fp32 q/k after its RMSNorm).
+    ``iters`` 0: the check alone, untimed."""
     from worldforge_tpu_torch.ops.rope import (apply_rope_qk,
                                                apply_rope_qk_plain,
                                                rope_cos_sin)
     s = math.prod(grid)
-    q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(in_dtype)
-    k = torch.randn((1, s, h, d), generator=gen, device="cuda").to(in_dtype)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(in_dtype)
+    k = torch.randn((b, s, h, d), generator=gen, device="cuda").to(in_dtype)
     cos, sin = rope_cos_sin(*grid, d, device="cuda")
     out_dtype = torch.bfloat16
     qo, ko = apply_rope_qk(q, k, cos, sin, out_dtype=out_dtype)
@@ -419,19 +425,20 @@ def _check_rope(gen, records, grid, h, d, iters, in_dtype=torch.bfloat16,
     ulps = max(bf16_ulps(qo, qr), bf16_ulps(ko, kr))
     err = max(float((qo.float() - qr.float()).abs().max()),
               float((ko.float() - kr.float()).abs().max()))
-    ms = cuda_ms(lambda: apply_rope_qk(q, k, cos, sin, out_dtype=out_dtype),
-                 iters)
-    plain_ms = cuda_ms(lambda: apply_rope_qk_plain(q, k, cos, sin,
-                                                   out_dtype=out_dtype), 3)
-    flops = 6.0 * q.numel()    # 4 multiplies + 2 adds per pair, q and k
-    bms, by = bound(flops, nbytes(q, k) + nbytes(qo, ko) + nbytes(cos, sin),
-                    PEAK_FP32_FLOPS)
     rec = {"check": label, "shape": list(q.shape), "dtype_in": str(in_dtype),
-           "max_abs_err": err,
-           "max_ulps_bf16": ulps, "tol_ulps": 1, "ok": ulps <= 1, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           "library_ms": None,
-           "library": "none: no PyTorch call rotates interleaved pairs"}
+           "max_abs_err": err, "max_ulps_bf16": ulps, "tol_ulps": 1,
+           "ok": ulps <= 1}
+    if iters:
+        ms = cuda_ms(lambda: apply_rope_qk(q, k, cos, sin,
+                                           out_dtype=out_dtype), iters)
+        plain_ms = cuda_ms(lambda: apply_rope_qk_plain(
+            q, k, cos, sin, out_dtype=out_dtype), 3)
+        flops = 6.0 * q.numel()    # 4 multiplies + 2 adds per pair, q and k
+        bms, by = bound(flops, nbytes(q, k) + nbytes(qo, ko) +
+                        nbytes(cos, sin), PEAK_FP32_FLOPS)
+        rec.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None, "library":
+                    "none: no PyTorch call rotates interleaved pairs"})
     records.append(rec)
     return rec
 
@@ -465,38 +472,91 @@ def _check_mod_ln(gen, records, s, d, iters):
     return rec
 
 
-def _check_conv(gen, records, t, hh, ww, cin, cout, iters, label,
-                with_library: bool = True):
+def _conv_errors(out, ref32):
+    """The kernel's error against the plain version's fp32 result, over the
+    largest |ref|. A bf16 output is first allowed its own rounding (one
+    bf16 ulp of each value, 2^-8 of it): both sides round their fp32 sums,
+    summed in another order, to bf16."""
+    diff = (out.float() - ref32).abs()
+    if out.dtype == torch.bfloat16:
+        diff = (diff - 2.0 ** -8 * ref32.abs()).clamp_min(0.0)
+    err = float(diff.max())
+    return err, err / max(float(ref32.abs().max()), 1e-12)
+
+
+def _check_conv(gen, records, t, hh, ww, cin, cout, iters, label, b=1,
+                x_dtype=torch.float32, out_dtype=None):
+    """Kernel 4 against ``conv3d_causal_plain`` (gate: 1e-3 of the largest
+    |ref|). ``iters`` > 0 also times it as the VAE calls it (fp32 x in, the
+    output type out) beside its plain version, its bound and two library
+    yardsticks: ``library_ms``, bf16 ``F.conv3d`` (cuDNN) on the same x
+    with x's cast to bf16 and the output's cast back to x's type inside the
+    timed call (the same function on the same footing), and
+    ``library_precast_ms``, the same conv on x cast to bf16 and laid out as
+    NCDHW beforehand (the yardstick PR 3 reported)."""
     from worldforge_tpu_torch.ops.conv3d import (conv3d_causal,
                                                  conv3d_causal_plain)
-    x = torch.randn((1, t + 2, hh, ww, cin), generator=gen, device="cuda")
+    x = torch.randn((b, t + 2, hh, ww, cin), generator=gen,
+                    device="cuda").to(x_dtype)
     w = torch.randn((3, 3, 3, cin, cout), generator=gen,
                     device="cuda") / math.sqrt(27 * cin)
-    b = torch.randn((cout,), generator=gen, device="cuda") * 0.1
-    out = conv3d_causal(x, w, b)
-    ref = conv3d_causal_plain(x, w, b)
+    bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    out_dtype = out_dtype or x_dtype
+    out = conv3d_causal(x, w, bias, out_dtype=out_dtype)
+    ref = conv3d_causal_plain(x, w, bias, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    rel = err / max(float(ref.abs().max()), 1e-12)
+    err, rel = _conv_errors(out, ref)
     tol = 1e-3
-    ms = cuda_ms(lambda: conv3d_causal(x, w, b), iters)
-    plain_ms = cuda_ms(lambda: conv3d_causal_plain(x, w, b), 1)
-    flops = 2.0 * 27 * cin * cout * t * hh * ww
-    bms, by = bound(flops, nbytes(x, w, b) + nbytes(out), PEAK_BF16_FLOPS)
-    lib_ms = None
-    if with_library:
-        xl = x.bfloat16().permute(0, 4, 1, 2, 3).contiguous()
-        wl = w.bfloat16().permute(4, 3, 0, 1, 2).contiguous()
-        bl = b.bfloat16()
-        lib_ms = cuda_ms(lambda: torch.nn.functional.conv3d(
-            xl, wl, bl, padding=(0, 1, 1)), iters)
-    rec = {"check": label, "shape": [t, hh, ww, cin, cout],
+    rec = {"check": label, "shape": [b, t, hh, ww, cin, cout],
+           "dtype_in": str(x_dtype), "dtype_out": str(out_dtype),
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
-           "ok": bool(torch.isfinite(out).all()) and rel <= tol, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           "library_ms": lib_ms}
+           "ok": bool(torch.isfinite(out).all()) and rel <= tol}
+    if iters:
+        ms = cuda_ms(lambda: conv3d_causal(x, w, bias, out_dtype=out_dtype),
+                     iters)
+        plain_ms = cuda_ms(lambda: conv3d_causal_plain(
+            x, w, bias, out_dtype=out_dtype), 1)
+        flops = 2.0 * 27 * cin * cout * b * t * hh * ww
+        bms, by = bound(flops, nbytes(x, w, bias) + nbytes(out),
+                        PEAK_BF16_FLOPS)
+        conv = torch.nn.functional.conv3d
+        wl = w.bfloat16().permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        bl = bias.bfloat16()
+        xv = x.permute(0, 4, 1, 2, 3)         # NCDHW view of NDHWC
+        lib_ms = cuda_ms(lambda: conv(xv.to(torch.bfloat16), wl, bl,
+                                      padding=(0, 1, 1)).to(out_dtype), iters)
+        xl = x.bfloat16().permute(0, 4, 1, 2, 3).contiguous()
+        wc = w.bfloat16().permute(4, 3, 0, 1, 2).contiguous()
+        pre_ms = cuda_ms(lambda: conv(xl, wc, bl, padding=(0, 1, 1)), iters)
+        rec.update({
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library": "bf16 F.conv3d (cuDNN) with "
+            "the casts of x and y inside the timed call",
+            "library_precast_ms": pre_ms, "library_precast":
+            "bf16 F.conv3d on x cast and laid out NCDHW beforehand"})
     records.append(rec)
     return rec
+
+
+# Small ragged cases of kernel 4, held to the same gate: (B, T, H, W, Cin,
+# Cout, x dtype, out dtype). They cover Tp = 3, a ragged H (13) and W (103,
+# 40, 7), Cin 3 (x staged by the producer's threads) and 16 / 96 / 192 /
+# 384 (x by TMA: bf16 into the slab, fp32 through the staging buffers),
+# Cout 3 and 32, the N slices 16, 32, 96 (x2) and 128 (x3), B = 2, and
+# every pairing of fp32 and bf16 in and out.
+_F32, _BF16 = torch.float32, torch.bfloat16
+CONV_RAGGED = (
+    (1, 1, 13, 103, 3, 32, _F32, _F32),
+    (2, 2, 13, 103, 16, 3, _BF16, _BF16),
+    (1, 1, 13, 103, 96, 96, _BF16, _F32),
+    (1, 2, 13, 103, 384, 384, _F32, _BF16),
+    (2, 1, 9, 40, 192, 192, _F32, _F32),
+    (1, 3, 13, 103, 16, 384, _F32, _F32),
+    (1, 1, 13, 103, 96, 3, _F32, _F32),
+    (1, 2, 5, 7, 3, 96, _BF16, _BF16),
+    (1, 1, 13, 103, 384, 32, _F32, _F32),
+)
 
 
 def phase_kernels():
@@ -528,17 +588,26 @@ def phase_kernels():
     main["rope_qk"] = _check_rope(
         gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16, WIDTH // 16), 40,
         128, 20)
+    # ragged token and head runs: 333 tokens, 12 heads of 64, B = 2
+    for dtype in (torch.bfloat16, torch.float32):
+        _check_rope(gen, records, (3, 3, 37), 12, 64, 0, in_dtype=dtype,
+                    label=f"rope_qk ragged {dtype}", b=2)
     main["modulated_layer_norm"] = _check_mod_ln(gen, records, s, 5120, 20)
     main["conv3d_causal"] = _check_conv(
         gen, records, GEN_FRAMES, HEIGHT, WIDTH, 96, 96, 3,
         "conv3d 96->96 full res")
     _check_conv(gen, records, GEN_FRAMES, HEIGHT, WIDTH, 3, 96, 3,
-                "conv3d encoder conv_in 3->96", with_library=False)
+                "conv3d encoder conv_in 3->96")
     _check_conv(gen, records, GEN_FRAMES, HEIGHT, WIDTH, 96, 3, 3,
-                "conv3d decoder conv_out 96->3", with_library=False)
+                "conv3d decoder conv_out 96->3")
+    _check_conv(gen, records, GEN_FRAMES, HEIGHT // 2, WIDTH // 2, 192, 192,
+                3, "conv3d 192->192 half res")
     _check_conv(gen, records, GEN_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8,
-                384, 384, 5, "conv3d 384->384 latent res",
-                with_library=False)
+                384, 384, 5, "conv3d 384->384 latent res")
+    for b, t, hh, ww, cin, cout, xd, od in CONV_RAGGED:
+        _check_conv(gen, records, t, hh, ww, cin, cout, 0,
+                    f"conv3d ragged {cin}->{cout} {hh}x{ww} T'{t + 2} B{b} "
+                    f"{xd}->{od}", b=b, x_dtype=xd, out_dtype=od)
     # the LongCat refine's shapes (56,320 tokens, the VAE at 704x1280)
     main["bsa"] = _check_bsa(gen, records, 5)
     for d in (64, 128):
@@ -615,6 +684,56 @@ def _reset_counters():
 
 def _read_counters():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def phase_vae():
+    """Where the VAE's time goes, under ``torch.profiler`` (the vae_profile
+    lines): one single-pass Wan2.1 VAE decode + encode at the generate
+    phase's shape (5 x 60 x 104 latents <-> 17 x 480 x 832), and one
+    streaming decode at the refine's (16 x 88 x 160 latents -> 61 x 704 x
+    1280). Random fp32 weights from a seed, as the pipelines load them;
+    kernel 4's launches per run are counted beside the split."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.vae import (WanVAEConfig,
+                                                     init_wan_vae,
+                                                     vae_decode, vae_encode)
+    from worldforge_tpu_torch.models.wan.vae_stream import \
+        vae_decode_streaming
+    from worldforge_tpu_torch.ops.conv3d import conv3d_causal
+    cfg = WanVAEConfig.wan_2_1()
+    params = init_wan_vae(P.make_generator(0, "cuda"), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    z = torch.randn((1, cfg.z_dim, GEN_FRAMES // 4 + 1, HEIGHT // 8,
+                     WIDTH // 8), generator=gen, device="cuda")
+
+    def single_pass():
+        return vae_encode(params, cfg, vae_decode(params, cfg, z))
+
+    zr = torch.randn((1, cfg.z_dim, REFINE_GRID[0], REFINE_H // 8,
+                      REFINE_W // 8), generator=gen, device="cuda")
+    runs = (
+        (single_pass, None, "one single-pass Wan2.1 VAE decode + encode "
+         "at 17x480x832", list(z.shape)),
+        (lambda: vae_decode_streaming(params, cfg, zr),
+         lambda: vae_decode_streaming(params, cfg, zr[:, :, :2]),
+         "the refine's streaming Wan2.1 VAE decode at 704x1280",
+         list(zr.shape)),
+    )
+    for forward, warmup, what, shape in runs:
+        count = {}
+
+        def counted(fn=forward, count=count):
+            before = conv3d_causal.launches
+            fn()
+            count["launches"] = conv3d_causal.launches - before
+
+        _profile_forward(counted, "vae_profile", what + " under "
+                         "torch.profiler", {"latents": shape}, warmup=warmup)
+        emit({"phase": "vae_launches", "what": what,
+              "conv3d_causal_launches_per_run": count["launches"]})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_dit():
@@ -961,6 +1080,9 @@ KERNEL_GROUPS = (
     ("rope (kernel 2)", ("rope_qk_kernel",)),
     ("modulated LN (kernel 3)", ("mod_ln_kernel",)),
     ("conv3d (kernel 4)", ("conv3d_kernel",)),
+    ("other convs (cuDNN)", ("fprop", "convolve", "conv2d", "conv3d",
+                             "cudnn", "winograd", "implicit", "nchwtonhwc",
+                             "nhwctonchw")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
     ("memcpy / memset", ("memcpy", "memset")),
 )
@@ -993,15 +1115,16 @@ def _profile_refine_forward(pipe, latent_shape, pe, pmask):
                      "torch.profiler", {"latents": list(latent_shape)})
 
 
-def _profile_forward(forward, phase, what, extra):
-    """``forward`` (warmed up once) under ``torch.profiler``: device time by
-    kernel group, the device's busy and idle share of the forward's wall
-    time, and the largest kernels. After the main path's counts are read; a
+def _profile_forward(forward, phase, what, extra, warmup=None):
+    """``forward`` (after one call of ``warmup``, by default ``forward``
+    itself) under ``torch.profiler``: device time by kernel group, the
+    device's busy and idle share of the forward's wall time, and the
+    largest kernels. Outside the main paths' counting windows; a
     measurement, not a check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    forward()
+    (warmup or forward)()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1011,7 +1134,10 @@ def _profile_forward(forward, phase, what, extra):
         wall_s = time.time() - t0
     spans, groups, kernels = [], {}, {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # device kernels and copies only: a user annotation's device span
+        # covers the kernels inside it
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = e.time_range.elapsed_us()
         spans.append((e.time_range.start, e.time_range.end))
@@ -1030,6 +1156,7 @@ def _profile_forward(forward, phase, what, extra):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     emit({"phase": phase, "what": what, **extra, "wall_s": wall_s,
           "device_events": len(spans), "device_busy_s": busy_us / 1e6,
+          "device_time_sum_s": sum(groups.values()),
           "device_idle_share": (1.0 - busy_us / 1e6 / wall_s)
           if spans else None,
           "by_group_s": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -1041,6 +1168,7 @@ def main() -> int:
     phase_device()
     phase_build()
     main_recs = phase_kernels()
+    phase_vae()
     phase_dit()
     by_path = {"generate": phase_generate()}
     gc.collect()

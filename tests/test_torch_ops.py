@@ -134,6 +134,36 @@ def test_rope_qk_matches_pallas(rng, dtype):
                                    rtol=tol)
 
 
+@pytest.mark.parametrize("dtype,b", [("float32", 1), ("bfloat16", 2)])
+def test_rope_qk_matches_pallas_d64_h12(rng, dtype, b):
+    """The Pallas kernel itself in interpret mode (its wrapper takes it only
+    for h % 8 == 0 and d % 128 == 0, so it is called directly, 4 heads and
+    37 tokens a block) at D = 64, 12 heads and 333 tokens: the port's
+    kernel runs these as a ragged last head group and a ragged last token
+    run. Tolerances as in test_rope_qk_matches_pallas."""
+    f, h, w, d, nh = 3, 3, 37, 64, 12
+    s = f * h * w
+    q = rng.standard_normal((b, s, nh, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, nh, d)).astype(np.float32)
+    jc, js = jrope.rope_cos_sin(f, h, w, d)
+    tc, ts = trope.rope_cos_sin(f, h, w, d)
+    cf = jnp.repeat(jc, 2, axis=-1)
+    sf = jnp.repeat(js, 2, axis=-1) * jnp.tile(
+        jnp.asarray([-1.0, 1.0], jc.dtype), d // 2)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    wq, wk = jrope._rope_qk_pallas(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), cf, sf, out_dtype=jdt,
+        block_s=37, block_h=4, interpret=True)
+    gq, gk = trope.apply_rope_qk(torch.from_numpy(q).to(tdt),
+                                 torch.from_numpy(k).to(tdt), tc, ts)
+    assert gq.shape == (b, s, nh, d) and gq.dtype == tdt
+    tol = 1e-6 if dtype == "float32" else 8e-3
+    for g, wnt in ((gq, wq), (gk, wk)):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(wnt, np.float32), atol=tol,
+                                   rtol=tol)
+
+
 def test_rope_angles_and_split_match(rng):
     for d in (64, 128):
         assert trope.rope_3d_split(d) == jrope.rope_3d_split(d)
@@ -173,6 +203,9 @@ def test_modulated_layer_norm_matches_pallas(rng, out_dtype):
     (2, 8, 16, 16, 24),     # Cin not divisible by 128 (the im2col path)
     (1, 4, 8, 128, 8),      # Cin divisible by 128 (the per-tap path)
     (2, 6, 10, 8, 3),       # W not divisible by 8; Cout = 3 (conv_out)
+    (1, 13, 19, 3, 32),     # Tp = 3; ragged H and W (the kernel's 8 x 32)
+    (1, 5, 7, 16, 3),       # Tp = 3; a tile larger than the image
+    (2, 13, 35, 24, 16),    # W one pixel past a 32-pixel tile
 ])
 def test_conv3d_causal_matches_pallas(rng, t, hh, ww, cin, cout):
     """Both round inputs and weights to bf16 and sum exact products in fp32
@@ -199,6 +232,113 @@ def test_conv3d_weight_layout_for_the_kernel(rng):
     torch.testing.assert_close(wp[:, :3, :5].float(),
                                w.reshape(27, 3, 5).bfloat16().float())
     assert not wp[:, 3:].any() and not wp[:, :, 5:].any()
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    ("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+    ("float32", "bfloat16")])
+def test_conv3d_causal_dtypes_match_pallas(rng, x_dtype, out_dtype):
+    """The kernel reads x in its own type and writes ``out_dtype``; both
+    sides round x to bf16 and sum in fp32, so an fp32 output agrees to the
+    order of the sums (1e-5) and a bf16 one to one bf16 ulp (2^-8 of the
+    largest value)."""
+    t, hh, ww, cin, cout = 1, 9, 13, 16, 32
+    x = rng.standard_normal((1, t + 2, hh, ww, cin)).astype(np.float32)
+    p = JP.conv_init(jax.random.key(4), cin, cout, (3, 3, 3))
+    p["b"] = jnp.asarray(rng.standard_normal(cout), jnp.float32)
+    jx = jnp.asarray(x, getattr(jnp, x_dtype))
+    want = np.asarray(jconv.conv3d_causal_pallas(
+        jx, p["w"], p["b"], out_dtype=getattr(jnp, out_dtype),
+        interpret=True), np.float32)
+    got = tconv.conv3d_causal(
+        torch.from_numpy(x).to(getattr(torch, x_dtype)),
+        tensor_from_numpy(p["w"]), tensor_from_numpy(p["b"]),
+        out_dtype=getattr(torch, out_dtype))
+    assert got.dtype == getattr(torch, out_dtype)
+    rel = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert rel < (1e-5 if out_dtype == "float32" else 2.0 ** -8), rel
+
+
+# Every 3x3x3 conv shape of the Wan2.1 VAE (Cin -> Cout; per single-pass
+# encode / decode at 17 frames: 1/0, 4/6, 1/0, 3/6, 1/1, 11/15, 1/0, 0/1,
+# 0/1), as its config builds them.
+VAE_CONV_SHAPES = [(3, 96), (96, 96), (96, 192), (192, 192), (192, 384),
+                   (384, 384), (384, 32), (16, 384), (96, 3)]
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin,cout", VAE_CONV_SHAPES)
+def test_conv3d_plan_fits_the_kernel(cin, cout, x_dtype):
+    """The tile plan the wrapper hands the kernel: 256 output pixels a
+    block, N slices that divide the padded Cout (the whole Cout up to 128),
+    a Cin chunk that divides the padded Cin, 2 to 4 stages, x by TMA unless
+    its rows are no multiple of 16 bytes (Cin = 3), fp32 x through one or
+    two fp32 staging buffers, and shared memory that holds the ring, the
+    staging and the epilogue's tile within 227 KB."""
+    dtype = getattr(torch, x_dtype)
+    p = tconv.conv_plan(cin, cout, dtype)
+    assert p.tile[0] * p.tile[1] == 256
+    assert p.cin_p % 16 == 0 and p.cin_p - cin < 16
+    assert p.cout_p % 16 == 0 and p.cout_p - cout < 16
+    assert p.n in (16, 32, 96, 128) and p.n * p.nslices == p.cout_p
+    assert p.nslices == 1 or p.cout_p > 128
+    assert p.ck in (16, 32) and p.cin_p % p.ck == 0
+    assert 2 <= p.stages <= 4
+    assert p.manual == (cin == 3)
+    fp32_tma = x_dtype == "float32" and not p.manual
+    assert (p.staging in (1, 2)) if fp32_tma else p.staging == 0
+    assert p.n % (p.swizzle_bytes // 2) == 0
+    assert p.stage_bytes % 1024 == 0 and p.staging_bytes % 1024 == 0
+    assert p.stage_bytes >= 9 * p.ck * p.n * 2 + 10 * 34 * p.ck * 2
+    assert p.staging_bytes >= 10 * 34 * p.ck * 4
+    assert p.smem_bytes == 1024 + max(
+        p.stages * p.stage_bytes + p.staging * p.staging_bytes,
+        p.epilogue_bytes) + 8 * (2 * p.stages + p.staging)
+    assert p.smem_bytes <= 227 * 1024
+    assert tconv.conv_plan(cin, cout, dtype) == p
+
+
+def test_conv3d_plan_main_shapes():
+    """Pinned plans: 96 -> 96 on fp32 x runs whole (N 96, 64-byte swizzle)
+    with two 32-channel stages and one fp32 staging buffer; 384 -> 384 as
+    three 128-wide slices (128-byte swizzle), three 16-channel stages and
+    two staging buffers on fp32 x, two 32-channel stages on bf16 x;
+    conv_in (Cin 3) stages x by hand."""
+    p = tconv.conv_plan(96, 96)
+    assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
+            p.manual, p.smem_bytes) == (96, 1, 32, 2, 1, 64, False, 200744)
+    p = tconv.conv_plan(384, 384)
+    assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
+            p.smem_bytes) == (128, 3, 16, 3, 2, 128, 190528)
+    p = tconv.conv_plan(384, 384, torch.bfloat16)
+    assert (p.ck, p.stages, p.staging, p.smem_bytes) == (32, 2, 0, 193568)
+    p = tconv.conv_plan(3, 96)
+    assert (p.cin_p, p.ck, p.stages, p.staging, p.manual) == (16, 16, 4, 0,
+                                                              True)
+    assert tconv.conv_plan(96, 96, x_aligned=False).manual
+
+
+def test_conv3d_prepared_weight_cache(rng):
+    """The bf16 [27, CinP, CoutP] weight is made once per weight tensor,
+    and made again when the tensor changes in place or is replaced."""
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3, 3, 5)).astype(
+        np.float32))
+    wp = tconv.prepared_weight(w)
+    assert wp.shape == (27, 16, 16) and wp.dtype == torch.bfloat16
+    assert torch.equal(wp, tconv.prepare_weight(w))
+    assert tconv.prepared_weight(w) is wp
+    w.mul_(2.0)
+    wp2 = tconv.prepared_weight(w)
+    assert wp2 is not wp
+    torch.testing.assert_close(wp2[:, :3, :5].float(),
+                               w.reshape(27, 3, 5).bfloat16().float())
+    assert tconv.prepared_weight(w) is wp2
+    w2 = w.clone()
+    wp3 = tconv.prepared_weight(w2)
+    assert wp3 is not wp2 and torch.equal(wp3, wp2)
+    with torch.inference_mode():
+        wi = torch.ones((3, 3, 3, 16, 32))
+        assert tconv.prepared_weight(wi) is tconv.prepared_weight(wi)
 
 
 # ------------------------------------------------------------ helpers

@@ -12,30 +12,42 @@ import triton.language as tl
 
 
 @triton.jit
-def rope_qk_kernel(q_ptr, k_ptr, cos_ptr, sin_ptr, qo_ptr, ko_ptr, S, H,
-                   HALF, BLOCK_H: tl.constexpr, BLOCK_HALF: tl.constexpr):
-    """One program rotates BLOCK_H heads of one token of q and of k."""
-    tok = tl.program_id(0)                    # b * S + s
-    s = tok % S
-    heads = tl.program_id(1) * BLOCK_H + tl.arange(0, BLOCK_H)[:, None]
-    pair = tl.arange(0, BLOCK_HALF)[None, :]
-    pmask = pair < HALF
-    mask = (heads < H) & pmask
-    c = tl.load(cos_ptr + s * HALF + pair, mask=pmask, other=0.0)
-    sn = tl.load(sin_ptr + s * HALF + pair, mask=pmask, other=0.0)
-    off = (tok.to(tl.int64) * H + heads) * (2 * HALF) + 2 * pair
-    qe = tl.load(q_ptr + off, mask=mask, other=0.0).to(tl.float32)
-    qo = tl.load(q_ptr + off + 1, mask=mask, other=0.0).to(tl.float32)
-    tl.store(qo_ptr + off, (qe * c - qo * sn).to(qo_ptr.dtype.element_ty),
-             mask=mask)
-    tl.store(qo_ptr + off + 1, (qe * sn + qo * c).to(qo_ptr.dtype.element_ty),
-             mask=mask)
-    ke = tl.load(k_ptr + off, mask=mask, other=0.0).to(tl.float32)
-    ko = tl.load(k_ptr + off + 1, mask=mask, other=0.0).to(tl.float32)
-    tl.store(ko_ptr + off, (ke * c - ko * sn).to(ko_ptr.dtype.element_ty),
-             mask=mask)
-    tl.store(ko_ptr + off + 1, (ke * sn + ko * c).to(ko_ptr.dtype.element_ty),
-             mask=mask)
+def _rotate_pairs(x_ptr, o_ptr, off, mask, c, sn, BLOCK_S: tl.constexpr,
+                  BLOCK_H: tl.constexpr, BLOCK_D: tl.constexpr):
+    """Rotate one [BLOCK_S, BLOCK_H, BLOCK_D] tile by its tokens' cos/sin
+    [BLOCK_S, 1, BLOCK_D // 2]: contiguous loads and stores along D, the
+    interleaved pairs split apart and joined back in registers."""
+    x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    xe, xo = tl.split(tl.reshape(x, (BLOCK_S, BLOCK_H, BLOCK_D // 2, 2)))
+    y = tl.join(xe * c - xo * sn, xe * sn + xo * c)
+    y = tl.reshape(y, (BLOCK_S, BLOCK_H, BLOCK_D))
+    tl.store(o_ptr + off, y.to(o_ptr.dtype.element_ty), mask=mask)
+
+
+@triton.jit
+def rope_qk_kernel(q_ptr, k_ptr, cos_ptr, sin_ptr, qo_ptr, ko_ptr, NTOK, S,
+                   H, D: tl.constexpr, BLOCK_S: tl.constexpr,
+                   BLOCK_H: tl.constexpr, BLOCK_D: tl.constexpr):
+    """One program rotates BLOCK_S tokens (of the B * S) x all H heads of q
+    and of k, BLOCK_H heads at a time; each token's cos/sin row is read
+    once for all its heads."""
+    tok = tl.program_id(0) * BLOCK_S + tl.arange(0, BLOCK_S)
+    tmask = tok < NTOK
+    pair = tl.arange(0, BLOCK_D // 2)
+    cs_off = (tok % S)[:, None] * (D // 2) + pair[None, :]
+    cs_mask = tmask[:, None] & (pair < D // 2)[None, :]
+    c = tl.load(cos_ptr + cs_off, mask=cs_mask, other=0.0)[:, None, :]
+    sn = tl.load(sin_ptr + cs_off, mask=cs_mask, other=0.0)[:, None, :]
+    d = tl.arange(0, BLOCK_D)[None, None, :]
+    row = tok.to(tl.int64)[:, None, None] * H
+    for h0 in range(0, H, BLOCK_H):
+        heads = h0 + tl.arange(0, BLOCK_H)[None, :, None]
+        off = (row + heads) * D + d
+        mask = tmask[:, None, None] & (heads < H) & (d < D)
+        _rotate_pairs(q_ptr, qo_ptr, off, mask, c, sn, BLOCK_S, BLOCK_H,
+                      BLOCK_D)
+        _rotate_pairs(k_ptr, ko_ptr, off, mask, c, sn, BLOCK_S, BLOCK_H,
+                      BLOCK_D)
 
 
 @triton.jit

@@ -2,8 +2,11 @@
 
 Counterpart of ``worldforge_tpu/ops/conv3d.py::conv3d_causal_pallas``; the
 Pallas TPU kernel ``_conv_kernel`` (:39, ``pallas_call`` :119) becomes the
-CUDA C++ implicit GEMM in ``csrc/conv3d.cu`` (the design note and what
-bounds it on the H100 are at the top of that file).
+CUDA C++ implicit GEMM on TMA and wgmma in ``csrc/conv3d.cu`` (the design
+note and what bounds it on the H100 are at the top of that file). The
+kernel reads x in the type it is given (fp32 or bf16) and rounds it to bf16
+as it stages it; ``conv_plan`` picks its tiles and ``prepared_weight`` makes
+the bf16 weight layout once per weight tensor.
 
 Contract: x [B, T+2, H, W, Cin] already front-padded in time, SAME spatial
 padding, w [3, 3, 3, Cin, Cout] (DHWIO), optional bias [Cout]. Inputs and
@@ -14,6 +17,7 @@ added and the result is cast to ``out_dtype``.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -39,16 +43,85 @@ def conv3d_causal_plain(x, w, b=None, *, out_dtype=None):
     return y.to(out_dtype).contiguous()
 
 
-def _pick_bn(cout_p: int) -> int:
-    """The widest Cout slice (at most 128) that divides CoutP."""
-    for bn in (128, 96, 64, 48, 32, 16):
-        if cout_p % bn == 0:
-            return bn
-    raise ValueError(f"CoutP {cout_p} is not a multiple of 16")
-
-
 def _round16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def _round1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+TILE_H, TILE_W = 8, 32              # output rows x pixels of one block
+SMEM_LIMIT = 232448                 # shared memory a block may use (227 KB)
+_SLICES = (128, 96, 32, 16)         # N instantiations of the kernel
+_MAX_STAGES = 4
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """One launch of ``csrc/conv3d.cu``: the block's output tile, the Cout
+    slice N each block computes (``nslices`` of them), the Cin chunk CK of
+    one pipeline stage, the ring's depth, how x reaches shared memory (TMA,
+    through ``staging`` fp32 buffers for fp32 x; ``manual``: the producer's
+    threads), the swizzle of the weight panels and the dynamic shared
+    memory, counted as the kernel's ``Plan`` does."""
+    cin_p: int
+    cout_p: int
+    tile: tuple
+    n: int
+    nslices: int
+    ck: int
+    stages: int
+    manual: bool
+    staging: int
+    swizzle_bytes: int
+    stage_bytes: int
+    staging_bytes: int
+    epilogue_bytes: int
+    smem_bytes: int
+
+
+def conv_plan(cin: int, cout: int, x_dtype=torch.float32,
+              x_aligned: bool = True) -> ConvPlan:
+    """The tile plan for Cin -> Cout on x of ``x_dtype``. N is CoutP itself
+    up to 128, else the widest of 128, 96, 32, 16 that divides it (the two
+    64-row accumulators are N fp32 registers a consumer thread). TMA reads
+    x where a row of Cin elements is a multiple of 16 bytes and x is
+    16-byte aligned, else the producer's threads stage it (``manual``); an
+    fp32 x goes through fp32 staging buffers, two where they fit, else one.
+    CK is 32 where it divides CinP and fits with two stages, else 16; the
+    ring takes as many stages (2 to 4) as fit in 227 KB."""
+    cin_p, cout_p = _round16(cin), _round16(cout)
+    n = next(s for s in _SLICES if cout_p % s == 0)
+    elem = 2 if x_dtype == torch.bfloat16 else 4
+    manual = not (x_aligned and (cin * elem) % 16 == 0)
+    sw = 128 if n % 64 == 0 else 64 if n % 32 == 0 else 32
+    slab_pix = (TILE_H + 2) * (TILE_W + 2)
+    epilogue = 4 * TILE_H * TILE_W * (n + 8)
+
+    def sizes(ck):
+        stage = _round1024(9 * ck * n * 2) + _round1024(slab_pix * ck * 2)
+        return stage, _round1024(slab_pix * ck * 4)
+
+    def total(ck, stages, nstg):
+        stage, stg = sizes(ck)
+        return (1024 + max(stages * stage + nstg * stg, epilogue)
+                + 8 * (2 * stages + nstg))
+
+    staging_options = (2, 1) if elem == 4 and not manual else (0,)
+    for ck in (32, 16):
+        if cin_p % ck:
+            continue
+        fits = [(nstg, st) for nstg in staging_options
+                for st in range(_MAX_STAGES, 1, -1)
+                if total(ck, st, nstg) <= SMEM_LIMIT]
+        if fits or ck == 16:
+            break
+    nstg, stages = fits[0] if fits else (staging_options[-1], 2)
+    stage, stg = sizes(ck)
+    return ConvPlan(cin_p, cout_p, (TILE_H, TILE_W), n, cout_p // n, ck,
+                    stages, manual, nstg, sw, stage, stg, epilogue,
+                    total(ck, stages, nstg))
 
 
 def prepare_weight(w: torch.Tensor) -> torch.Tensor:
@@ -61,10 +134,24 @@ def prepare_weight(w: torch.Tensor) -> torch.Tensor:
     return wp
 
 
+def prepared_weight(w: torch.Tensor) -> torch.Tensor:
+    """``prepare_weight(w)``, made once per weight tensor and kept on it; made
+    again when the tensor is changed in place (its ``_version``; an
+    inference tensor has none and is keyed by its storage alone) or its
+    storage is swapped."""
+    version = None if w.is_inference() else w._version
+    key = (version, w.data_ptr(), tuple(w.shape), w.dtype, w.device)
+    cached = getattr(w, "_wf_conv3d_weight", None)
+    if cached is None or cached[0] != key:
+        cached = (key, prepare_weight(w.detach()))
+        w._wf_conv3d_weight = cached
+    return cached[1]
+
+
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("conv3d", {
-        "wf_conv3d_causal": ([p, p, p, p] + [i] * 9 + [p], i),
+        "wf_conv3d_causal": ([p, p, p, p] + [i] * 16 + [p], i),
         "wf_conv3d_error_string": ([i], ctypes.c_char_p),
     })
 
@@ -76,26 +163,24 @@ def _launch(x, w, b, out_dtype):
                          f"{tuple(x.shape)}")
     if tp < 3:
         raise ValueError("conv3d kernel: needs at least 3 padded frames")
-    if out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"conv3d kernel: output dtype {out_dtype}")
+    if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"conv3d kernel: dtypes {x.dtype} -> {out_dtype}")
     if w.device != x.device or (b is not None and b.device != x.device):
         raise ValueError("conv3d kernel: tensors on two devices")
     cout = w.shape[4]
-    # the kernel reads bf16 with Cin padded to 16 (the Pallas wrapper casts
-    # x to bf16 before its kernel as well)
-    xb = x.to(torch.bfloat16)
-    if cin % 16:
-        xb = F.pad(xb, (0, _round16(cin) - cin))
-    xb = xb.contiguous()
-    wp = prepare_weight(w)
-    bias = (b.float().contiguous() if b is not None else
-            torch.zeros((cout,), dtype=torch.float32, device=x.device))
+    x = x.contiguous()          # read as it is: no bf16 copy of x
+    plan = conv_plan(cin, cout, x.dtype, x.data_ptr() % 16 == 0)
+    wp = prepared_weight(w)
+    bias = b.float().contiguous() if b is not None else None
     y = torch.empty((bn_, tp - 2, hh, ww, cout), dtype=out_dtype,
                     device=x.device)
     lib = _lib()
     err = lib.wf_conv3d_causal(
-        xb.data_ptr(), wp.data_ptr(), bias.data_ptr(), y.data_ptr(), bn_, tp,
-        hh, ww, xb.shape[-1], cout, wp.shape[2], _pick_bn(wp.shape[2]),
+        x.data_ptr(), wp.data_ptr(),
+        bias.data_ptr() if bias is not None else None, y.data_ptr(), bn_, tp,
+        hh, ww, cin, plan.cin_p, cout, plan.cout_p, plan.n, plan.ck,
+        plan.stages, int(plan.manual), plan.staging, plan.smem_bytes,
+        _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("conv3d kernel launch failed: "

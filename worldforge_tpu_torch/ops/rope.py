@@ -10,9 +10,15 @@ float64 and cast to fp32 cos/sin tables [S, D/2].
 ``apply_rope_qk`` :150) with a Triton kernel (``ops/_triton_kernels.py``).
 What bounds it on the H100: bytes. It reads q and k once and writes them
 once, 0.83 GB at the Wan2.1-14B 480p shape (q, k bf16 [1, 20280, 40, 128]
-plus the fp32 tables), against a few operations per element; the design is
-one pass with fp32 math in registers, one program per (token, 8-head
-group). Unlike the JAX wrapper it takes every shape (no fallback for
+plus the fp32 tables), against a few operations per element. One program
+rotates a run of tokens x all heads (2,535 programs at that shape), reads
+each token's cos/sin row once for all its heads, and moves q and k as
+contiguous [tokens, heads, D] tiles, which Triton turns into 16-byte vector
+loads and stores (8 bf16 or 4 fp32); the interleaved pairs are split and
+joined in registers (``tl.reshape`` + ``tl.split`` / ``tl.join``), fp32
+math. The pass is one fused elementwise sweep bound by bytes, which is
+what Triton is for: CUDA C++ would move the same bytes with the same
+vector width. Unlike the JAX wrapper it takes every shape (no fallback for
 h % 8 != 0).
 """
 
@@ -92,7 +98,8 @@ def apply_rope_qk_plain(q, k, cos, sin, out_dtype=None):
             apply_rope(k, cos, sin, out_dtype=out_dtype))
 
 
-_BLOCK_H = 8
+_BLOCK_S = 8      # tokens per program
+_BLOCK_H = 8      # heads per step of a program's loop over all heads
 
 
 def _launch(q, k, cos, sin, out_dtype):
@@ -111,11 +118,10 @@ def _launch(q, k, cos, sin, out_dtype):
     sin = sin.to(torch.float32).contiguous()
     qo = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     ko = torch.empty(k.shape, dtype=out_dtype, device=q.device)
-    grid = (b * s, triton.cdiv(h, _BLOCK_H))
-    rope_qk_kernel[grid](q, k, cos, sin, qo, ko, s, h, d // 2,
-                         BLOCK_H=_BLOCK_H,
-                         BLOCK_HALF=triton.next_power_of_2(d // 2),
-                         num_warps=4)
+    grid = (triton.cdiv(b * s, _BLOCK_S),)
+    rope_qk_kernel[grid](q, k, cos, sin, qo, ko, b * s, s, h, D=d,
+                         BLOCK_S=_BLOCK_S, BLOCK_H=_BLOCK_H,
+                         BLOCK_D=triton.next_power_of_2(d), num_warps=8)
     apply_rope_qk.launches += 1
     return qo, ko
 
