@@ -10,23 +10,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build   -- compiles the CUDA C++ kernels from ``worldforge_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together).
 3. kernels -- each of the five kernels against its plain PyTorch version at
-   the main paths' shapes (the Wan repaint's and the LongCat refine's) and
-   at small ragged shapes (kernels 2 and 4):
+   the main paths' shapes (the Wan repaint's, the LongCat refine's and the
+   LongCat guided i2v's) and at small ragged shapes (kernels 2 and 4):
    error, kernel time, plain time, the time of one PyTorch library call for
    the same function where there is one (a yardstick only, never used by
    the port), and the card's bound for the same work.
-4. vae     -- the vae_profile lines: one single-pass Wan2.1 VAE decode +
+4. flf     -- FLF channel selection (Farneback flows, channel scores, the
+   Wan and LongCat schedules) on the card against the CPU at the 480p
+   49-frame latent shape [1, 16, 13, 60, 104]: scores within 1e-4 and the
+   selected sets equal, with the card's time per call.
+5. vae     -- the vae_profile lines: one single-pass Wan2.1 VAE decode +
    encode at the generate shape and one streaming decode at the refine
    shape under ``torch.profiler`` (device time of kernel 4, the other
    convs, the elementwise work, and idle).
-5. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
+6. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
    480x832x49 frames (20,280 tokens), then one more under ``torch.profiler``
    (the dit_profile line: device time by kernel group).
-6. generate -- the guided repaint (CFG + IRR + VAE fuse + DSG + final decode)
-   through ``load_wan_pipeline`` and ``WanI2VPipeline.generate`` at full
-   width with the cuts listed on its line; every kernel of that path must
-   launch during this phase.
-7. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
+7. generate -- the guided repaint (CFG + IRR + VAE fuse + FLF + DSG + final
+   decode) through ``load_wan_pipeline`` and ``WanI2VPipeline.generate`` at
+   full width with the cuts listed on its line; every kernel of that path
+   must launch during this phase. Before it, a reduced random-init generate
+   with FLF over 8 guided steps runs on the card and on the CPU from one set
+   of weights and one noise stream, and the two must agree.
+8. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
    ``load_longcat_pipeline`` and ``LongCatPipeline.generate_refine``: the
    13.6B DiT at full width and depth, the streaming Wan2.1 VAE, a 49-frame
    480x832 stage-1 video refined to 704x1280 (56,320 tokens, block-sparse
@@ -34,6 +40,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    kernels of that path must launch during this phase. Before it, the
    reduced random-init refine at 128x256 runs on the card and on the CPU
    from one set of weights and one noise stream, and the two must agree.
+9. longcat_guided -- the LongCat guided i2v (IRR + FLF + DSG, the distill
+   table, no CFG) through the refine phase's pipeline and
+   ``LongCatPipeline.generate_i2v`` at 480x832 x 49 frames (20,280 tokens),
+   with the step cut listed on its line; kernels 1, 2 and 4 must launch
+   and steps 2 and 3 must hand a channel back. Before it, the reduced
+   random-init LongCat runs ``generate_i2v`` (distill, and standard with
+   CFG) and ``generate_vc`` on the card and on the CPU, which must agree.
 
 The line before the last holds the kernel table; the last line is the device
 summary.
@@ -41,6 +54,7 @@ summary.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -86,6 +100,17 @@ REFINE_PROMPT = ("a slow camera pan along a rainy city street at dusk, neon "
 TEXT_LEN = 512
 REFINE_KV_LEN = min(max(len(REFINE_PROMPT) // 4, 1), TEXT_LEN)  # hash mask
 
+# LongCat guided i2v: 480x832 x 49 frames -> 13 x 60 x 104 latents, 20,280
+# tokens of which the cond frame's 1,560; the distill table at 4 of its
+# 16 steps, every step guided (IRR 2, FLF with max_replace 2).
+LC_GUIDED_STEPS = 4
+LC_COND_TOKENS = (HEIGHT // 16) * (WIDTH // 16)                   # 1,560
+LC_TOKENS = (DIT_FRAMES // 4 + 1) * LC_COND_TOKENS                # 20,280
+LC_PROMPT = ("a camera glides through a sunlit forest path, leaves moving "
+             "in the wind, dappled light, smooth motion, high detail")
+LC_KV_LEN = min(max(len(LC_PROMPT) // 4, 1), TEXT_LEN)            # hash mask
+FLF_SHAPE = (1, 16, DIT_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8)
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -125,6 +150,45 @@ def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, sink, keep=None, peaks=None):
+    """Replace ``module.<name>`` for the block with a wrapper that times
+    each call on the host clock between two synchronizes and appends
+    ``{"s": seconds, **keep(args, out)}`` to ``sink``. With a ``peaks``
+    list, the device's peak allocation is read into it and reset before
+    each call, and the call's own peak goes into its record as
+    ``peak_gb`` (the caller's peak is then the largest of ``peaks``, the
+    records' and the reading at its end)."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        if peaks is not None:
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0}
+        if peaks is not None:
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if keep is not None:
+            rec.update(keep(args, out))
+        sink.append(rec)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, orig)
+
+
+def flf_record(args, out):
+    """What ``timed_calls`` keeps of an ``flf_select`` call."""
+    return {"step": int(args[2]), "channels": [int(c) for c in out]}
 
 
 # ------------------------------------------------------------------ phases
@@ -621,6 +685,21 @@ def phase_kernels():
                  1e-4, 1e-4, "flash_attention refine vae fp32 d384", 3)
     _check_rope(gen, records, REFINE_GRID, LC_HEADS, 128, 20,
                 in_dtype=torch.float32, label="rope_qk refine fp32 in")
+    # the LongCat guided i2v's shapes: 20,280 tokens with the cond/noise
+    # split (cond 1,560 to cond; noise 18,720 to all), text to noise only
+    _check_flash(gen, records, 1, LC_TOKENS - LC_COND_TOKENS, LC_TOKENS,
+                 LC_HEADS, 128, torch.bfloat16, 2e-2, 1e-2,
+                 "flash_attention longcat guided noise->all", 5)
+    _check_flash(gen, records, 1, LC_COND_TOKENS, LC_COND_TOKENS, LC_HEADS,
+                 128, torch.bfloat16, 2e-2, 1e-2,
+                 "flash_attention longcat guided cond->cond", 10)
+    _check_flash(gen, records, 1, LC_TOKENS - LC_COND_TOKENS, TEXT_LEN,
+                 LC_HEADS, 128, torch.bfloat16, 2e-2, 1e-2,
+                 "flash_attention longcat guided text cross-attn kv_lens",
+                 10, kv_len=LC_KV_LEN)
+    _check_rope(gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16,
+                               WIDTH // 16), LC_HEADS, 128, 20,
+                in_dtype=torch.float32, label="rope_qk longcat guided fp32 in")
     _check_conv(gen, records, 4, REFINE_H, REFINE_W, 96, 96, 3,
                 "conv3d 96->96 refine 704x1280 T'6")
     for rec in records:
@@ -668,6 +747,8 @@ def kernel_counters():
 WAN_PATH_KERNELS = ("flash_attention", "rope_qk", "modulated_layer_norm",
                     "conv3d_causal")
 REFINE_PATH_KERNELS = ("flash_attention", "rope_qk", "conv3d_causal", "bsa")
+LONGCAT_GUIDED_PATH_KERNELS = ("flash_attention", "rope_qk",
+                               "conv3d_causal")
 
 
 def _require_launches(launches, names, phase):
@@ -684,6 +765,108 @@ def _reset_counters():
 
 def _read_counters():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def _flf_latents(seed=21):
+    """pred / ref latents at the 480p 49-frame shape: per channel a smooth
+    pattern drifting over the frames plus noise; pred mixes in a shifted
+    copy of ref by a channel-dependent amount, so the channels' flows
+    agree with the reference to different degrees."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b, c, t, h, w = FLF_SHAPE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ref = np.empty(FLF_SHAPE, np.float32)
+    for ch in range(c):
+        fx, fy = rng.uniform(5.0, 15.0, 2)
+        ph = rng.uniform(0.0, 6.3)
+        for i in range(t):
+            ref[0, ch, i] = (np.sin((xx + 1.5 * i) / fx + ph)
+                             * np.cos((yy - 0.5 * i) / fy))
+    ref += 0.1 * rng.standard_normal(FLF_SHAPE).astype(np.float32)
+    amount = np.linspace(0.0, 1.0, c, dtype=np.float32)[None, :, None, None,
+                                                         None]
+    pred = (ref + amount * np.roll(ref, (1, 2), axis=(2, 4))
+            + 0.2 * rng.standard_normal(FLF_SHAPE).astype(np.float32))
+    return pred.astype(np.float32), ref
+
+
+def _median_ms(fn, n=5):
+    """Median host-clock time of ``fn`` (which ends in a synchronize or a
+    host copy) over ``n`` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def phase_flf():
+    """FLF channel selection on the card against the CPU at the 480p
+    49-frame latent shape [1, 16, 13, 60, 104]: 2 x 16 x 12 = 384 Farneback
+    pairs of 60 x 104 (one pyramid level). Flows, the scores of both
+    variants with optical flow on and off, and the selected sets of both
+    schedules (Wan steps 2-20; LongCat distill and standard, max_replace
+    None and 2) must agree: scores within 1e-4, sets equal."""
+    from worldforge_tpu_torch.ops.farneback import _pyramid_plan
+    from worldforge_tpu_torch.ops.flow import video_channel_flows_pair
+    from worldforge_tpu_torch.sampling.channel_select import (
+        channel_similarities, select_channels_longcat, select_channels_wan)
+    pred, ref = _flf_latents()
+    inputs = {"cpu": (torch.from_numpy(pred), torch.from_numpy(ref))}
+    inputs["cuda"] = tuple(x.cuda() for x in inputs["cpu"])
+    flows = {d: video_channel_flows_pair(*inputs[d]) for d in inputs}
+    flow_err = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(flows["cuda"], flows["cpu"]))
+    flow_max = max(float(b.abs().max()) for b in flows["cpu"])
+    scores, score_err = {}, {}
+    for variant in ("wan", "longcat"):
+        for use_flow in (True, False):
+            by_dev = {d: channel_similarities(*inputs[d], use_flow, variant)
+                      for d in inputs}
+            scores[(variant, use_flow)] = by_dev
+            score_err[f"{variant} flow={use_flow}"] = float(
+                abs(by_dev["cuda"] - by_dev["cpu"]).max())
+    sets, equal = {}, True
+    steps = range(2, 21)
+    wan = scores[("wan", True)]
+    sets["wan"] = {d: [select_channels_wan(wan[d], i) for i in steps]
+                   for d in wan}
+    lc = scores[("longcat", True)]
+    for distill in (True, False):
+        for mr in (None, 2):
+            key = (f"longcat {'distill' if distill else 'standard'} "
+                   f"max_replace={mr}")
+            sets[key] = {d: [select_channels_longcat(lc[d], i, distill, mr)
+                             for i in steps] for d in lc}
+    for v in sets.values():
+        equal = equal and v["cuda"] == v["cpu"]
+    card = inputs["cuda"]
+
+    def flows_synced():
+        video_channel_flows_pair(*card)
+        torch.cuda.synchronize()
+
+    sim_ms = _median_ms(lambda: channel_similarities(*card))
+    flows_ms = _median_ms(flows_synced)
+    ok = max(score_err.values()) <= 1e-4 and equal
+    emit({"phase": "flf", "shape": list(FLF_SHAPE),
+          "farneback_pairs": 2 * 16 * (FLF_SHAPE[2] - 1),
+          "pyramid_levels": len(_pyramid_plan(FLF_SHAPE[3], FLF_SHAPE[4],
+                                              0.5, 3)),
+          "max_flow_diff_px": flow_err, "max_abs_flow_px": flow_max,
+          "max_score_diff": score_err, "tol_score": 1e-4,
+          "scores_card_wan": [round(float(x), 6) for x in wan["cuda"]],
+          "selected_steps_2_20_card": {k: v["cuda"] for k, v in sets.items()},
+          "sets_equal": equal,
+          "channel_similarities_ms_median": sim_ms,
+          "video_channel_flows_pair_ms_median": flows_ms,
+          "timing": "host clock, median of 5 after a warm-up; the scores' "
+                    "host copy included", "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: FLF on the card disagrees with the CPU")
 
 
 def phase_vae():
@@ -731,9 +914,36 @@ def phase_vae():
                          "torch.profiler", {"latents": shape}, warmup=warmup)
         emit({"phase": "vae_launches", "what": what,
               "conv3d_causal_launches_per_run": count["launches"]})
+    _conv2d_workspace()
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _conv2d_workspace():
+    """The decoder's first spatial upsample conv (3x3, 384 -> 192, fp32
+    through cuDNN, ``core/params.py::conv``) on 2 frames at the 480p and the
+    refine's 704x1280 shapes: its time and the device memory it allocates
+    beyond its input, output and weight (cuDNN's workspace)."""
+    from worldforge_tpu_torch.core import params as P
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    w = torch.randn((3, 3, 384, 192), generator=gen, device="cuda") * 0.02
+    rows = []
+    for h, wd in ((120, 208), (176, 320)):
+        x = torch.randn((2, h, wd, 384), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = P.conv({"w": w}, x, padding=1)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - nbytes(y)
+        ms = cuda_ms(lambda: P.conv({"w": w}, x, padding=1), 3)
+        rows.append({"x": list(x.shape), "w": list(w.shape),
+                     "extra_gb": extra / 2 ** 30, "ms": ms})
+        del x, y
+    emit({"phase": "vae_conv2d_workspace", "what": "the decoder's 3x3 "
+          "384->192 resample conv, fp32 through cuDNN, 2 frames: device "
+          "memory allocated in the call beyond its output", "rows": rows})
 
 
 def phase_dit():
@@ -804,6 +1014,7 @@ def _small_generate_check():
     from worldforge_tpu_torch.core import params as P
     from worldforge_tpu_torch.core.dtypes import FP32_POLICY
     from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
+    from worldforge_tpu_torch.sampling import guidance
     from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
     rng = np.random.default_rng(0)
     f, hw = 5, 64
@@ -811,31 +1022,42 @@ def _small_generate_check():
     ref = rng.uniform(0, 1, (1, 3, f, hw, hw)).astype(np.float32)
     mask = np.zeros((1, 1, f, hw, hw), np.float32)
     mask[..., : hw // 2] = 1.0
-    guide = GuidanceConfig(guided=True, guide_steps=2, resample_steps=2,
-                           resample_round=2, omega=1.8, use_flf=False)
+    # FLF on (the library default) through 8 guided steps: the Wan
+    # schedule hands one channel back at steps 6 and 7
+    steps = 8
+    guide = GuidanceConfig(guided=True, guide_steps=steps, resample_steps=2,
+                           resample_round=steps, omega=1.8)
     pipe, enc_t, enc_i = load_wan_pipeline(random_init=True, device="cpu",
                                            policy=FP32_POLICY)
     on_card = dataclasses.replace(
         pipe, dit_params=P.tree_map(lambda t: t.cuda(), pipe.dit_params),
         vae_params=P.tree_map(lambda t: t.cuda(), pipe.vae_params))
-    outs = {}
+    outs, picked = {}, {}
     for dev, pipe in (("cuda", on_card), ("cpu", pipe)):
         noise = np.random.default_rng(7)
-        outs[dev] = pipe.generate(
-            None, image, enc_t("a prompt"), enc_t("a negative prompt"),
-            enc_i(image), height=hw, width=hw, num_frames=f,
-            num_inference_steps=2, guidance_scale=5.0, video_ref=ref,
-            mask=mask, guidance=guide, output_type="latent",
-            noise_fn=lambda s: noise.standard_normal(s).astype(np.float32)
-        ).float().cpu()
+        with timed_calls(guidance, "flf_select", [], flf_record) as sel:
+            outs[dev] = pipe.generate(
+                None, image, enc_t("a prompt"), enc_t("a negative prompt"),
+                enc_i(image), height=hw, width=hw, num_frames=f,
+                num_inference_steps=steps, guidance_scale=5.0,
+                video_ref=ref, mask=mask, guidance=guide,
+                output_type="latent",
+                noise_fn=lambda s: noise.standard_normal(s).astype(
+                    np.float32)).float().cpu()
+        picked[dev] = {r["step"]: r["channels"] for r in sel}
     a, b = outs["cuda"], outs["cpu"]
     rel_l2 = float((a - b).norm() / b.norm())
     rel_max = float((a - b).abs().max() / b.abs().max())
+    handed = [i for i, c in picked["cuda"].items() if c]
     # bf16 rounding of the conv inputs flips on last-bit fp32 differences
     # (see tests/test_torch_pipeline.py): bf16 noise level
     tol = 2e-2
-    ok = bool(torch.isfinite(a).all()) and rel_l2 < tol
+    ok = bool(torch.isfinite(a).all()) and rel_l2 < tol and len(handed) >= 1
     emit({"phase": "generate_small_vs_cpu", "shape": list(a.shape),
+          "steps": steps, "use_flf": guide.use_flf,
+          "flf_channels_by_step_card": picked["cuda"],
+          "flf_sets_equal_cpu": picked["cuda"] == picked["cpu"],
+          "steps_handing_channels_back": len(handed),
           "rel_l2": rel_l2, "rel_max": rel_max, "tol_rel_l2": tol,
           "ok": ok})
     if not ok:
@@ -851,6 +1073,7 @@ def phase_generate():
     from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
     from worldforge_tpu_torch.models.wan.dit import WanDiTConfig
     from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
+    from worldforge_tpu_torch.sampling import guidance
     from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
 
     _small_generate_check()
@@ -878,7 +1101,7 @@ def phase_generate():
     image = (frames[:, :, 0] * 2.0 - 1.0).astype(np.float32)
     guide = GuidanceConfig(guided=True, guide_steps=GEN_STEPS,
                            resample_steps=2, resample_round=GEN_STEPS,
-                           omega=1.8, omega_resample=1.0, use_flf=False)
+                           omega=1.8, omega_resample=1.0)
     pe = encode_text("a prompt")
     ne = encode_text("a negative prompt")
     ie = encode_image(frames[0, :, 0])
@@ -893,10 +1116,11 @@ def phase_generate():
     _reset_counters()
     torch.cuda.synchronize()
     t0 = time.time()
-    out = pipe.generate(gen, image, pe, ne, ie, height=h, width=w,
-                        num_frames=f, num_inference_steps=GEN_STEPS,
-                        guidance_scale=5.0, video_ref=frames, mask=mask,
-                        guidance=guide, callback=on_step)
+    with timed_calls(guidance, "flf_select", [], flf_record) as flf:
+        out = pipe.generate(gen, image, pe, ne, ie, height=h, width=w,
+                            num_frames=f, num_inference_steps=GEN_STEPS,
+                            guidance_scale=5.0, video_ref=frames, mask=mask,
+                            guidance=guide, callback=on_step)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     launches = _read_counters()
@@ -908,7 +1132,12 @@ def phase_generate():
                    f"{GEN_FRAMES} of 49", "steps": f"{GEN_STEPS} of 50"},
           "height": h, "width": w, "frames": f, "steps": GEN_STEPS,
           "resample_steps": 2, "guide_steps": GEN_STEPS,
-          "guidance_scale": 5.0, "omega": 1.8, "init_s": init_s,
+          "guidance_scale": 5.0, "omega": 1.8, "use_flf": guide.use_flf,
+          "flf": [{"step": r["step"], "channels": r["channels"],
+                   "s": r["s"]} for r in flf],
+          "flf_note": "FLF scores the channels at r = 0 of steps 2 and up; "
+                      "the Wan schedule hands none back before step 6",
+          "init_s": init_s,
           "total_s": total_s, "step_s": step_s,
           "final_decode_s": total_s - (marks[-1] - t0),
           "launches": launches,
@@ -1071,7 +1300,209 @@ def phase_refine():
         raise SystemExit("chip_smoke: refine output is wrong")
     _require_launches(launches, REFINE_PATH_KERNELS, "refine")
     _profile_refine_forward(pipe, encode["shape"], pe, pmask)
+    del pipe.prepare_refine_latents, out
+    return launches, (pipe, encode_text, init_s)
+
+
+def _guided_inputs(t, h, w, seed=0):
+    """A warped-video stand-in [1, 3, T, H, W] in [0, 1] (the moving
+    pattern of ``_stage1_video``), a mask trusting its left half, and the
+    first frame in [-1, 1]."""
+    import numpy as np
+    frames = _stage1_video(t, h, w, seed).transpose(3, 0, 1, 2)[None]
+    frames = np.ascontiguousarray(frames)
+    mask = np.zeros((1, 1, t, h, w), np.float32)
+    mask[..., : w // 2] = 1.0
+    return frames, mask, frames[:, :, 0] * 2.0 - 1.0
+
+
+def _small_longcat_check():
+    """The reduced random-init LongCat (the loader's default configs, fp32
+    policy; weights drawn on the CPU and copied to the card) through
+    ``generate_i2v`` guided with FLF (distill, and standard with CFG) and
+    ``generate_vc`` (fp32 cache), on the card with the kernels and on the
+    CPU with their plain versions, from one noise stream each."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.core.dtypes import FP32_POLICY
+    from worldforge_tpu_torch.io.checkpoints import load_longcat_pipeline
+    from worldforge_tpu_torch.sampling import guidance
+    from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
+    pipe, enc_t = load_longcat_pipeline(random_init=True, device="cpu",
+                                        policy=FP32_POLICY)
+    on_card = dataclasses.replace(
+        pipe, dit_params=P.tree_map(lambda t: t.cuda(), pipe.dit_params),
+        vae_params=P.tree_map(lambda t: t.cuda(), pipe.vae_params))
+    f, hw, steps = 9, 128, 4
+    frames, mask, image = _guided_inputs(f, hw, hw, seed=5)
+    pe, pmask = enc_t(LC_PROMPT)
+    ne, nmask = enc_t("a negative prompt")
+    guide = GuidanceConfig(guided=True, guide_steps=steps, resample_steps=2,
+                           resample_round=steps, omega=1.8,
+                           flf_backend="longcat", max_replace=2)
+    runs = {
+        "i2v distill": lambda p: p.generate_i2v(
+            None, image, pe, pmask, height=hw, width=hw, num_frames=f,
+            num_inference_steps=steps, use_distill=True, video_ref=frames,
+            mask=mask, guidance=guide, output_type="latent",
+            noise_fn=noise_fn()),
+        "i2v standard cfg": lambda p: p.generate_i2v(
+            None, image, pe, pmask, ne, nmask, height=hw, width=hw,
+            num_frames=f, num_inference_steps=steps, guidance_scale=4.0,
+            video_ref=frames, mask=mask, guidance=guide,
+            output_type="latent", noise_fn=noise_fn()),
+        "vc fp32 cache": lambda p: p.generate_vc(
+            None, frames[:, :, :5] * 2.0 - 1.0, pe, pmask, height=hw,
+            width=hw, num_frames=13, num_cond_frames=5,
+            num_inference_steps=3, enhance_hf=False, output_type="latent",
+            noise_fn=noise_fn()),
+    }
+
+    def noise_fn():
+        rng = np.random.default_rng(13)
+        return lambda s: rng.standard_normal(s).astype(np.float32)
+
+    tol = 2e-2
+    for name, run in runs.items():
+        outs, picked = {}, {}
+        for dev, p in (("cuda", on_card), ("cpu", pipe)):
+            _reset_counters()
+            with timed_calls(guidance, "flf_select", [], flf_record) as sel:
+                outs[dev] = run(p).float().cpu()
+            if dev == "cuda":
+                launches = _read_counters()
+            picked[dev] = {r["step"]: r["channels"] for r in sel}
+        a, b = outs["cuda"], outs["cpu"]
+        rel_l2 = float((a - b).norm() / b.norm())
+        rel_max = float((a - b).abs().max() / b.abs().max())
+        need = ("flash_attention",) if name.startswith("vc") \
+            else LONGCAT_GUIDED_PATH_KERNELS
+        ok = bool(torch.isfinite(a).all()) and rel_l2 < tol
+        emit({"phase": "longcat_small_vs_cpu", "run": name,
+              "shape": list(a.shape), "flf_channels_by_step_card":
+              picked["cuda"], "flf_sets_equal_cpu":
+              picked["cuda"] == picked["cpu"], "rel_l2": rel_l2,
+              "rel_max": rel_max, "tol_rel_l2": tol,
+              "launches_on_card": launches, "ok": ok})
+        if not ok:
+            raise SystemExit(f"chip_smoke: small LongCat {name} disagrees "
+                             f"with the CPU run of the plain versions")
+        _require_launches(launches, need, f"small LongCat {name}")
+
+
+def phase_longcat_guided(pipe, encode_text, init_s):
+    """The LongCat guided i2v at full width and depth through the user's
+    entry points (``run_longcat`` calls the same two): the refine phase's
+    pipeline (``load_longcat_pipeline``, LongCat-13.6B, the streaming
+    Wan2.1 VAE), ``generate_i2v`` at 480x832 x 49 frames (13 x 60 x 104
+    latents, 20,280 tokens, 1,560 of them cond), the distill table without
+    CFG, guided on every step (IRR 2, FLF with max_replace 2), with the
+    step cut listed on its line."""
+    from worldforge_tpu_torch.pipelines import longcat
+    from worldforge_tpu_torch.sampling import guidance
+    from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
+
+    _small_longcat_check()
+
+    frames, mask, image = _guided_inputs(DIT_FRAMES, HEIGHT, WIDTH, seed=1)
+    pe, pmask = encode_text(LC_PROMPT)
+    guide = GuidanceConfig(guided=True, guide_steps=LC_GUIDED_STEPS,
+                           resample_steps=2, resample_round=LC_GUIDED_STEPS,
+                           omega=1.8, omega_resample=1.0,
+                           flf_backend="longcat", max_replace=2)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    marks = []
+
+    def on_step(i, lat):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    before_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    peaks = []
+    with timed_calls(guidance, "flf_select", [], flf_record) as flf, \
+            timed_calls(guidance, "fuse_latents", [], peaks=peaks) as fuse, \
+            timed_calls(longcat, "longcat_dit_forward", [],
+                        peaks=peaks) as fwd:
+        out = pipe.generate_i2v(
+            gen, image, pe, pmask, height=HEIGHT, width=WIDTH,
+            num_frames=DIT_FRAMES, num_inference_steps=LC_GUIDED_STEPS,
+            use_distill=True, video_ref=frames, mask=mask, guidance=guide,
+            callback=on_step)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    launches = _read_counters()
+    peak_gb = max(peaks + [r["peak_gb"] for r in fuse + fwd]
+                  + [torch.cuda.max_memory_allocated() / 2 ** 30])
+    import numpy as np
+    step_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    handed = {r["step"]: r["channels"] for r in flf}
+    want = (1, 3, DIT_FRAMES, HEIGHT, WIDTH)
+    ok_shape = out.shape == want
+    finite = bool(np.isfinite(out).all())
+    handed_ok = all(len(handed.get(i, [])) == 1 for i in (2, 3))
+    emit({"phase": "longcat_guided",
+          "config": "longcat_13b + wan_2_1 vae (streaming)",
+          "cuts": {"steps": f"num_inference_steps {LC_GUIDED_STEPS} of the "
+                   f"16-step distill table (production: 16)"},
+          "height": HEIGHT, "width": WIDTH, "frames": DIT_FRAMES,
+          "latents": [16, DIT_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8],
+          "tokens": LC_TOKENS, "cond_tokens": LC_COND_TOKENS,
+          "use_distill": True, "cfg": False, "resample_steps": 2,
+          "guide_steps": LC_GUIDED_STEPS, "use_flf": True, "max_replace": 2,
+          "kv_len": int(pmask.sum()), "init_s_shared_with_refine": init_s,
+          "total_s": total_s, "step_s": step_s,
+          "s_per_step": (marks[-1] - t0) / len(marks),
+          "flf_s_by_step": {r["step"]: r["s"] for r in flf},
+          "fuse_s": [r["s"] for r in fuse],
+          "dit_forward_s": [r["s"] for r in fwd],
+          "peak_gb_dit_forward": max(r["peak_gb"] for r in fwd),
+          "peak_gb_fuse": max(r["peak_gb"] for r in fuse),
+          "final_decode_s": total_s - (marks[-1] - t0),
+          "channels_handed_back_by_step": handed,
+          "launches": launches,
+          "launches_per_step": {k: v / len(marks)
+                                for k, v in launches.items()},
+          "out_shape": list(out.shape), "finite": finite,
+          "out_range": [float(out.min()), float(out.max())],
+          "memory_allocated_before_gb": before_gb,
+          "max_memory_allocated_gb": peak_gb})
+    if not (ok_shape and finite and handed_ok):
+        raise SystemExit("chip_smoke: LongCat guided output is wrong")
+    _require_launches(launches, LONGCAT_GUIDED_PATH_KERNELS,
+                      "LongCat guided")
+    del out
+    _profile_longcat_guided_forward(pipe, pe, pmask)
     return launches
+
+
+def _profile_longcat_guided_forward(pipe, pe, pmask):
+    """One DiT forward at the guided i2v shape (20,280 tokens, the cond
+    frame at timestep 0 attending to itself only), as ``generate_i2v``
+    calls it."""
+    from worldforge_tpu_torch.models.longcat.dit import longcat_dit_forward
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t_lat = DIT_FRAMES // 4 + 1
+    x = torch.randn((1, 16, t_lat, HEIGHT // 8, WIDTH // 8), generator=gen,
+                    device="cuda")
+    t = torch.full((1, t_lat), 500.0, device="cuda")
+    t[:, 0] = 0.0
+
+    def forward():
+        return longcat_dit_forward(
+            pipe.dit_params, pipe.dit_cfg, x, t, pe,
+            encoder_attention_mask=pmask, num_cond_latents=1,
+            policy=pipe.policy)
+
+    _profile_forward(forward, "longcat_guided_profile", "one LongCat-13.6B "
+                     "DiT forward at the guided i2v shape (20,280 tokens, "
+                     "1,560 cond) under torch.profiler",
+                     {"tokens": LC_TOKENS})
 
 
 KERNEL_GROUPS = (
@@ -1168,12 +1599,16 @@ def main() -> int:
     phase_device()
     phase_build()
     main_recs = phase_kernels()
+    phase_flf()
     phase_vae()
     phase_dit()
     by_path = {"generate": phase_generate()}
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["refine"] = phase_refine()
+    by_path["refine"], longcat_pipe = phase_refine()
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["longcat_guided"] = phase_longcat_guided(*longcat_pipe)
 
     launches = {name: sum(counts[name] for counts in by_path.values())
                 for name in KERNEL_META}

@@ -50,13 +50,55 @@ def test_cli_streaming_vae_on_cpu(warp_dir, tmp_path):
 
 
 def test_cli_later_slices_raise(warp_dir, tmp_path):
+    """``--fused`` (the TPU scan runner) raises; FLF
+    (``--use-pca-channel-selection``) is ported and runs."""
+    out = str(tmp_path / "x.mp4")
     base = ["--video-ref", warp_dir, "--random-init", "--device", "cpu",
             "--guided", "--resize", "16", "16", "--num-frames", "5",
-            "--num-inference-steps", "1", "--output",
-            str(tmp_path / "x.mp4")]
-    for flag in ("--use-pca-channel-selection", "--fused"):
-        with pytest.raises(NotImplementedError):
-            cli.main(base + [flag])
+            "--num-inference-steps", "1", "--output", out]
+    with pytest.raises(NotImplementedError):
+        cli.main(base + ["--fused"])
+    cli.main(base + ["--use-pca-channel-selection"])
+    assert os.path.getsize(out) > 0
+
+
+def test_cli_flf_on_cpu(warp_dir, tmp_path):
+    """``--use-pca-channel-selection`` through guided steps 0-2, so FLF
+    computes its scores at step 2."""
+    out = str(tmp_path / "flf.mp4")
+    cli.main(["--video-ref", warp_dir, "--random-init", "--device", "cpu",
+              "--guided", "--use-pca-channel-selection", "--resize", "32",
+              "32", "--num-frames", "5", "--num-inference-steps", "3",
+              "--resample-steps", "2", "--guide-steps", "3",
+              "--resample-round", "3", "--output", out])
+    assert os.path.getsize(out) > 0
+
+
+def test_run_longcat_cli_on_cpu(warp_dir, tmp_path):
+    """``run_longcat`` guided with FLF on the distill schedule, at 16x16 on
+    5 frames (the reduced random-init LongCat), writes a video and PNGs."""
+    from worldforge_tpu_torch.cli import run_longcat
+    out = str(tmp_path / "lc.mp4")
+    run_longcat.main(["--video-ref", warp_dir, "--random-init",
+                      "--device", "cpu", "--guided",
+                      "--use-pca-channel-selection", "--use_distill",
+                      "--resize", "16", "16", "--num-frames", "5",
+                      "--num-inference-steps", "3", "--resample-steps", "2",
+                      "--guide-steps", "3", "--resample-round", "3",
+                      "--soften-mask", "--transition-distance", "3",
+                      "--max-replace", "2", "--save-png", "--output", out])
+    assert os.path.getsize(out) > 0
+    assert len(os.listdir(str(tmp_path / "lc_frames"))) == 5
+    up = str(tmp_path / "lc_up.mp4")
+    run_longcat.main(["--video-ref", warp_dir, "--random-init",
+                      "--device", "cpu", "--guided", "--resize", "16", "16",
+                      "--num-frames", "5", "--num-inference-steps", "2",
+                      "--enable-upscale", "--output", up])
+    assert os.path.getsize(up) > 0
+    with pytest.raises(NotImplementedError, match="parallel layer"):
+        run_longcat.main(["--video-ref", warp_dir, "--random-init",
+                          "--device", "cpu", "--context_parallel_size", "2",
+                          "--output", out])
 
 
 def test_upscale_cli_random_init_on_cpu(tmp_path):

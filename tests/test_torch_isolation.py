@@ -24,6 +24,17 @@ def _imported_roots(path):
                 yield node.module.split(".")[0]
 
 
+def test_isolation_covers_the_port_modules():
+    """The JAX-import check walks every module of the package, the FLF and
+    LongCat guided modules among them."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("ops/farneback.py", "ops/flow.py",
+                "sampling/channel_select.py", "sampling/guidance.py",
+                "sampling/engine.py", "pipelines/longcat.py",
+                "models/longcat/dit.py", "cli/run_longcat.py"):
+        assert f"worldforge_tpu_torch/{rel}" in names, rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_imports(path):
     roots = set(_imported_roots(path))

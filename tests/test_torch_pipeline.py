@@ -3,7 +3,7 @@
 Tiny configs, weights made with the port's init and carried to JAX, fp32
 policy, the same numpy noise stream (``noise_fn``) on both sides, guided
 with CFG 4.0, IRR (``resample_steps=2``) and the VAE fuse on every step,
-DSG, and FLF off.
+DSG, and FLF off (on in ``test_guided_generate_with_flf_matches_jax``).
 
 Two conv modes, as in ``test_torch_vae.py``: 'fp32' runs both VAEs with
 fp32 convs and holds the latents to 1e-4 relative (measured 4e-7); 'kernel'
@@ -138,7 +138,9 @@ def test_generate_pixels_and_unguided(pipes):
 @pytest.mark.parametrize("what", ["flf", "fused", "streaming"])
 def test_later_slices_raise(pipes, what):
     """'streaming': the streaming VAE is ported; its H-strip tiling
-    (``spatial_chunks`` > 1) is a later slice."""
+    (``spatial_chunks`` > 1) is a later slice. 'fused': the TPU scan
+    runner raises. 'flf': FLF is ported, and the guided generate with the
+    default ``GuidanceConfig()`` (FLF on) runs."""
     tp, _ = pipes
     if what == "streaming":
         z = torch.zeros((1, tp.vae_cfg.z_dim, 2, 2, 2))
@@ -148,11 +150,58 @@ def test_later_slices_raise(pipes, what):
         return
     x = _inputs()
     kw = dict(height=16, width=16, num_frames=5, num_inference_steps=2,
-              video_ref=x["ref"], mask=x["mask"],
-              guidance=TGuide(**dict(GUIDE, use_flf=what == "flf")),
-              fused=what == "fused")
+              video_ref=x["ref"], mask=x["mask"])
+    if what == "flf":
+        out = tp.generate(torch.Generator().manual_seed(0), x["image"],
+                          x["pe"], x["ne"], x["ie"], guidance=TGuide(), **kw)
+        assert out.shape == (1, 3, 5, 16, 16) and np.isfinite(out).all()
+        return
     with pytest.raises(NotImplementedError):
-        tp.generate(None, x["image"], x["pe"], x["ne"], x["ie"], **kw)
+        tp.generate(None, x["image"], x["pe"], x["ne"], x["ie"],
+                    guidance=TGuide(**GUIDE), fused=True, **kw)
+
+
+def test_guided_generate_with_flf_matches_jax(pipes, monkeypatch):
+    """FLF on (the Wan schedule) through 8 guided steps, with fp32 convs:
+    the latents to 1e-4 relative, and the channel sets handed back at every
+    step equal to the JAX package's; steps 6 and 7 hand one back."""
+    from worldforge_tpu.pipelines import wan_i2v as jwan
+    from worldforge_tpu_torch.sampling import guidance as tguidance
+    tp, jp_by_mode = pipes
+    old = jvae._CONV3D_MODE
+    jvae._CONV3D_MODE = "3d"
+    monkeypatch.setattr(tvae, "conv3d_causal", fp32_conv3d)
+    sel = {"jax": [], "torch": []}
+    for mod, side in ((jwan, "jax"), (tguidance, "torch")):
+        def wrapped(pred, ref, step, cfg, _orig=mod.flf_select, _s=side):
+            out = _orig(pred, ref, step, cfg)
+            sel[_s].append((step, list(out)))
+            return out
+        monkeypatch.setattr(mod, "flf_select", wrapped)
+    x = _inputs(frames=9, hw=64)
+    g = dict(GUIDE, guide_steps=8, resample_round=8, use_flf=True)
+    kw = dict(height=64, width=64, num_frames=9, num_inference_steps=8,
+              guidance_scale=4.0, output_type="latent")
+    try:
+        want = np.asarray(jp_by_mode["fp32"].generate(
+            jax.random.key(0), jnp.asarray(x["image"]), jnp.asarray(x["pe"]),
+            jnp.asarray(x["ne"]), jnp.asarray(x["ie"]),
+            video_ref=jnp.asarray(x["ref"]), mask=jnp.asarray(x["mask"]),
+            guidance=JGuide(**g), noise_fn=_noise(11), **kw))
+    finally:
+        jvae._CONV3D_MODE = old
+    got = tp.generate(None, x["image"], x["pe"], x["ne"], x["ie"],
+                      video_ref=x["ref"], mask=x["mask"],
+                      guidance=TGuide(**g), noise_fn=_noise(11),
+                      **kw).numpy()
+    assert got.shape == want.shape == (1, 4, 3, 8, 8)
+    rel_max = np.abs(got - want).max() / np.abs(want).max()
+    assert rel_max < TOL["fp32"][0], rel_max
+    assert sel["torch"] == sel["jax"]
+    assert [s for s, _ in sel["torch"]] == list(range(8))
+    handed = {s: c for s, c in sel["torch"] if c}
+    assert sorted(handed) == [6, 7] and all(len(c) == 1
+                                            for c in handed.values())
 
 
 def test_streaming_vae_generate_matches_single_pass(pipes):

@@ -191,7 +191,8 @@ def test_streaming_refine_pixels_match_jax(pipes, conv_mode):
 
 def test_grid_check_and_later_slices(pipes, capsys):
     """A grid that does not factor into (4, 4, 8) chunks runs dense with
-    the JAX package's message; the paths of later slices raise."""
+    the JAX package's message; meshes, ``token_chunk`` > 1 and
+    ``auto_layout`` (later slices) raise on every generate path."""
     _, tp = pipes
     video_shape, hw, kw = CASES["spatial"]
     stage1, pe, pmask = _inputs(video_shape)
@@ -201,9 +202,6 @@ def test_grid_check_and_later_slices(pipes, capsys):
                              use_bsa=True)
     assert out.shape == (1, 3, 5, 32, 32) and np.isfinite(out).all()
     assert "BSA disabled" in capsys.readouterr().out
-    for name in ("generate_i2v", "generate_t2v", "generate_vc"):
-        with pytest.raises(NotImplementedError):
-            getattr(tp, name)()
     for field, value in (("mesh", object()), ("token_chunk", 2),
                          ("auto_layout", True)):
         bad = dataclasses.replace(tp, **{field: value})
@@ -211,6 +209,24 @@ def test_grid_check_and_later_slices(pipes, capsys):
             bad.generate_refine(None, stage1, pe, pmask, height=hw[0],
                                 width=hw[1], num_inference_steps=2,
                                 spatial_refine_only=True, use_bsa=False)
+        # the guided i2v, t2v and vc paths run (tests/
+        # test_torch_longcat_guided.py) and refuse the same fields
+        calls = (
+            lambda: bad.generate_i2v(None, np.zeros((1, 3, 16, 16),
+                                                    np.float32), pe, pmask,
+                                     height=16, width=16, num_frames=5,
+                                     num_inference_steps=1),
+            lambda: bad.generate_t2v(None, pe, pmask, height=16, width=16,
+                                     num_frames=5, num_inference_steps=1),
+            lambda: bad.generate_vc(None, np.zeros((1, 3, 5, 16, 16),
+                                                   np.float32), pe, pmask,
+                                    height=16, width=16, num_frames=9,
+                                    num_cond_frames=5,
+                                    num_inference_steps=1,
+                                    enhance_hf=False))
+        for call in calls:
+            with pytest.raises(NotImplementedError):
+                call()
 
 
 def test_loader_defaults_match_jax(monkeypatch):

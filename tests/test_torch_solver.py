@@ -120,7 +120,16 @@ def test_denoise_loop_generator_noise_is_seeded():
 
 
 def test_flf_is_a_later_slice():
+    """FLF off selects nothing; on, before step 2 it selects nothing
+    without computing flows, and from step 2 it runs the schedule (the
+    selection against JAX is ``tests/test_torch_flf.py``)."""
     assert tgd.flf_select(None, None, 3, tgd.GuidanceConfig(
         use_flf=False)) == []
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tgd.flf_select(None, None, 3, tgd.GuidanceConfig(use_flf=True))
+    on = tgd.GuidanceConfig(use_flf=True)
+    assert tgd.flf_select(None, None, 1, on) == []
+    rng = np.random.default_rng(0)
+    ref = torch.from_numpy(rng.standard_normal((1, 4, 3, 8, 8)).astype(
+        np.float32))
+    pred = ref + 0.5 * torch.roll(ref, 1, dims=-1)
+    assert tgd.flf_select(pred, ref, 5, on) == []       # Wan: none <= 5
+    assert len(tgd.flf_select(pred, ref, 7, on)) == 1   # worst 1 <= 10

@@ -11,9 +11,9 @@ mp4 (and optional PNGs)::
 ``--device`` defaults to the card and fails when there is none; pass
 ``--device cpu`` to run the plain PyTorch path on the CPU. ``--random-init``
 runs the full pipeline with random weights at a reduced size (converted
-checkpoints are a later slice). ``--use-pca-channel-selection`` (FLF)
-and ``--fused`` are later slices of the port and raise; ``--streaming-vae``
-runs the streaming VAE.
+checkpoints are a later slice). ``--use-pca-channel-selection`` turns on
+FLF channel selection; ``--streaming-vae`` runs the streaming VAE;
+``--fused`` (the TPU scan runner) raises.
 """
 
 from __future__ import annotations

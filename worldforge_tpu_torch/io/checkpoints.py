@@ -101,6 +101,7 @@ def load_longcat_pipeline(checkpoint_dir: Optional[str] = None,
                           device: Optional[Union[str, torch.device]] = None,
                           dit_cfg: Optional[LongCatDiTConfig] = None,
                           vae_cfg: Optional[WanVAEConfig] = None,
+                          use_distill: bool = False,
                           policy: Policy = DEFAULT_POLICY,
                           seed: int = 0,
                           ) -> Tuple[LongCatPipeline, Callable]:
@@ -110,9 +111,11 @@ def load_longcat_pipeline(checkpoint_dir: Optional[str] = None,
     device: None means the card (raises when there is none); the CPU only
     when asked for by name. The DiT is built in bf16 (fp32 under an fp32
     policy) one layer at a time on the device, the VAE in fp32, from
-    generators seeded ``seed`` and ``seed + 1``. The JAX loader's
-    ``use_distill`` (the distill LoRA of a converted checkpoint) comes with
-    checkpoint conversion."""
+    generators seeded ``seed`` and ``seed + 1``. ``use_distill`` is the
+    JAX loader's flag: with a converted checkpoint it would merge the
+    distill LoRA, which comes with checkpoint conversion; at random init it
+    has no effect, as in the JAX loader (the distill sigma table and the
+    CFG switch-off are ``generate_i2v(use_distill=True)``'s)."""
     dev = resolve_device(device)
     if not (random_init or checkpoint_dir is None):
         raise NotImplementedError(

@@ -19,6 +19,12 @@ package stacks them for ``lax.scan`` (``io/from_jax.py`` unstacks a JAX
 tree), so the random init builds one layer at a time on the device and the
 13.6B model never exists twice.
 
+``longcat_dit_cache_cond`` and ``longcat_dit_forward_with_cache`` are the
+video-continuation pair: one pass over the clean cond latents caches each
+layer's post-norm, pre-RoPE k and v, and every denoise step then runs the
+noise latents only, attending to [cached cond k/v ; noise k/v] with RoPE
+applied over the joint (T_cond + T) grid.
+
 Kernels on this path (CUDA tensors launch them; CPU tensors take each
 kernel's plain version):
   - q/k RoPE -> ``ops/rope.apply_rope_qk`` (kernel 2; fp32 q/k in, the
@@ -26,14 +32,17 @@ kernel's plain version):
   - self-attention -> block-sparse attention ``ops/bsa.bsa_attention_3d``
     (kernel 5) when ``bsa_params`` is set and the grid allows it, else
     flash attention (kernel 1),
-  - cross-attention -> flash attention with ``kv_lens`` (kernel 1).
+  - cross-attention -> flash attention with ``kv_lens`` (kernel 1),
+  - the cache pass's self-attention and the cached step's attention over
+    [cond ; noise] -> flash attention (kernel 1); the cached step rotates
+    q and the joint k with the plain ``apply_rope`` (their lengths differ),
+    as the JAX package does.
 The per-frame modulation is a plain LayerNorm: its [B, T, C] shift and scale
 are not the per-(batch, channel) modulation of kernel 3, and the JAX package
 never calls that kernel here. Matrix products are ``torch.matmul``.
 
 Left for later slices: LoRA and quantized weights (``core/params.dense``
-raises), the cond-token KV cache of ``generate_vc``, meshes and
-``token_chunk`` > 1 (``longcat_dit_forward`` raises).
+raises), meshes and ``token_chunk`` > 1 (``longcat_dit_forward`` raises).
 """
 
 from __future__ import annotations
@@ -50,7 +59,8 @@ from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from worldforge_tpu_torch.models.wan.dit import patchify, unpatchify
 from worldforge_tpu_torch.ops.attention import attention
 from worldforge_tpu_torch.ops.bsa import bsa_attention_3d
-from worldforge_tpu_torch.ops.rope import apply_rope_qk, rope_cos_sin
+from worldforge_tpu_torch.ops.rope import (apply_rope, apply_rope_qk,
+                                           rope_cos_sin)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,6 +263,22 @@ def swiglu_ffn(p, x_m):
                    * P.dense(p["w3"], x_m))
 
 
+def _embed_t(params, cfg: LongCatDiTConfig, timestep, b: int, nt: int):
+    te = timestep_embedding(timestep.reshape(-1),
+                            cfg.frequency_embedding_size)
+    te = P.dense(params["t_embedder"]["fc1"], te, compute_dtype=torch.float32)
+    te = P.dense(params["t_embedder"]["fc2"], F.silu(te),
+                 compute_dtype=torch.float32)
+    return te.reshape(b, nt, cfg.adaln_tembed_dim)
+
+
+def _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt):
+    x_m2 = _modulate_per_frame(xf, sh_f, sc_f, nt, cfg.eps).to(cdt)
+    ff = swiglu_ffn(layer, x_m2).float().reshape(xf.shape[0], nt, -1,
+                                                 cfg.hidden_size)
+    return xf + (g_f[:, :, None] * ff).reshape(xf.shape)
+
+
 def longcat_layer_forward(p, cfg: LongCatDiTConfig, x, t_emb, ctx, kv_lens,
                           cos, sin, T: int, num_cond_latents: int = 0,
                           policy: Policy = DEFAULT_POLICY, grid3d=None,
@@ -276,10 +302,7 @@ def longcat_layer_forward(p, cfg: LongCatDiTConfig, x, t_emb, ctx, kv_lens,
     xf = xf + _cross_attention_lc(p, cfg, h2, ctx, kv_lens, T,
                                   num_cond_latents, policy).float()
 
-    x_m = _modulate_per_frame(xf, sh_f, sc_f, T, cfg.eps).to(
-        policy.compute_dtype)
-    ff = swiglu_ffn(p, x_m).float().reshape(b, T, n // T, c)
-    return xf + (g_f[:, :, None] * ff).reshape(b, n, c)
+    return _ffn_residual(p, cfg, xf, sh_f, sc_f, g_f, T, policy.compute_dtype)
 
 
 # ------------------------------------------------------------------ model
@@ -316,12 +339,7 @@ def longcat_dit_forward(params, cfg: LongCatDiTConfig, hidden_states,
                 patchify(hidden_states.to(cdt), cfg.patch_size),
                 compute_dtype=cdt)
 
-    te = timestep_embedding(timestep.reshape(-1).to(dev),
-                            cfg.frequency_embedding_size)
-    te = P.dense(params["t_embedder"]["fc1"], te, compute_dtype=torch.float32)
-    te = P.dense(params["t_embedder"]["fc2"], F.silu(te),
-                 compute_dtype=torch.float32)
-    t_emb = te.reshape(b, nt, cfg.adaln_tembed_dim)
+    t_emb = _embed_t(params, cfg, timestep.to(dev), b, nt)
 
     ctx = P.dense(params["y_embedder"]["fc2"], P.gelu_tanh(
         P.dense(params["y_embedder"]["fc1"], encoder_hidden_states.to(cdt))))
@@ -342,6 +360,133 @@ def longcat_dit_forward(params, cfg: LongCatDiTConfig, hidden_states,
                    compute_dtype=torch.float32)
     sh, sc = torch.chunk(fmod, 2, dim=-1)
     xN = _modulate_per_frame(xN, sh, sc, nt, cfg.eps)
+    out = P.dense(params["final"]["linear"], xN, compute_dtype=torch.float32)
+    return unpatchify(out, (nt, nh, nw), cfg.patch_size,
+                      cfg.out_channels).float()
+
+
+# ----------------------------------------------------------- KV cache
+
+
+@torch.inference_mode()
+def longcat_dit_cache_cond(params, cfg: LongCatDiTConfig, cond_latents,
+                           policy: Policy = DEFAULT_POLICY,
+                           cache_dtype=torch.float32, mesh=None):
+    """Run the DiT over the clean cond latents only (timestep 0, no
+    cross-attention) and return each layer's (k, v) of the cond tokens,
+    post-QK-norm and pre-RoPE: a list over layers of [2, B, Sc, H, D] in
+    ``cache_dtype``. fp32 is exact; bf16 halves the cache and rounds k
+    before its RoPE. ``mesh`` belongs to a later slice and raises."""
+    if mesh is not None:
+        raise NotImplementedError("meshes / context parallelism are not "
+                                  "ported yet (a later slice of the port)")
+    b, _, T, H, W = cond_latents.shape
+    pt, ph, pw = cfg.patch_size
+    nt, nh, nw = T // pt, H // ph, W // pw
+    cdt = policy.compute_dtype
+    dev = cond_latents.device
+    h = cfg.num_heads
+
+    x = P.dense(params["x_embedder"],
+                patchify(cond_latents.to(cdt), cfg.patch_size),
+                compute_dtype=cdt)
+    t_emb = _embed_t(params, cfg, torch.zeros((b * nt,), device=dev), b, nt)
+    cos, sin = rope_cos_sin(nt, nh, nw, cfg.head_dim, device=dev)
+
+    xf = x.float()
+    cache = []
+    for layer in params["blocks"]:
+        mod = P.dense(layer["adaln"], F.silu(t_emb),
+                      compute_dtype=torch.float32)
+        sh_a, sc_a, g_a, sh_f, sc_f, g_f = torch.chunk(mod, 6, dim=-1)
+        x_m = _modulate_per_frame(xf, sh_a, sc_a, nt, cfg.eps).to(cdt)
+        q, k, v = torch.chunk(P.dense(layer["qkv"], x_m), 3, dim=-1)
+        q = _rms_hd(layer["q_norm"], _heads_hd(q, h), cfg.eps)
+        k = _rms_hd(layer["k_norm"], _heads_hd(k, h), cfg.eps)
+        v_h = _heads_hd(v, h)
+        cache.append(torch.stack([k.to(cache_dtype), v_h.to(cache_dtype)]))
+        # continue the forward so later layers cache the right activations
+        qr, kr = apply_rope_qk(q, k, cos, sin, out_dtype=cdt)
+        o = attention(qr, kr, v_h.to(cdt))
+        o = P.dense(layer["attn_proj"],
+                    o.reshape(b, xf.shape[1], cfg.hidden_size).to(cdt))
+        of = o.float().reshape(b, nt, -1, cfg.hidden_size)
+        xf = xf + (g_a[:, :, None] * of).reshape(xf.shape)
+        # no cross-attention while caching
+        xf = _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt)
+    return cache
+
+
+@torch.inference_mode()
+def longcat_dit_forward_with_cache(params, cfg: LongCatDiTConfig,
+                                   hidden_states, timestep,
+                                   encoder_hidden_states, kv_cache,
+                                   cond_grid, encoder_attention_mask=None,
+                                   policy: Policy = DEFAULT_POLICY,
+                                   mesh=None):
+    """Denoise the NOISE latents [B, C, T, H, W] against the cond tokens'
+    cached k/v (``longcat_dit_cache_cond``): RoPE over the joint
+    (T_cond + T) grid, q at the noise positions; cross-attention on the
+    noise tokens. cond_grid: (T_cond,). Returns [B, C_out, T, H, W] fp32.
+    ``mesh`` belongs to a later slice and raises."""
+    if mesh is not None:
+        raise NotImplementedError("meshes / context parallelism are not "
+                                  "ported yet (a later slice of the port)")
+    b, _, T, H, W = hidden_states.shape
+    pt, ph, pw = cfg.patch_size
+    nt, nh, nw = T // pt, H // ph, W // pw
+    tc = cond_grid[0]
+    n_cond = tc * nh * nw
+    cdt = policy.compute_dtype
+    dev = hidden_states.device
+    h = cfg.num_heads
+
+    if timestep.ndim == 1:
+        timestep = timestep[:, None].expand(b, nt)
+
+    x = P.dense(params["x_embedder"],
+                patchify(hidden_states.to(cdt), cfg.patch_size),
+                compute_dtype=cdt)
+    t_emb = _embed_t(params, cfg, timestep.to(dev), b, nt)
+    ctx = P.dense(params["y_embedder"]["fc2"], P.gelu_tanh(
+        P.dense(params["y_embedder"]["fc1"], encoder_hidden_states.to(cdt))))
+    kv_lens = (encoder_attention_mask.sum(dim=1).to(torch.int32)
+               if encoder_attention_mask is not None else None)
+
+    cos_full, sin_full = rope_cos_sin(tc + nt, nh, nw, cfg.head_dim,
+                                      device=dev)
+    cos_q, sin_q = cos_full[n_cond:], sin_full[n_cond:]
+
+    xf = x.float()
+    for layer, kv in zip(params["blocks"], kv_cache):
+        mod = P.dense(layer["adaln"], F.silu(t_emb),
+                      compute_dtype=torch.float32)
+        sh_a, sc_a, g_a, sh_f, sc_f, g_f = torch.chunk(mod, 6, dim=-1)
+        x_m = _modulate_per_frame(xf, sh_a, sc_a, nt, cfg.eps).to(cdt)
+        q, k, v = torch.chunk(P.dense(layer["qkv"], x_m), 3, dim=-1)
+        q = _rms_hd(layer["q_norm"], _heads_hd(q, h), cfg.eps)
+        k = _rms_hd(layer["k_norm"], _heads_hd(k, h), cfg.eps)
+        v_h = _heads_hd(v, h)
+        k_full = torch.cat([kv[0].float(), k], dim=1)
+        v_full = torch.cat([kv[1].to(cdt), v_h.to(cdt)], dim=1)
+        q = apply_rope(q, cos_q, sin_q, out_dtype=cdt)
+        k_full = apply_rope(k_full, cos_full, sin_full, out_dtype=cdt)
+        o = attention(q, k_full, v_full)
+        o = P.dense(layer["attn_proj"],
+                    o.reshape(b, nt * nh * nw, cfg.hidden_size).to(cdt))
+        of = o.float().reshape(b, nt, -1, cfg.hidden_size)
+        xf = xf + (g_a[:, :, None] * of).reshape(xf.shape)
+
+        h2 = P.layer_norm(layer["pre_crs_norm"], xf, eps=cfg.eps,
+                          out_dtype=cdt)
+        xf = xf + _cross_attention_lc(layer, cfg, h2, ctx, kv_lens, nt, 0,
+                                      policy).float()
+        xf = _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt)
+
+    fmod = P.dense(params["final"]["adaln"], F.silu(t_emb),
+                   compute_dtype=torch.float32)
+    sh, sc = torch.chunk(fmod, 2, dim=-1)
+    xN = _modulate_per_frame(xf, sh, sc, nt, cfg.eps)
     out = P.dense(params["final"]["linear"], xN, compute_dtype=torch.float32)
     return unpatchify(out, (nt, nh, nw), cfg.patch_size,
                       cfg.out_channels).float()

@@ -1,14 +1,18 @@
-"""Align-corners linear resizes (counterpart of the resize half of
-``worldforge_tpu/ops/sampling.py``).
+"""Resizes: align-corners linear (counterpart of the resize half of
+``worldforge_tpu/ops/sampling.py``) and the per-axis weights of
+``jax.image.resize``.
 
 ``F.interpolate(mode='trilinear', align_corners=True)`` is separable, so a
 3D resize composes from one 1D linear resample per axis. This is the
-refine upscale's resize (``pipelines/longcat.py``), not the half-pixel
-mapping of ``jax.image.resize``.
+refine upscale's resize (``pipelines/longcat.py``). The half-pixel mapping
+of ``jax.image.resize`` (``jax_linear_weights``, ``jax_nearest_index``) is
+the guided fuse's resize (``sampling/guidance.py``) and the LK flow's
+(``ops/flow.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,3 +40,31 @@ def resize3d_align_corners(x: torch.Tensor, t: int, h: int, w: int
     x = interp1d_align_corners(x, t, axis=2)
     x = interp1d_align_corners(x, h, axis=3)
     return interp1d_align_corners(x, w, axis=4)
+
+
+def jax_linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] weights of ``jax.image.resize(method="linear")`` on one
+    axis: a triangle kernel at half-pixel centres, widened by the scale when
+    downsampling (antialiasing), each column normalised, samples outside the
+    input zeroed. Computed in float32, as JAX computes them."""
+    scale = np.float32(n_out) / np.float32(n_in)
+    inv = 1.0 / scale
+    kscale = max(float(inv), 1.0)
+    sample = ((torch.arange(n_out, dtype=torch.float32) + 0.5) * float(inv)
+              - 0.5)
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+         ).abs() / kscale
+    w = torch.clamp(1.0 - x, min=0.0)
+    tot = w.sum(dim=0, keepdim=True)
+    w = torch.where(tot.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(tot != 0, tot, torch.ones_like(tot)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def jax_nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize(method="nearest")``: floor((i + 0.5) * in / out),
+    in float32."""
+    off = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
+    return torch.floor(off).to(torch.int64).to(device)

@@ -1,17 +1,30 @@
-"""LongCat-Video pipeline: the 480p -> 720p refine (SDEdit upscale).
+"""LongCat-Video pipeline: guided i2v (IRR + FLF + DSG), t2v, video
+continuation, and the 480p -> 720p refine.
 
-Counterpart of ``worldforge_tpu/pipelines/longcat.py`` on the refine path
-(``prepare_refine_latents`` and ``generate_refine``): an align-corners
-spatial upscale (and a 2x trilinear temporal one unless
-``spatial_refine_only``), noise frames padded to the BSA latent
-granularity, the VAE encode, a mix with noise at ``t_thresh``, the Euler
-schedule truncated below ``t_thresh``, no CFG, and block-sparse attention
-where the token grid factors into (4, 4, 8) chunks.
+Counterpart of ``worldforge_tpu/pipelines/longcat.py`` on its host-loop
+paths:
 
-The guided i2v, t2v and video-continuation paths (``generate_i2v``,
-``generate_t2v``, ``generate_vc`` with its cond-token KV cache), meshes,
-``token_chunk`` > 1 and ``auto_layout`` are a later slice of the port and
-raise.
+- ``generate_i2v``: the first frame VAE-encoded into latent slot 0 and a
+  per-frame timestep of 0 there; CFG batch pairs combined with CFG-zero
+  (off under ``use_distill``), the model output negated for the scheduler;
+  ``sampling/engine.py::longcat_denoise_loop`` runs IRR and DSG on the
+  noise frames, and the guided fuse on the full latents with FLF
+  (the LongCat schedule) at r = 0.
+- ``generate_t2v``: a plain flow-match Euler loop with CFG-zero.
+- ``generate_vc``: the DiT runs once over the clean cond latents to cache
+  each layer's k/v, then denoises the noise latents only against that
+  cache; ``enhance_hf`` swaps the timestep tail below 500 for a 10-step
+  ramp. ``vc_cache_dtype`` "bfloat16" halves the cache.
+- ``prepare_refine_latents`` / ``generate_refine``: an align-corners
+  spatial upscale (and a 2x trilinear temporal one unless
+  ``spatial_refine_only``), noise frames padded to the BSA latent
+  granularity, the VAE encode, a mix with noise at ``t_thresh``, the Euler
+  schedule truncated below ``t_thresh``, no CFG, and block-sparse attention
+  where the token grid factors into (4, 4, 8) chunks.
+
+The fused and chunked scan runners (``fused=True``, ``exec_chunk``) work
+around TPU runtime limits and raise, as ``auto_layout`` does; meshes and
+``token_chunk`` > 1 are a later slice and raise.
 """
 
 from __future__ import annotations
@@ -28,14 +41,17 @@ from worldforge_tpu_torch.models.longcat.dit import (LongCatDiTConfig,
 from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
 from worldforge_tpu_torch.ops.sampling import resize3d_align_corners
 from worldforge_tpu_torch.pipelines.vae_dispatch import vae_fn_pair
-from worldforge_tpu_torch.pipelines.wan_i2v import _as_tensor
+from worldforge_tpu_torch.models.longcat.dit import (
+    longcat_dit_cache_cond, longcat_dit_forward_with_cache)
+from worldforge_tpu_torch.pipelines.wan_i2v import (NOT_PORTED_RUNNERS,
+                                                    _as_tensor)
+from worldforge_tpu_torch.sampling.engine import longcat_denoise_loop
 from worldforge_tpu_torch.sampling.flow_match import (FlowMatchSchedule,
+                                                      cfg_zero_combine,
                                                       fm_euler_step,
                                                       make_flow_match_schedule)
-
-LATER_SLICE = ("the LongCat {} path is a later slice of the port (ROADMAP "
-               "Queue A: the LongCat guided i2v/t2v/vc path); the refine "
-               "(generate_refine) is ported")
+from worldforge_tpu_torch.sampling.guidance import (GuidanceConfig,
+                                                    guided_fuse)
 
 
 @dataclasses.dataclass(eq=False)
@@ -55,6 +71,9 @@ class LongCatPipeline:
     mesh: object = None             # a later slice (the parallel layer)
     token_chunk: int = 1            # > 1: a later slice
     auto_layout: bool = False       # XLA entry layouts: no counterpart
+    # generate_vc's cond-token k/v cache: "float32" is exact, "bfloat16"
+    # halves it (k rounded before its RoPE)
+    vc_cache_dtype: str = "float32"
 
     @property
     def device(self) -> torch.device:
@@ -80,14 +99,237 @@ class LongCatPipeline:
                 "LongCatPipeline.auto_layout sets XLA entry layouts; the "
                 "port has no counterpart")
 
-    def generate_i2v(self, *args, **kwargs):
-        raise NotImplementedError(LATER_SLICE.format("guided i2v"))
+    def _to_video(self, latents):
+        video = self._vae_fns()[0](latents)
+        out = (video.float().cpu().numpy() + 1.0) / 2.0
+        return np.clip(out, 0.0, 1.0)
 
-    def generate_t2v(self, *args, **kwargs):
-        raise NotImplementedError(LATER_SLICE.format("t2v"))
+    def _initial_noise(self, generator, noise_fn, shape):
+        if noise_fn is not None:
+            return _as_tensor(noise_fn(tuple(shape)), self.device)
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=self.device)
 
-    def generate_vc(self, *args, **kwargs):
-        raise NotImplementedError(LATER_SLICE.format("video continuation"))
+    @torch.inference_mode()
+    def generate_i2v(
+        self,
+        generator: Optional[torch.Generator],
+        image,                                 # [B,3,H,W] in [-1,1]
+        prompt_embeds,                         # [B, M, caption]
+        prompt_mask,                           # [B, M] or None
+        negative_prompt_embeds=None,
+        negative_prompt_mask=None,
+        *,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 49,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 4.0,
+        use_distill: bool = False,
+        flow_shift: float = 1.0,
+        video_ref=None,                        # [B,3,T,H,W] in [0,1]
+        mask=None,                             # [B,1,T,H,W]
+        guidance: GuidanceConfig = GuidanceConfig(flf_backend="longcat"),
+        output_type: str = "np",
+        noise_fn: Optional[Callable] = None,
+        callback: Optional[Callable[[int, torch.Tensor], None]] = None,
+        fused: bool = False,
+        exec_chunk: int = 0,
+    ):
+        """Guided image-to-video. ``generator`` (on the pipeline's device,
+        or None for the global one) draws the initial latents and the IRR
+        re-noise; ``noise_fn(shape) -> array`` overrides both, so a test can
+        feed one noise stream to two implementations. Guidance runs when
+        ``guidance.guided`` and both ``video_ref`` and ``mask`` are given.
+        Returns numpy [B, 3, T, H, W] in [0, 1] (or the latents for
+        ``output_type="latent"``)."""
+        if fused or exec_chunk:
+            raise NotImplementedError(NOT_PORTED_RUNNERS)
+        self._check_ported()
+        dev = self.device
+        image = _as_tensor(image, dev)
+        pe = _as_tensor(prompt_embeds, dev)
+        pmask = _as_tensor(prompt_mask, dev, dtype=torch.int32)
+        ne = _as_tensor(negative_prompt_embeds, dev)
+        nmask = _as_tensor(negative_prompt_mask, dev, dtype=torch.int32)
+        video_ref = _as_tensor(video_ref, dev)
+        mask = _as_tensor(mask, dev)
+        b = image.shape[0]
+        do_cfg = guidance_scale > 1 and ne is not None and not use_distill
+
+        sched = make_flow_match_schedule(num_inference_steps,
+                                         shift=flow_shift,
+                                         use_distill=use_distill)
+        t_lat = (num_frames - 1) // self.vae_scale_t + 1
+        h_lat, w_lat = height // self.vae_scale_s, width // self.vae_scale_s
+        latents = self._initial_noise(
+            generator, noise_fn,
+            (b, self.dit_cfg.in_channels, t_lat, h_lat, w_lat))
+        dec, enc = self._vae_fns()
+        cond_lat = enc(image[:, :, None].float())          # [B, z, 1, h, w]
+        latents = torch.cat([cond_lat.float(), latents[:, :, 1:]], dim=2)
+
+        guided_on = (guidance.guided and video_ref is not None
+                     and mask is not None)
+        gcfg = dataclasses.replace(guidance, flf_backend="longcat",
+                                   distill=use_distill)
+
+        def model_fn(lat, t_val, i, r):
+            tb = torch.full((b, t_lat), t_val, dtype=torch.float32,
+                            device=dev)
+            tb[:, 0] = 0.0                    # the cond frame
+            v = longcat_dit_forward(
+                self.dit_params, self.dit_cfg, lat.float(), tb, pe,
+                encoder_attention_mask=pmask, num_cond_latents=1,
+                policy=self.policy)
+            if do_cfg:
+                vu = longcat_dit_forward(
+                    self.dit_params, self.dit_cfg, lat.float(), tb, ne,
+                    encoder_attention_mask=nmask, num_cond_latents=1,
+                    policy=self.policy)
+                v = cfg_zero_combine(v, vu, guidance_scale)
+            return -v                         # the scheduler's sign
+
+        fuse_fn = None
+        if guided_on:
+            def fuse_fn(x0_full, i, r):
+                return guided_fuse(x0_full, video_ref, mask, dec, enc, i,
+                                   gcfg)
+
+        latents = longcat_denoise_loop(
+            model_fn, latents, sched, gcfg, generator=generator,
+            noise_fn=noise_fn, fuse_fn=fuse_fn, callback=callback)
+        if output_type == "latent":
+            return latents
+        return self._to_video(latents)
+
+    @torch.inference_mode()
+    def generate_t2v(
+        self,
+        generator: Optional[torch.Generator],
+        prompt_embeds,
+        prompt_mask,
+        negative_prompt_embeds=None,
+        negative_prompt_mask=None,
+        *,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 93,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 4.0,
+        use_distill: bool = False,
+        flow_shift: float = 1.0,
+        output_type: str = "np",
+        noise_fn: Optional[Callable] = None,
+    ):
+        """Text-to-video: a plain flow-match Euler loop with CFG-zero and no
+        cond latents. ``noise_fn`` overrides the initial draw."""
+        self._check_ported()
+        dev = self.device
+        pe = _as_tensor(prompt_embeds, dev)
+        pmask = _as_tensor(prompt_mask, dev, dtype=torch.int32)
+        ne = _as_tensor(negative_prompt_embeds, dev)
+        nmask = _as_tensor(negative_prompt_mask, dev, dtype=torch.int32)
+        b = pe.shape[0]
+        do_cfg = guidance_scale > 1 and ne is not None and not use_distill
+        sched = make_flow_match_schedule(num_inference_steps,
+                                         shift=flow_shift,
+                                         use_distill=use_distill)
+        t_lat = (num_frames - 1) // self.vae_scale_t + 1
+        latents = self._initial_noise(
+            generator, noise_fn,
+            (b, self.dit_cfg.in_channels, t_lat,
+             height // self.vae_scale_s, width // self.vae_scale_s))
+        for i in range(sched.num_steps):
+            tb = torch.full((b, t_lat), float(sched.timesteps[i]),
+                            dtype=torch.float32, device=dev)
+            v = longcat_dit_forward(self.dit_params, self.dit_cfg, latents,
+                                    tb, pe, encoder_attention_mask=pmask,
+                                    policy=self.policy)
+            if do_cfg:
+                vu = longcat_dit_forward(
+                    self.dit_params, self.dit_cfg, latents, tb, ne,
+                    encoder_attention_mask=nmask, policy=self.policy)
+                v = cfg_zero_combine(v, vu, guidance_scale)
+            latents = fm_euler_step(sched, i, latents, -v)
+        if output_type == "latent":
+            return latents
+        return self._to_video(latents)
+
+    @torch.inference_mode()
+    def generate_vc(
+        self,
+        generator: Optional[torch.Generator],
+        video,                                 # [B,3,Tc,H,W] in [-1,1]
+        prompt_embeds,
+        prompt_mask,
+        *,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 93,
+        num_cond_frames: int = 13,
+        num_inference_steps: int = 50,
+        use_distill: bool = False,
+        flow_shift: float = 1.0,
+        enhance_hf: bool = True,
+        output_type: str = "np",
+        noise_fn: Optional[Callable] = None,
+    ):
+        """Video continuation with per-layer k/v caches of the cond tokens:
+        the last ``num_cond_frames`` frames of ``video`` are encoded and
+        run through the DiT once (``longcat_dit_cache_cond``); each step
+        then denoises the noise latents only against that cache.
+        ``enhance_hf`` replaces the timesteps below 500 with a 10-step
+        uniform ramp; it cannot combine with ``use_distill``.
+        ``noise_fn`` overrides the initial draw. Returns the cond and new
+        frames together."""
+        if use_distill and enhance_hf:
+            raise ValueError("use_distill and enhance_hf cannot both be "
+                             "True")
+        self._check_ported()
+        dev = self.device
+        video = _as_tensor(video, dev)
+        pe = _as_tensor(prompt_embeds, dev)
+        pmask = _as_tensor(prompt_mask, dev, dtype=torch.int32)
+        b = video.shape[0]
+        sched = make_flow_match_schedule(num_inference_steps,
+                                         shift=flow_shift,
+                                         use_distill=use_distill)
+        if enhance_hf:
+            keep = sched.timesteps[sched.timesteps > 500.0]
+            tail = np.linspace(500.0, 0.0, 10, endpoint=False)
+            ts = np.concatenate([keep, tail])
+            sched = FlowMatchSchedule(
+                sigmas=np.concatenate([ts / 1000.0, [0.0]]), timesteps=ts,
+                num_steps=len(ts))
+
+        n_cond_lat = 1 + (num_cond_frames - 1) // self.vae_scale_t
+        t_lat = (num_frames - 1) // self.vae_scale_t + 1
+        h_lat, w_lat = height // self.vae_scale_s, width // self.vae_scale_s
+        dec, enc = self._vae_fns()
+        cond_lat = enc(video[:, :, -num_cond_frames:].float())
+        latents = self._initial_noise(
+            generator, noise_fn,
+            (b, self.dit_cfg.in_channels, t_lat - n_cond_lat, h_lat, w_lat))
+        cache_dtype = {"float32": torch.float32,
+                       "bfloat16": torch.bfloat16}[self.vc_cache_dtype]
+        kv_cache = longcat_dit_cache_cond(self.dit_params, self.dit_cfg,
+                                          cond_lat, policy=self.policy,
+                                          cache_dtype=cache_dtype)
+        for i in range(sched.num_steps):
+            nt = latents.shape[2] // self.dit_cfg.patch_size[0]
+            tb = torch.full((b, nt), float(sched.timesteps[i]),
+                            dtype=torch.float32, device=dev)
+            v = longcat_dit_forward_with_cache(
+                self.dit_params, self.dit_cfg, latents, tb, pe, kv_cache,
+                (n_cond_lat,), encoder_attention_mask=pmask,
+                policy=self.policy)
+            latents = fm_euler_step(sched, i, latents, -v)
+
+        full = torch.cat([cond_lat.float(), latents], dim=2)
+        if output_type == "latent":
+            return full
+        return self._to_video(full)
 
     @torch.inference_mode()
     def prepare_refine_latents(self, stage1_video, *, height: int = 720,
@@ -200,6 +442,4 @@ class LongCatPipeline:
 
         if output_type == "latent":
             return latents
-        video = self._vae_fns()[0](latents)
-        out = (video.float().cpu().numpy() + 1.0) / 2.0
-        return np.clip(out, 0.0, 1.0)[:, :, :new_t]
+        return self._to_video(latents)[:, :, :new_t]

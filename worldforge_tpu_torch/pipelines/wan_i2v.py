@@ -13,10 +13,11 @@ Counterpart of ``worldforge_tpu/pipelines/wan_i2v.py`` on its host-loop path
     omega_resample past guide_steps), re-convert (unfused), replace m0 and
     redo the UniP update from the ORIGINAL x of this step.
 
-The whole-loop fused and chunked runners (``fused=True``, ``exec_chunk``,
-``auto_layout``), meshes, ``token_chunk`` > 1 and FLF channel selection are
-later slices of the port and raise. ``streaming_vae`` runs the
-streaming VAE (``models/wan/vae_stream.py``).
+FLF (``GuidanceConfig.use_flf``, on by default) runs at r = 0 of every
+guided step (``sampling/guidance.py::guided_fuse``). The whole-loop fused and chunked runners (``fused=True``,
+``exec_chunk``, ``auto_layout``), meshes and ``token_chunk`` > 1 are later
+slices of the port and raise. ``streaming_vae`` runs the streaming VAE
+(``models/wan/vae_stream.py``).
 """
 
 from __future__ import annotations
@@ -32,10 +33,15 @@ from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, wan_dit_forward
 from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
 from worldforge_tpu_torch.pipelines.vae_dispatch import vae_fn_pair
 from worldforge_tpu_torch.sampling.engine import wan_denoise_loop
-from worldforge_tpu_torch.sampling.guidance import (FLF_NOT_PORTED,
-                                                    GuidanceConfig,
-                                                    fuse_latents)
+from worldforge_tpu_torch.sampling.guidance import (GuidanceConfig,
+                                                    guided_fuse)
 from worldforge_tpu_torch.sampling.unipc import make_flow_unipc_schedule
+
+
+NOT_PORTED_RUNNERS = (
+    "the fused / chunked scan runners (fused=True, exec_chunk) work around "
+    "TPU runtime limits and are not ported; the host-loop path "
+    "(fused=False) is the port's path")
 
 
 def _as_tensor(x, device, dtype=torch.float32) -> Optional[torch.Tensor]:
@@ -145,10 +151,7 @@ class WanI2VPipeline:
         device. Returns numpy [B,3,T,H,W] in [0,1] (or the latents for
         ``output_type="latent"``)."""
         if fused or exec_chunk:
-            raise NotImplementedError(
-                "the fused / chunked scan runners (fused=True, exec_chunk) "
-                "work around TPU runtime limits and are not ported; the "
-                "host-loop path (fused=False) is the port's path")
+            raise NotImplementedError(NOT_PORTED_RUNNERS)
         if num_frames % self.vae_scale_t != 1:
             num_frames = num_frames // self.vae_scale_t * self.vae_scale_t + 1
         dev = self.device
@@ -162,8 +165,6 @@ class WanI2VPipeline:
         do_cfg = guidance_scale > 1 and negative_prompt_embeds is not None
         guided_on = (guidance.guided and video_ref is not None
                      and mask is not None)
-        if guided_on and guidance.use_flf:
-            raise NotImplementedError(FLF_NOT_PORTED)
 
         sched = make_flow_unipc_schedule(num_inference_steps, flow_shift)
         latents, condition = self.prepare_latents(
@@ -186,7 +187,9 @@ class WanI2VPipeline:
         fuse_fn = None
         if guided_on:
             def fuse_fn(x0, i, r):
-                return fuse_latents(x0, video_ref, mask, dec, enc)
+                # FLF only at r == 0, not while resampling
+                return guided_fuse(x0, video_ref, mask, dec, enc, i,
+                                   guidance, flf=r == 0)
 
         latents = wan_denoise_loop(
             model_fn, latents, sched, guidance, generator=generator,

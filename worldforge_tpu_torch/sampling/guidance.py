@@ -1,12 +1,11 @@
-"""WorldForge guidance pieces: the pixel-space latent fusion of IRR.
+"""WorldForge guidance pieces: the pixel-space latent fusion of IRR and the
+FLF channel selection.
 
 Counterpart of ``worldforge_tpu/sampling/guidance.py``: ``fuse_latents``
 decodes pred_x0, blends it with the reference video under the mask and
-re-encodes it, on the device.
-
-FLF channel selection (``GuidanceConfig.use_flf``) needs the optical-flow
-ops and ``sampling/channel_select.py``, which are the next slice of the
-port: ``flf_select`` raises when it is asked for.
+re-encodes it, on the device; ``flf_select`` picks the channels whose
+flow disagrees most with the reference (``sampling/channel_select.py``),
+which ``fuse_latents(flf_channels=...)`` hands back to pred_x0.
 """
 
 from __future__ import annotations
@@ -14,19 +13,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional, Sequence
 
-import numpy as np
 import torch
 
-FLF_NOT_PORTED = (
-    "FLF channel selection (use_flf / --use-pca-channel-selection) needs "
-    "ops/farneback.py, ops/flow.py and sampling/channel_select.py, which are "
-    "slice 2 of the port; run with use_flf=False")
+from worldforge_tpu_torch.ops.sampling import (jax_linear_weights,
+                                               jax_nearest_index)
+from worldforge_tpu_torch.sampling.channel_select import (
+    apply_channel_replacement, channel_similarities, select_channels_longcat,
+    select_channels_wan)
 
 
 @dataclasses.dataclass(frozen=True)
 class GuidanceConfig:
     """The reference's flag surface (same fields and defaults as the JAX
-    package; ``use_flf=True`` raises in this slice)."""
+    package)."""
     guided: bool = True
     guide_steps: int = 15
     resample_steps: int = 2       # IRR inner iterations
@@ -38,34 +37,6 @@ class GuidanceConfig:
     distill: bool = False         # LongCat distilled schedule
     max_replace: Optional[int] = None
     use_optical_flow: bool = True  # False -> temporal-difference fallback
-
-
-def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_in, n_out] weights of ``jax.image.resize(method="linear")`` on one
-    axis: a triangle kernel at half-pixel centres, widened by the scale when
-    downsampling (antialiasing), each column normalised, samples outside the
-    input zeroed. Computed in float32, as JAX computes them."""
-    scale = np.float32(n_out) / np.float32(n_in)
-    inv = 1.0 / scale
-    kscale = max(float(inv), 1.0)
-    sample = ((torch.arange(n_out, dtype=torch.float32) + 0.5) * float(inv)
-              - 0.5)
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
-         ).abs() / kscale
-    w = torch.clamp(1.0 - x, min=0.0)
-    tot = w.sum(dim=0, keepdim=True)
-    w = torch.where(tot.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(tot != 0, tot, torch.ones_like(tot)),
-                    torch.zeros_like(w))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
-
-
-def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
-    """``jax.image.resize(method="nearest")``: floor((i + 0.5) * in / out),
-    in float32."""
-    off = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
-    return torch.floor(off).to(torch.int64).to(device)
 
 
 def resize_video_like(x: torch.Tensor, target_shape, method: str
@@ -85,10 +56,10 @@ def resize_video_like(x: torch.Tensor, target_shape, method: str
         if n_in == n_out:
             continue
         if method == "nearest":
-            x = torch.index_select(x, d, _nearest_index(n_in, n_out,
-                                                        x.device))
+            x = torch.index_select(x, d, jax_nearest_index(n_in, n_out,
+                                                           x.device))
         else:
-            w = _linear_weights(n_in, n_out, x.device).to(x.dtype)
+            w = jax_linear_weights(n_in, n_out, x.device).to(x.dtype)
             x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
     return x
 
@@ -107,9 +78,9 @@ def fuse_latents(pred_x0: torch.Tensor,
     video_ref: [B, 3, T, H, W] reference pixels in [0, 1] (scaled to [-1, 1]
     here). mask: [B, 1, T, H, W], 1 = use reference.
     vae_decode / vae_encode close over the VAE params and handle the
-    per-channel latent normalization."""
-    if flf_channels:
-        raise NotImplementedError(FLF_NOT_PORTED)
+    per-channel latent normalization.
+    flf_channels: channel indices whose fused latents are replaced by the
+    generated pred_x0 (from ``flf_select``)."""
     decoded = vae_decode(pred_x0)  # [B, 3, T, H, W] in [-1, 1]
     tgt = decoded.shape
     ref = resize_video_like(video_ref.to(decoded.dtype), tgt, "linear")
@@ -117,13 +88,41 @@ def fuse_latents(pred_x0: torch.Tensor,
                           (tgt[0], 1, tgt[2], tgt[3], tgt[4]), "nearest")
     ref = 2.0 * ref - 1.0
     fused = ref * m + decoded * (1.0 - m)
-    return vae_encode(fused).to(pred_x0.dtype)
+    encoded = vae_encode(fused)
+    if flf_channels:
+        encoded = apply_channel_replacement(encoded, pred_x0, flf_channels)
+    return encoded.to(pred_x0.dtype)
 
 
 def flf_select(pred_x0: torch.Tensor, encoded_ref: torch.Tensor,
                current_step: int, cfg: GuidanceConfig) -> List[int]:
-    """FLF channel selection: [] when it is off; raises when it is on (a
-    later slice of the port)."""
+    """Pick the low-similarity channels by the backend's schedule."""
     if not cfg.use_flf:
         return []
-    raise NotImplementedError(FLF_NOT_PORTED)
+    if current_step < 2:
+        # both schedules return [] before step 2: skip the flows they would
+        # discard
+        return []
+    scores = channel_similarities(pred_x0, encoded_ref,
+                                  use_optical_flow=cfg.use_optical_flow,
+                                  variant=cfg.flf_backend)
+    if cfg.flf_backend == "wan":
+        return select_channels_wan(scores, current_step)
+    return select_channels_longcat(scores, current_step, cfg.distill,
+                                   cfg.max_replace)
+
+
+def guided_fuse(x0: torch.Tensor, video_ref: torch.Tensor, mask: torch.Tensor,
+                vae_decode: Callable[[torch.Tensor], torch.Tensor],
+                vae_encode: Callable[[torch.Tensor], torch.Tensor],
+                step: int, cfg: GuidanceConfig, flf: bool = True
+                ) -> torch.Tensor:
+    """One guided step's fuse: ``fuse_latents``, then (``flf`` and
+    ``cfg.use_flf``) ``flf_select`` scores the fused latents against the
+    unfused x0 and the selected channels go back to the unfused values."""
+    fused = fuse_latents(x0, video_ref, mask, vae_decode, vae_encode)
+    if flf and cfg.use_flf:
+        sel = flf_select(x0, fused, step, cfg)
+        if sel:
+            fused = apply_channel_replacement(fused, x0, sel)
+    return fused
