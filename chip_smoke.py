@@ -9,9 +9,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. device  -- the card's name and power limit (``nvidia-smi``).
 2. build   -- compiles the CUDA C++ kernels from ``worldforge_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together).
-3. kernels -- each of the five kernels against its plain PyTorch version at
-   the main paths' shapes (the Wan repaint's, the LongCat refine's and the
-   LongCat guided i2v's) and at small ragged shapes (kernels 2 and 4):
+3. kernels -- each of the five kernels (and kernel 4's one-tap
+   instantiation) against its plain PyTorch version at the main paths'
+   shapes (the Wan repaint's, the LongCat refine's, the LongCat guided
+   i2v's, the warp's and the encoders') and at small ragged shapes:
    error, kernel time, plain time, the time of one PyTorch library call for
    the same function where there is one (a yardstick only, never used by
    the port), and the card's bound for the same work.
@@ -22,17 +23,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
 5. vae     -- the vae_profile lines: one single-pass Wan2.1 VAE decode +
    encode at the generate shape and one streaming decode at the refine
    shape under ``torch.profiler`` (device time of kernel 4, the other
-   convs, the elementwise work, and idle).
+   convs, the elementwise work, and idle); the vae_conv2d_workspace line:
+   the decoder's 384->192 resample conv through the VAE's route (kernel 4
+   with one tap) beside the fp32 cuDNN route it replaced.
 6. dit     -- one Wan2.1-I2V-14B DiT forward at full width and depth on
    480x832x49 frames (20,280 tokens), then one more under ``torch.profiler``
    (the dit_profile line: device time by kernel group).
-7. generate -- the guided repaint (CFG + IRR + VAE fuse + FLF + DSG + final
+7. warp    -- VGGT-1B at full width and depth on a 518x294 image
+   (``load_and_preprocess_images`` -> ``vggt_forward`` -> cameras), its
+   depth and cameras saved as an npz, and ``cli/run_warp`` writing 17
+   frames and masks from it, on the card and on the CPU: the masks must be
+   equal. Before it, the tiny VGGT on the card against the CPU.
+8. encoders -- UMT5-XXL on 512 token ids and CLIP-H on the warp's first
+   frame at 480x832, at full width and depth. Before it, both at their
+   tiny configs on the card against the CPU.
+9. generate -- the guided repaint (CFG + IRR + VAE fuse + FLF + DSG + final
    decode) through ``load_wan_pipeline`` and ``WanI2VPipeline.generate`` at
-   full width with the cuts listed on its line; every kernel of that path
-   must launch during this phase. Before it, a reduced random-init generate
+   full width with the cuts listed on its line, fed by the warp's frames
+   and masks and the encoders' contexts; every kernel of that path must
+   launch during this phase. Before it, a reduced random-init generate
    with FLF over 8 guided steps runs on the card and on the CPU from one set
    of weights and one noise stream, and the two must agree.
-8. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
+10. refine  -- the LongCat-Video 480p -> 720p refine (SDEdit upscale) through
    ``load_longcat_pipeline`` and ``LongCatPipeline.generate_refine``: the
    13.6B DiT at full width and depth, the streaming Wan2.1 VAE, a 49-frame
    480x832 stage-1 video refined to 704x1280 (56,320 tokens, block-sparse
@@ -40,7 +52,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    kernels of that path must launch during this phase. Before it, the
    reduced random-init refine at 128x256 runs on the card and on the CPU
    from one set of weights and one noise stream, and the two must agree.
-9. longcat_guided -- the LongCat guided i2v (IRR + FLF + DSG, the distill
+11. longcat_guided -- the LongCat guided i2v (IRR + FLF + DSG, the distill
    table, no CFG) through the refine phase's pipeline and
    ``LongCatPipeline.generate_i2v`` at 480x832 x 49 frames (20,280 tokens),
    with the step cut listed on its line; kernels 1, 2 and 4 must launch
@@ -110,6 +122,16 @@ LC_PROMPT = ("a camera glides through a sunlit forest path, leaves moving "
              "in the wind, dappled light, smooth motion, high detail")
 LC_KV_LEN = min(max(len(LC_PROMPT) // 4, 1), TEXT_LEN)            # hash mask
 FLF_SHAPE = (1, 16, DIT_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8)
+
+# The warp: a 518 x 294 image (VGGT's preprocessed size: 518 wide, the
+# height rounded to 14) -> 21 x 37 patches + 5 special tokens per frame;
+# 17 warped frames, the generate phase's count.
+WARP_H, WARP_W = 294, 518
+VGGT_TOKENS = (WARP_H // 14) * (WARP_W // 14) + 5                 # 782
+WARP_DIRECTION, WARP_DEGREE = "right", 15.0
+# UMT5: 512 token ids (no tokenizer here), the prompt's 28 and the
+# negative prompt's 64 of them unmasked
+PROMPT_TOKENS, NEGATIVE_TOKENS = 28, 64
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -603,6 +625,52 @@ def _check_conv(gen, records, t, hh, ww, cin, cout, iters, label, b=1,
     return rec
 
 
+def _check_conv2d(gen, records, n, hh, ww, cin, cout, iters, label,
+                  x_dtype=torch.float32, out_dtype=None):
+    """Kernel 4 with one temporal tap (``conv2d_3x3``) against
+    ``conv2d_3x3_plain``, on ``_check_conv``'s gate; with ``iters`` it is
+    timed as the VAE calls it (fp32 in and out) beside its bound and the
+    library yardstick, bf16 ``F.conv2d`` (cuDNN) with the casts inside the
+    timed call."""
+    from worldforge_tpu_torch.ops.conv3d import conv2d_3x3, conv2d_3x3_plain
+    x = torch.randn((n, hh, ww, cin), generator=gen, device="cuda").to(
+        x_dtype)
+    w = torch.randn((3, 3, cin, cout), generator=gen,
+                    device="cuda") / math.sqrt(9 * cin)
+    bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    out_dtype = out_dtype or x_dtype
+    out = conv2d_3x3(x, w, bias, out_dtype=out_dtype)
+    ref = conv2d_3x3_plain(x, w, bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err, rel = _conv_errors(out, ref)
+    tol = 1e-3
+    rec = {"check": label, "shape": [n, hh, ww, cin, cout],
+           "dtype_in": str(x_dtype), "dtype_out": str(out_dtype),
+           "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
+           "ok": bool(torch.isfinite(out).all()) and rel <= tol}
+    if iters:
+        flops = 2.0 * 9 * cin * cout * n * hh * ww
+        bms, by = bound(flops, nbytes(x, w, bias) + nbytes(out),
+                        PEAK_BF16_FLOPS)
+        wl = w.bfloat16().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bl = bias.bfloat16()
+        xv = x.permute(0, 3, 1, 2)            # NCHW view of NHWC
+        rec.update({
+            "ms": cuda_ms(lambda: conv2d_3x3(x, w, bias,
+                                             out_dtype=out_dtype), iters),
+            "plain_ms": cuda_ms(lambda: conv2d_3x3_plain(
+                x, w, bias, out_dtype=out_dtype), 1),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
+                xv.to(torch.bfloat16), wl, bl, padding=1).to(out_dtype),
+                iters),
+            "library": "bf16 F.conv2d (cuDNN) with the casts of x and y "
+                       "inside the timed call"})
+    records.append(rec)
+    return rec
+
+
 # Small ragged cases of kernel 4, held to the same gate: (B, T, H, W, Cin,
 # Cout, x dtype, out dtype). They cover Tp = 3, a ragged H (13) and W (103,
 # 40, 7), Cin 3 (x staged by the producer's threads) and 16 / 96 / 192 /
@@ -620,6 +688,13 @@ CONV_RAGGED = (
     (1, 1, 13, 103, 96, 3, _F32, _F32),
     (1, 2, 5, 7, 3, 96, _BF16, _BF16),
     (1, 1, 13, 103, 384, 32, _F32, _F32),
+)
+# (N, H, W, Cin, Cout, x dtype, out dtype) for the one-tap instantiation
+CONV2D_RAGGED = (
+    (1, 13, 103, 16, 32, _F32, _F32),
+    (3, 13, 103, 3, 3, _F32, _F32),
+    (2, 17, 33, 32, 16, _BF16, _BF16),
+    (2, 17, 33, 384, 192, _F32, _BF16),
 )
 
 
@@ -641,12 +716,29 @@ def phase_kernels():
                  (WIDTH // 8), (HEIGHT // 8) * (WIDTH // 8), 1, 384,
                  torch.float32, 1e-4, 1e-4, "flash_attention vae fp32 d384", 3)
     for dtype, dims in ((torch.bfloat16, (64, 128)),
-                        (torch.float32, (64, 128, 384))):
+                        (torch.float32, (64, 80, 128, 384))):
         for d in dims:
             _check_flash_masked(gen, records, d, dtype)
-    for d, dtype in ((128, torch.bfloat16), (384, torch.float32)):
+    for d, dtype in ((128, torch.bfloat16), (384, torch.float32),
+                     (80, torch.float32)):
         _check_flash_masked(gen, records, d, dtype, b=2, sq=333, sk=333,
                             kv_lens=(333, 129))
+    # the warp's and the encoders' shapes: the DINO backbone and the VGGT
+    # aggregator at 294 x 518 (21 x 37 patches + 5 special tokens), the
+    # camera head's trunk over S = 1 frame, CLIP-H (16 heads of 80)
+    _check_flash(gen, records, 1, VGGT_TOKENS, VGGT_TOKENS, 16, 64,
+                 torch.float32, 1e-4, 1e-4, "flash_attention vggt fp32 d64",
+                 10)
+    _check_flash(gen, records, 1, 1, 1, 16, 128, torch.float32, 1e-4, 1e-4,
+                 "flash_attention vggt camera trunk fp32 d128 S=1", 10)
+    _check_flash(gen, records, 1, 257, 257, 16, 80, torch.float32, 1e-4,
+                 1e-4, "flash_attention clip-h fp32 d80", 10)
+    # the same three with kv_lens and m / l: a second batch row with a
+    # ragged key length (none at S = 1: an empty row)
+    for d, s_, kl in ((64, VGGT_TOKENS, 500), (128, 1, 0), (80, 257, 200)):
+        _check_flash_masked(gen, records, d, torch.float32, b=2, sq=s_,
+                            sk=s_, h=16, kv_lens=(s_, kl))
+    _check_flash_f32_precision(gen, records, 1, 257, 80)
     _check_flash_f32_precision(gen, records, 1, (HEIGHT // 8) * (WIDTH // 8),
                                384)
     main["rope_qk"] = _check_rope(
@@ -668,6 +760,21 @@ def phase_kernels():
                 3, "conv3d 192->192 half res")
     _check_conv(gen, records, GEN_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8,
                 384, 384, 5, "conv3d 384->384 latent res")
+    # kernel 4 with one tap: the decoder's first resample conv (384 -> 192
+    # at 120 x 208) on the 9 frames of the single-pass decode at 17 frames
+    # and the 2 of a streaming chunk, the last one (192 -> 96 at 480 x 832),
+    # and ragged cases
+    main["conv2d_3x3"] = _check_conv2d(
+        gen, records, 9, HEIGHT // 4, WIDTH // 4, 384, 192, 5,
+        "conv2d_3x3 384->192 9x120x208")
+    _check_conv2d(gen, records, 2, HEIGHT // 4, WIDTH // 4, 384, 192, 5,
+                  "conv2d_3x3 384->192 2x120x208")
+    _check_conv2d(gen, records, 2, HEIGHT, WIDTH, 192, 96, 5,
+                  "conv2d_3x3 192->96 2x480x832")
+    for n, hh, ww, cin, cout, xd, od in CONV2D_RAGGED:
+        _check_conv2d(gen, records, n, hh, ww, cin, cout, 0,
+                      f"conv2d_3x3 ragged {cin}->{cout} {n}x{hh}x{ww} "
+                      f"{xd}->{od}", x_dtype=xd, out_dtype=od)
     for b, t, hh, ww, cin, cout, xd, od in CONV_RAGGED:
         _check_conv(gen, records, t, hh, ww, cin, cout, 0,
                     f"conv3d ragged {cin}->{cout} {hh}x{ww} T'{t + 2} B{b} "
@@ -727,6 +834,11 @@ KERNEL_META = {
     "conv3d_causal": {
         "route": "cuda", "source": "worldforge_tpu_torch/csrc/conv3d.cu",
         "replaces": "worldforge_tpu/ops/conv3d.py:39"},
+    "conv2d_3x3": {
+        "route": "cuda", "source": "worldforge_tpu_torch/csrc/conv3d.cu",
+        "replaces": "worldforge_tpu/ops/conv3d.py:39",
+        "note": "kernel 4 with one temporal tap: the VAE decoder's 3x3 "
+                "resample convs, an XLA conv in the JAX package"},
     "bsa": {
         "route": "cuda", "source": "worldforge_tpu_torch/csrc/bsa.cu",
         "replaces": "worldforge_tpu/ops/bsa.py:100"},
@@ -735,20 +847,26 @@ KERNEL_META = {
 
 def kernel_counters():
     from worldforge_tpu_torch.ops.bsa import bsa_bhsd
-    from worldforge_tpu_torch.ops.conv3d import conv3d_causal
+    from worldforge_tpu_torch.ops.conv3d import conv2d_3x3, conv3d_causal
     from worldforge_tpu_torch.ops.flash_attention import flash_attention
     from worldforge_tpu_torch.ops.fused_norm import modulated_layer_norm
     from worldforge_tpu_torch.ops.rope import apply_rope_qk
     return {"flash_attention": flash_attention, "rope_qk": apply_rope_qk,
             "modulated_layer_norm": modulated_layer_norm,
-            "conv3d_causal": conv3d_causal, "bsa": bsa_bhsd}
+            "conv3d_causal": conv3d_causal, "conv2d_3x3": conv2d_3x3,
+            "bsa": bsa_bhsd}
 
 
 WAN_PATH_KERNELS = ("flash_attention", "rope_qk", "modulated_layer_norm",
-                    "conv3d_causal")
+                    "conv3d_causal", "conv2d_3x3")
+# the small refine returns latents (no decode, so no resample conv); the
+# full refine decodes
 REFINE_PATH_KERNELS = ("flash_attention", "rope_qk", "conv3d_causal", "bsa")
 LONGCAT_GUIDED_PATH_KERNELS = ("flash_attention", "rope_qk",
-                               "conv3d_causal")
+                               "conv3d_causal", "conv2d_3x3")
+# VGGT (DINO and aggregator attention, d 64; the camera trunk, d 128) and
+# CLIP-H (d 80) attend through kernel 1; UMT5's attention is an fp32 einsum
+WARP_PATH_KERNELS = ENCODER_PATH_KERNELS = ("flash_attention",)
 
 
 def _require_launches(launches, names, phase):
@@ -921,29 +1039,94 @@ def phase_vae():
 
 
 def _conv2d_workspace():
-    """The decoder's first spatial upsample conv (3x3, 384 -> 192, fp32
-    through cuDNN, ``core/params.py::conv``) on 2 frames at the 480p and the
-    refine's 704x1280 shapes: its time and the device memory it allocates
-    beyond its input, output and weight (cuDNN's workspace)."""
+    """The decoder's first spatial resample conv (3x3, 384 -> 192) on 2
+    frames at the 480p and the refine's 704x1280 shapes, through the VAE's
+    route (``vae._conv2d``: kernel 4 with one tap on the card) and, beside
+    it, the fp32 cuDNN route the port took before (TF32 off): the time and
+    the device memory allocated in the call beyond its output (cuDNN's
+    workspace)."""
     from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan import vae
     gen = torch.Generator(device="cuda").manual_seed(8)
     w = torch.randn((3, 3, 384, 192), generator=gen, device="cuda") * 0.02
+    routes = (("kernel 4 one tap (vae._conv2d)",
+               lambda x: vae._conv2d({"w": w}, x, padding=1)),
+              ("fp32 cuDNN, TF32 off (before)",
+               lambda x: P.conv({"w": w}, x, padding=1)))
     rows = []
     for h, wd in ((120, 208), (176, 320)):
         x = torch.randn((2, h, wd, 384), generator=gen, device="cuda")
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        y = P.conv({"w": w}, x, padding=1)
-        torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated() - base - nbytes(y)
-        ms = cuda_ms(lambda: P.conv({"w": w}, x, padding=1), 3)
-        rows.append({"x": list(x.shape), "w": list(w.shape),
-                     "extra_gb": extra / 2 ** 30, "ms": ms})
-        del x, y
+        for route, fn in routes:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y = fn(x)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base - nbytes(y)
+            rows.append({"route": route, "x": list(x.shape),
+                         "w": list(w.shape), "extra_gb": extra / 2 ** 30,
+                         "ms": cuda_ms(lambda: fn(x), 3)})
+            del y
+        del x
+    torch.cuda.empty_cache()
     emit({"phase": "vae_conv2d_workspace", "what": "the decoder's 3x3 "
-          "384->192 resample conv, fp32 through cuDNN, 2 frames: device "
-          "memory allocated in the call beyond its output", "rows": rows})
+          "384->192 resample conv, 2 frames: time and device memory "
+          "allocated in the call beyond its output", "rows": rows})
+    # the fp32 route as the pipelines met it, with the DiT's weights held
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    child = ctx.Process(target=_fp32_route_decode, args=(queue, 30))
+    child.start()
+    rec = queue.get(timeout=600)
+    child.join(timeout=60)
+    emit({"phase": "vae_fp32_route_memory_held", "what": "the fp32 cuDNN "
+          "route's 49-frame 480p streaming decode in a fresh process with "
+          "30 GiB held", **rec})
+    now = [r for r in rows if r["route"].startswith("kernel 4")]
+    if max(r["extra_gb"] for r in now) > 2.0:
+        raise SystemExit("chip_smoke: the VAE's resample conv allocates "
+                         "more than 2 GB beyond its output")
+
+
+def _fp32_route_decode(queue, hold_gib):
+    """In a fresh process (its own cuDNN plan cache): hold ``hold_gib`` of
+    device memory, as the 13.6B DiT's weights are held in the LongCat
+    pipeline, and stream-decode 13 x 60 x 104 latents to 49 x 480 x 832
+    with the VAE's convs on the fp32 cuDNN route the port took before;
+    report the time of each 384 -> 192 resample conv at 120 x 208 and the
+    peak."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan import vae, vae_stream
+    calls = []
+
+    def fp32_conv(p, x, *, stride=1, padding=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = P.conv(p, x, stride=stride, padding=padding)
+        torch.cuda.synchronize()
+        if tuple(x.shape[1:]) == (HEIGHT // 4, WIDTH // 4, 384):
+            calls.append([x.shape[0], (time.perf_counter() - t0) * 1e3])
+        return y
+
+    vae._conv2d = vae_stream._conv2d = fp32_conv
+    vae._xla_conv = lambda p, x, *, stride, padding: P.conv(
+        p, x, stride=stride, padding=padding)
+    cfg = vae.WanVAEConfig.wan_2_1()
+    params = vae.init_wan_vae(P.make_generator(0, "cuda"), cfg)
+    z = torch.randn((1, 16, DIT_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8),
+                    generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    held = torch.empty(int(hold_gib * 2 ** 30), dtype=torch.uint8,
+                       device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vae_stream.vae_decode_streaming(params, cfg, z)
+    torch.cuda.synchronize()
+    queue.put({"held_gib": hold_gib, "decode_s": time.perf_counter() - t0,
+               "resample_conv_calls_frames_ms": calls,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    del held
 
 
 def phase_dit():
@@ -1001,6 +1184,313 @@ def phase_dit():
         "torch.profiler", {"tokens": t_lat * (h_lat // 2) * (w_lat // 2)})
     del params
     torch.cuda.empty_cache()
+
+
+def _rel_max(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+def _small_vggt_check():
+    """``VGGTConfig.tiny()`` widened to 128 (heads of 64, the camera
+    trunk's of 128: head dims kernel 1 takes in fp32), weights drawn on the
+    CPU and copied to the card, on 2 frames of 28 x 56: ``vggt_forward``
+    with kernel 1 on the card against its plain version on the CPU, fp32,
+    to 1e-4 of the largest |output|."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.vggt.inference import (init_vggt_full,
+                                                            vggt_forward)
+    from worldforge_tpu_torch.models.vggt.model import VGGTConfig
+    tiny = VGGTConfig.tiny()
+    cfg = dataclasses.replace(tiny, embed_dim=128,
+                              backbone=dataclasses.replace(tiny.backbone,
+                                                           embed_dim=128))
+    params = init_vggt_full(P.make_generator(5), cfg)
+    images = torch.from_numpy(np.random.default_rng(5).random(
+        (1, 2, 3, 28, 56)).astype(np.float32))
+    _reset_counters()
+    card = vggt_forward(P.tree_map(lambda t: t.cuda(), params), cfg,
+                        images.cuda())
+    launches = _read_counters()
+    cpu = vggt_forward(params, cfg, images)
+    errs = {k: _rel_max(card[k], cpu[k]) for k in cpu}
+    ok = max(errs.values()) <= 1e-4 and all(
+        bool(torch.isfinite(v).all()) for v in card.values())
+    emit({"phase": "vggt_small_vs_cpu", "config": "VGGTConfig.tiny(), "
+          "embed_dim 128 (DINO too)",
+          "images": list(images.shape), "max_rel_err": errs, "tol": 1e-4,
+          "launches_on_card": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: small VGGT disagrees with the CPU")
+    _require_launches(launches, WARP_PATH_KERNELS, "small VGGT")
+
+
+def _warp_image(path):
+    """A synthetic 518 x 294 photo stand-in: a lit ground plane, a sky
+    gradient and a few textured boxes, as uint8 PNG."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:WARP_H, 0:WARP_W].astype(np.float32)
+    img = np.empty((WARP_H, WARP_W, 3), np.float32)
+    sky = yy < 0.4 * WARP_H
+    img[..., 0] = np.where(sky, 0.5 + 0.3 * yy / WARP_H,
+                           0.35 + 0.2 * np.sin(xx / 17.0) * np.cos(yy / 11.0))
+    img[..., 1] = np.where(sky, 0.6 + 0.2 * yy / WARP_H, 0.45)
+    img[..., 2] = np.where(sky, 0.9, 0.3 + 0.1 * np.sin(xx / 7.0))
+    for x0, y0, bw, bh in ((60, 100, 80, 120), (250, 140, 60, 90),
+                           (380, 90, 100, 160)):
+        img[y0:y0 + bh, x0:x0 + bw] = rng.uniform(0.1, 0.9, 3)
+        img[y0:y0 + bh:6, x0:x0 + bw] *= 0.6
+    img += 0.02 * rng.standard_normal(img.shape)
+    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+
+
+def _read_warp_dir(warp_dir):
+    from worldforge_tpu_torch.io.frames import read_frames_from_directory
+    frames, masks, _ = read_frames_from_directory(
+        os.path.join(warp_dir, "warped_images"))
+    return frames, masks
+
+
+def phase_warp(work_dir):
+    """The VGGT warp through the user's entry points: VGGT-1B at full
+    width and depth (random fp32 weights from a seed) on a 518 x 294 image
+    (``load_and_preprocess_images`` -> ``vggt_forward`` ->
+    ``pose_encoding_to_extri_intri``, by ``depth_and_camera``), its depth,
+    confidence and cameras saved as an npz, then ``cli/run_warp.main``
+    with ``--depth_npz`` writing 17 frames and masks. The same npz warped
+    on the CPU must give the same masks. Returns the directory of the warp
+    that feeds the generate phase and the path's kernel launches."""
+
+    import numpy as np
+    from worldforge_tpu_torch.cli import run_warp
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.vggt.inference import (depth_and_camera,
+                                                            init_vggt_full)
+    from worldforge_tpu_torch.models.vggt.model import VGGTConfig
+    from worldforge_tpu_torch.models.vggt.utils import \
+        load_and_preprocess_images
+    from worldforge_tpu_torch.warp import vggt_warp
+
+    _small_vggt_check()
+    os.makedirs(work_dir, exist_ok=True)
+    image = os.path.join(work_dir, "image.png")
+    _warp_image(image)
+    cfg = VGGTConfig.vggt_1b()
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_vggt_full(P.make_generator(12, "cuda"), cfg)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    images = load_and_preprocess_images([image])
+    t0 = time.time()
+    depth, conf, extrinsic, intrinsic = depth_and_camera(params, cfg, images)
+    vggt_s = time.time() - t0
+    vggt_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vggt = {"depth": depth, "conf": conf, "extrinsic": extrinsic,
+            "intrinsic": intrinsic}
+    runs = []
+    # the npz as VGGT gives it, and without its intrinsic: random weights
+    # can give a field of view near 0 (a ReLU), a focal length in the
+    # millions of pixels that moves every point out of frame, so the warp
+    # also runs on the CLI's own focal (0.7 max(H, W)); that run's frames
+    # feed the generate phase
+    for name, keys in (("vggt cameras", ("depth", "conf", "extrinsic",
+                                         "intrinsic")),
+                       ("vggt depth, CLI focal", ("depth", "conf",
+                                                  "extrinsic"))):
+        npz = os.path.join(work_dir, f"vggt_{len(runs)}.npz")
+        np.savez(npz, **{k: vggt[k] for k in keys})
+        argv = ["--image_path", image, "--depth_npz", npz, "--frame_single",
+                str(GEN_FRAMES), "--direction", WARP_DIRECTION, "--degree",
+                str(WARP_DEGREE)]
+        out = os.path.join(work_dir, f"card_{len(runs)}")
+        with timed_calls(vggt_warp, "splat_trajectory", []) as splat, \
+                timed_calls(run_warp, "warp_single_image", []) as whole:
+            t0 = time.time()
+            run_warp.main(argv + ["--output_path", out])
+            cli_s = time.time() - t0
+        out_cpu = os.path.join(work_dir, f"cpu_{len(runs)}")
+        run_warp.main(argv + ["--output_path", out_cpu, "--device", "cpu"])
+        frames, masks = _read_warp_dir(out)
+        frames_cpu, masks_cpu = _read_warp_dir(out_cpu)
+        runs.append({
+            "npz": name, "out": out, "frames": len(frames),
+            "frame_shape": list(frames[0].shape), "cli_s": cli_s,
+            "warp_s": whole[0]["s"], "device_splat_s": splat[0]["s"],
+            "host_crack_fill_s": whole[0]["s"] - splat[0]["s"],
+            "mask_coverage": [round(float(m.mean()), 4) for m in masks],
+            "card_vs_cpu_mask_px_differing": int(sum(
+                (a != b).sum() for a, b in zip(masks, masks_cpu))),
+            "card_vs_cpu_frame_px_differing": int(sum(
+                (a != b).any(-1).sum() for a, b in zip(frames, frames_cpu)))})
+    launches = _read_counters()
+    _profile_forward(lambda: depth_and_camera(params, cfg, images),
+                     "vggt_profile", "VGGT-1B depth_and_camera on one "
+                     "518x294 image under torch.profiler (after a warm-up "
+                     "call)", {"image": [WARP_H, WARP_W]})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (all(r["frames"] == GEN_FRAMES and r["card_vs_cpu_mask_px_"
+              "differing"] == 0 and r["frame_shape"] == [WARP_H, WARP_W, 3]
+              for r in runs)
+          and bool(np.isfinite(depth).all() and np.isfinite(conf).all()))
+    emit({"phase": "warp", "config": "vggt_1b (DINOv2-L/14 + 24 dual "
+          "blocks + camera and DPT heads), fp32",
+          "params": n_params, "image": [WARP_H, WARP_W],
+          "tokens_per_frame": VGGT_TOKENS, "vggt_init_s": init_s,
+          "vggt_first_call_s": vggt_s, "vggt_peak_gb": vggt_peak,
+          "depth_range": [float(depth.min()), float(depth.max())],
+          "conf_range": [float(conf.min()), float(conf.max())],
+          "focal_px": [float(intrinsic[0, 0]), float(intrinsic[1, 1])],
+          "direction": WARP_DIRECTION, "degree": WARP_DEGREE,
+          "runs": [{k: v for k, v in r.items() if k != "out"}
+                   for r in runs], "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: the warp is wrong or differs from "
+                         "the CPU")
+    _require_launches(launches, WARP_PATH_KERNELS, "warp")
+    return runs[-1]["out"], launches
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _frames_480p(warp_dir):
+    """The warp's frames and masks at the generate shape: frames resized
+    with LANCZOS (as ``io/frames.load_image``), masks nearest. Returns
+    video_ref [1, 3, F, H, W] in [0, 1] and mask [1, 1, F, H, W]."""
+    import numpy as np
+    from PIL import Image
+    frames, masks = _read_warp_dir(warp_dir)
+    size = (WIDTH, HEIGHT)
+    f = np.stack([np.asarray(Image.fromarray(x).resize(size, Image.LANCZOS))
+                  for x in frames]).astype(np.float32) / 255.0
+    m = np.stack([np.asarray(Image.fromarray(x * 255).resize(
+        size, Image.NEAREST)) > 127 for x in masks]).astype(np.float32)
+    return (np.ascontiguousarray(f.transpose(3, 0, 1, 2)[None]),
+            m[None, None])
+
+
+def _small_encoders_check():
+    """UMT5 at its tiny config and CLIP at its tiny config widened to 160
+    (2 heads of 80, as CLIP-H's), weights drawn on the CPU and copied to
+    the card, fp32, on the card against the CPU: to 1e-4 of the largest
+    |output|."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.encoders import clip_vision, umt5
+    rng = np.random.default_rng(6)
+    ucfg = umt5.UMT5Config.tiny()
+    up = umt5.init_umt5(P.make_generator(6), ucfg, dtype=torch.float32)
+    ids = torch.from_numpy(rng.integers(0, ucfg.vocab_size, (2, 24)))
+    mask = torch.ones((2, 24), dtype=torch.int32)
+    mask[1, 9:] = 0
+    ccfg = dataclasses.replace(clip_vision.CLIPVisionConfig.tiny(),
+                               width=160)
+    cp = clip_vision.init_clip_vision(P.make_generator(7), ccfg)
+    pix = torch.from_numpy(clip_vision.preprocess_clip(
+        rng.random((40, 60, 3)).astype(np.float32), ccfg.image_size))
+    card = P.tree_map(lambda t: t.cuda(), (up, cp))
+    _reset_counters()
+    outs = {"umt5": (umt5.umt5_encode(card[0], ucfg, ids.cuda(),
+                                      mask.cuda(), torch.float32),
+                     umt5.umt5_encode(up, ucfg, ids, mask, torch.float32)),
+            "clip": (clip_vision.clip_vision_hidden(card[1], ccfg,
+                                                    pix.cuda()),
+                     clip_vision.clip_vision_hidden(cp, ccfg, pix))}
+    launches = _read_counters()
+    errs = {k: _rel_max(a, b) for k, (a, b) in outs.items()}
+    ok = max(errs.values()) <= 1e-4
+    emit({"phase": "encoders_small_vs_cpu", "max_rel_err": errs,
+          "tol": 1e-4, "launches_on_card": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: small encoders disagree with the CPU")
+    _require_launches(launches, ENCODER_PATH_KERNELS, "small encoders")
+
+
+def phase_encoders(first_frame):
+    """UMT5-XXL (random bf16 weights, built on the card layer by layer) on
+    512 token ids, the prompt's 28 and the negative prompt's 64 unmasked,
+    and CLIP-H (``vit_h_14``, fp32) on the first 480 x 832 frame through
+    ``preprocess_clip``, at full width and depth; both freed before the
+    DiT loads. Returns the generate's contexts and the path's launches."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.encoders import clip_vision, umt5
+    import numpy as np
+
+    _small_encoders_check()
+    rec = {"phase": "encoders"}
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ucfg = umt5.UMT5Config.xxl()
+    up = umt5.init_umt5(P.make_generator(13, "cuda"), ucfg)
+    torch.cuda.synchronize()
+    rec["umt5_init_s"] = time.time() - t0
+    rec["umt5_params"] = sum(t.numel() for t in _leaves(up))
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, ucfg.vocab_size, (2, TEXT_LEN)), device="cuda")
+    mask = torch.zeros((2, TEXT_LEN), dtype=torch.int32, device="cuda")
+    mask[0, :PROMPT_TOKENS] = 1
+    mask[1, :NEGATIVE_TOKENS] = 1
+    t0 = time.time()
+    text = umt5.umt5_encode(up, ucfg, ids, mask)
+    torch.cuda.synchronize()
+    rec["umt5_s"] = time.time() - t0
+    rec["umt5_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del up
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ccfg = clip_vision.CLIPVisionConfig.vit_h_14()
+    cp = clip_vision.init_clip_vision(P.make_generator(14, "cuda"), ccfg)
+    torch.cuda.synchronize()
+    rec["clip_init_s"] = time.time() - t0
+    rec["clip_params"] = sum(t.numel() for t in _leaves(cp))
+    pixels = torch.as_tensor(clip_vision.preprocess_clip(first_frame),
+                             device="cuda")
+    t0 = time.time()
+    image = clip_vision.clip_vision_hidden(cp, ccfg, pixels)
+    torch.cuda.synchronize()
+    rec["clip_s"] = time.time() - t0
+    rec["clip_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cp
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _read_counters()
+    ctx = {"pe": text[:1], "ne": text[1:], "ie": image}
+    ok = (tuple(ctx["pe"].shape) == (1, TEXT_LEN, 4096)
+          and tuple(ctx["ie"].shape) == (1, 257, 1280)
+          and all(bool(torch.isfinite(v).all()) for v in ctx.values())
+          and not bool(text[0, PROMPT_TOKENS:].any()))
+    rec.update({"text_tokens": TEXT_LEN, "unmasked": [PROMPT_TOKENS,
+                                                      NEGATIVE_TOKENS],
+                "shapes": {k: list(v.shape) for k, v in ctx.items()},
+                "launches": launches, "ok": ok})
+    emit(rec)
+    if not ok:
+        raise SystemExit("chip_smoke: encoder outputs are wrong")
+    _require_launches(launches, ENCODER_PATH_KERNELS, "encoders")
+    return ctx, launches
 
 
 def _small_generate_check():
@@ -1065,8 +1555,10 @@ def _small_generate_check():
                          "CPU run of the plain versions")
 
 
-def phase_generate():
-    """The guided repaint at full width through the user's entry points."""
+def phase_generate(warp_dir, ctx):
+    """The guided repaint at full width through the user's entry points,
+    fed by the warp phase's frames and masks (at 480 x 832) and the
+    encoders phase's text and image contexts."""
     import dataclasses
 
     import numpy as np
@@ -1082,29 +1574,19 @@ def phase_generate():
                                   num_layers=GEN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe, encode_text, encode_image = load_wan_pipeline(
+    pipe, _, _ = load_wan_pipeline(
         random_init=True, device="cuda", dit_cfg=dit_cfg,
         vae_cfg=WanVAEConfig.wan_2_1())
     torch.cuda.synchronize()
     init_s = time.time() - t0
 
-    rng = np.random.default_rng(0)
     f, h, w = GEN_FRAMES, HEIGHT, WIDTH
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    frames = np.stack([0.5 + 0.4 * np.sin((xx + 8 * i) / 37.0)[None]
-                       * np.cos(yy / 23.0)[None] * np.ones((3, 1, 1))
-                       for i in range(f)], axis=1)[None]   # [1,3,F,H,W]
-    frames = np.clip(frames + 0.05 * rng.standard_normal(frames.shape), 0, 1
-                     ).astype(np.float32)
-    mask = np.zeros((1, 1, f, h, w), np.float32)
-    mask[..., : w // 2] = 1.0          # the warped half is trusted
+    frames, mask = _frames_480p(warp_dir)     # [1,3,F,H,W], [1,1,F,H,W]
     image = (frames[:, :, 0] * 2.0 - 1.0).astype(np.float32)
     guide = GuidanceConfig(guided=True, guide_steps=GEN_STEPS,
                            resample_steps=2, resample_round=GEN_STEPS,
                            omega=1.8, omega_resample=1.0)
-    pe = encode_text("a prompt")
-    ne = encode_text("a negative prompt")
-    ie = encode_image(frames[0, :, 0])
+    pe, ne, ie = ctx["pe"], ctx["ne"], ctx["ie"]
     gen = torch.Generator(device="cuda").manual_seed(42)
 
     marks = []
@@ -1130,6 +1612,9 @@ def phase_generate():
     emit({"phase": "generate", "config": "wan_14b_i2v + wan_2_1 vae",
           "cuts": {"layers": f"{GEN_LAYERS} of 40", "frames":
                    f"{GEN_FRAMES} of 49", "steps": f"{GEN_STEPS} of 50"},
+          "inputs": "the warp phase's frames and masks (LANCZOS / nearest "
+                    "to 480x832), the encoders phase's UMT5-XXL and CLIP-H "
+                    "contexts", "mask_coverage": float(mask.mean()),
           "height": h, "width": w, "frames": f, "steps": GEN_STEPS,
           "resample_steps": 2, "guide_steps": GEN_STEPS,
           "guidance_scale": 5.0, "omega": 1.8, "use_flf": guide.use_flf,
@@ -1298,7 +1783,8 @@ def phase_refine():
           torch.cuda.max_memory_allocated() / 2 ** 30})
     if not (ok_shape and finite):
         raise SystemExit("chip_smoke: refine output is wrong")
-    _require_launches(launches, REFINE_PATH_KERNELS, "refine")
+    _require_launches(launches, REFINE_PATH_KERNELS + ("conv2d_3x3",),
+                      "refine")
     _profile_refine_forward(pipe, encode["shape"], pe, pmask)
     del pipe.prepare_refine_latents, out
     return launches, (pipe, encode_text, init_s)
@@ -1602,7 +2088,14 @@ def main() -> int:
     phase_flf()
     phase_vae()
     phase_dit()
-    by_path = {"generate": phase_generate()}
+    by_path = {}
+    warp_dir, by_path["warp"] = phase_warp(
+        os.path.join(HERE, "build", "chip_smoke"))
+    frames, _ = _frames_480p(warp_dir)
+    ctx, by_path["encoders"] = phase_encoders(
+        frames[0, :, 0].transpose(1, 2, 0))
+    by_path["generate"] = phase_generate(warp_dir, ctx)
+    del ctx
     gc.collect()
     torch.cuda.empty_cache()
     by_path["refine"], longcat_pipe = phase_refine()

@@ -152,3 +152,87 @@ def test_host_side_copies_match_jax(warp_dir):
     assert tprompts.SCENE_PROMPTS == jprompts.SCENE_PROMPTS
     assert tprompts.get_negative_prompt(True) == \
         jprompts.get_negative_prompt(True)
+
+
+def _warp_inputs(tmp_path, h, w, dh=None, dw=None, seed=3):
+    """An image file and an npz of depth, conf and cameras (depth at
+    dh x dw, the image's size by default)."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    dh, dw = dh or h, dw or w
+    img = str(tmp_path / "image.png")
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(img)
+    yy, xx = np.mgrid[0:dh, 0:dw].astype(np.float32)
+    depth = (2.0 + 0.02 * xx + 0.03 * yy).astype(np.float32)
+    f = 0.8 * dw
+    cams = {"depth": depth,
+            "conf": (1.0 + rng.random((dh, dw))).astype(np.float32),
+            "extrinsic": np.eye(4),
+            "intrinsic": np.array([[f, 0, dw / 2], [0, f, dh / 2],
+                                   [0, 0, 1]])}
+    return img, cams
+
+
+def test_run_warp_cli_on_cpu(tmp_path):
+    """``run_warp --depth_npz`` writes the warp-stage contract, equal to the
+    JAX CLI's output from the same inputs."""
+    from worldforge_tpu.cli import run_warp as jrun
+    from worldforge_tpu_torch.cli import run_warp as trun
+    img, cams = _warp_inputs(tmp_path, 24, 40)
+    npz = str(tmp_path / "depth.npz")
+    np.savez(npz, **cams)
+    common = ["--image_path", img, "--depth_npz", npz, "--frame_single", "5",
+              "--direction", "left", "--degree", "10"]
+    trun.main(common + ["--output_path", str(tmp_path / "t"), "--device",
+                        "cpu"])
+    jrun.main(common + ["--output_path", str(tmp_path / "j")])
+    out = tmp_path / "t" / "warped_images"
+    names = sorted(os.listdir(out))
+    assert names == sorted([f"warp_{i:02d}.png" for i in range(5)]
+                           + [f"mask_{i:02d}.png" for i in range(5)])
+    assert os.path.getsize(tmp_path / "t" / "warp_preview.mp4") > 0
+    info = (tmp_path / "t" / "camera_info.txt").read_text()
+    assert info == (tmp_path / "j" / "camera_info.txt").read_text()
+    assert info.splitlines()[1].startswith("left_4.00_deg")
+    tf, tm, _ = tframes.read_frames_from_directory(str(out))
+    jf, jm, _ = tframes.read_frames_from_directory(
+        str(tmp_path / "j" / "warped_images"))
+    np.testing.assert_array_equal(np.stack(tm), np.stack(jm))
+    np.testing.assert_array_equal(np.stack(tf), np.stack(jf))
+    with pytest.raises(SystemExit, match="VGGT weights required"):
+        trun.main(["--image_path", img, "--device", "cpu"])
+
+
+def test_run_warp_vggt_depth_at_preprocessed_size(tmp_path, monkeypatch):
+    """The VGGT branch warps the image at its own size with depth at the
+    preprocessed size (518 wide, ``vggt_estimate``); neither CLI rescales
+    one to the other. Here a 20 x 40 image meets 14 x 28 depth: both
+    CLIs run, agree, and splat the depth grid into the top-left 14 x 28 of
+    a 20 x 40 frame with the image's first 14 * 28 pixels as colours -- the
+    JAX package's behaviour, kept (ROADMAP Queue C)."""
+    from worldforge_tpu.cli import run_warp as jrun
+    from worldforge_tpu.models.vggt import inference as jinf
+    from worldforge_tpu_torch.cli import run_warp as trun
+    from worldforge_tpu_torch.models.vggt import inference as tinf
+    img, cams = _warp_inputs(tmp_path, 20, 40, 14, 28)
+    est = (cams["depth"], cams["conf"], cams["extrinsic"], cams["intrinsic"])
+    monkeypatch.setattr(jinf, "vggt_estimate", lambda *a, **k: est)
+    monkeypatch.setattr(tinf, "vggt_estimate", lambda *a, **k: est)
+    common = ["--image_path", img, "--frame_single", "3", "--degree", "0",
+              "--vggt_checkpoint", "weights.npz"]
+    trun.main(common + ["--output_path", str(tmp_path / "t"), "--device",
+                        "cpu"])
+    jrun.main(common + ["--output_path", str(tmp_path / "j")])
+    tf, tm, _ = tframes.read_frames_from_directory(
+        str(tmp_path / "t" / "warped_images"))
+    jf, jm, _ = tframes.read_frames_from_directory(
+        str(tmp_path / "j" / "warped_images"))
+    np.testing.assert_array_equal(np.stack(tm), np.stack(jm))
+    np.testing.assert_array_equal(np.stack(tf), np.stack(jf))
+    assert tm[1].shape == (20, 40)
+    assert not tm[1][14:].any() and not tm[1][:, 28:].any()
+    assert tm[1][:14, :28].mean() > 0.9
+    from PIL import Image
+    pixels = np.asarray(Image.open(img)).reshape(-1, 3)[:14 * 28]
+    same = (tf[1][:14, :28].reshape(-1, 3) == pixels).all(axis=-1)
+    assert same.mean() > 0.8

@@ -25,13 +25,20 @@ def _imported_roots(path):
 
 
 def test_isolation_covers_the_port_modules():
-    """The JAX-import check walks every module of the package, the FLF and
-    LongCat guided modules among them."""
+    """The JAX-import check walks every module of the package, the FLF,
+    LongCat guided, warp and encoder modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
                 "sampling/engine.py", "pipelines/longcat.py",
-                "models/longcat/dit.py", "cli/run_longcat.py"):
+                "models/longcat/dit.py", "cli/run_longcat.py",
+                "warp/geometry.py", "warp/cameras.py", "warp/splat.py",
+                "warp/cracks.py", "warp/vggt_warp.py",
+                "models/vggt/utils.py", "models/vggt/vit.py",
+                "models/vggt/model.py", "models/vggt/heads.py",
+                "models/vggt/inference.py", "cli/run_warp.py",
+                "models/encoders/umt5.py", "models/encoders/clip_vision.py",
+                "io/from_jax.py", "ops/sampling.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 
@@ -50,7 +57,8 @@ def test_port_has_kernels_and_plain_versions():
             (rope.apply_rope_qk, rope.apply_rope_qk_plain),
             (fused_norm.modulated_layer_norm,
              fused_norm.modulated_layer_norm_ref),
-            (conv3d.conv3d_causal, conv3d.conv3d_causal_plain)):
+            (conv3d.conv3d_causal, conv3d.conv3d_causal_plain),
+            (conv3d.conv2d_3x3, conv3d.conv2d_3x3_plain)):
         assert isinstance(wrapper.launches, int) and callable(plain)
     csrc = ROOT / "worldforge_tpu_torch" / "csrc"
     assert (csrc / "flash_attention.cu").exists()

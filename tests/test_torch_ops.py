@@ -377,3 +377,35 @@ def test_resize_video_like_matches_jax_image_resize(rng, target, method):
     got = resize_video_like(torch.from_numpy(x), target, method).numpy()
     assert got.shape == tuple(target)
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,hh,ww,cin,cout", [(2, 9, 13, 16, 32),
+                                              (3, 5, 7, 3, 5)])
+def test_conv2d_3x3_matches_jax_conv_of_bf16_operands(rng, n, hh, ww, cin,
+                                                      cout):
+    """Kernel 4's one-tap instantiation (the VAE's 3x3 resample convs on
+    the card) is the JAX package's XLA conv as it runs on its chip: bf16
+    operands, fp32 sums. Its plain version and ``core/params.conv`` with
+    ``bf16_operands`` against ``worldforge_tpu/core/params.py::conv`` of
+    the rounded operands."""
+    x = rng.standard_normal((n, hh, ww, cin)).astype(np.float32)
+    w = rng.standard_normal((3, 3, cin, cout)).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32)
+    r16 = lambda a: jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)
+    want = np.asarray(JP.conv({"w": r16(w), "b": jnp.asarray(b)}, r16(x),
+                              padding="SAME"))
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    for got in (tconv.conv2d_3x3(tx, tw, tb),
+                TP.conv({"w": tw, "b": tb}, tx, padding=1,
+                        bf16_operands=True)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert tconv.prepare_weight(tw).shape == (9, 16, _r16(cout))
+    full = np.asarray(JP.conv({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+                              jnp.asarray(x), padding="SAME"))
+    np.testing.assert_allclose(TP.conv({"w": tw, "b": tb}, tx,
+                                       padding=1).numpy(), full, rtol=1e-5,
+                               atol=1e-5)
+
+
+def _r16(n):
+    return -(-n // 16) * 16

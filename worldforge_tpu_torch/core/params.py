@@ -139,33 +139,49 @@ def rms_norm(p: dict, x: torch.Tensor, *, eps: float = 1e-5,
 
 
 @contextlib.contextmanager
-def no_tf32():
-    """Run fp32 cuDNN convolutions in full fp32. cuDNN defaults to TF32
-    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
-    decimal digits; the JAX package's fp32 convs are full fp32."""
+def tf32(allow: bool):
+    """Set ``torch.backends.cudnn.allow_tf32`` for the block. cuDNN
+    defaults to TF32, which keeps about three decimal digits of an fp32
+    operand."""
     prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = allow
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def conv(p: dict, x: torch.Tensor, *, stride=1, padding=0) -> torch.Tensor:
+def no_tf32():
+    """Run fp32 cuDNN convolutions in full fp32, as the JAX package's fp32
+    convs run on the CPU."""
+    return tf32(False)
+
+
+def conv(p: dict, x: torch.Tensor, *, stride=1, padding=0,
+         bf16_operands: bool = False) -> torch.Tensor:
     """Channels-last ND convolution (N, *spatial, C) with a spatial-first
     ``(D)HWIO`` kernel, as ``worldforge_tpu/core/params.py::conv``.
     ``padding`` is PyTorch's: an int or one per spatial dim (symmetric).
 
     The permuted views are PyTorch's channels-last memory formats, so the
-    convolution reads and writes the NDHWC / NHWC buffers in place."""
-    w = p["w"]
+    convolution reads and writes the NDHWC / NHWC buffers in place.
+
+    fp32 convolutions run in full fp32 (TF32 off). With ``bf16_operands``
+    an fp32 x and w are rounded to bf16 and the convolution runs with TF32
+    on: a bf16 value is a TF32 value, so the TF32 algorithms give the exact
+    products of the rounded operands, fp32 sums and an fp32 result, which
+    is how an XLA conv given no precision runs on the JAX package's chip."""
+    w = p["w"].to(x.dtype)
+    if bf16_operands and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16).float()
+        w = w.to(torch.bfloat16).float()
     nd = w.ndim - 2
     perm_x = (0, nd + 1) + tuple(range(1, nd + 1))
     perm_w = (nd + 1, nd) + tuple(range(nd))
     fn = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[nd]
-    with no_tf32():
-        y = fn(x.permute(perm_x), w.to(x.dtype).permute(perm_w),
-               stride=stride, padding=padding)
+    with tf32(bf16_operands):
+        y = fn(x.permute(perm_x), w.permute(perm_w), stride=stride,
+               padding=padding)
     y = y.permute((0,) + tuple(range(2, nd + 2)) + (1,))
     if "b" in p:
         y = y + p["b"].to(y.dtype)

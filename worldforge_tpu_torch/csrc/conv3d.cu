@@ -8,8 +8,14 @@
 //   none; y [B, T, H, W, Cout] fp32 or bf16. Inputs and weights are rounded
 //   to bf16, products accumulate in fp32 over the 27 taps x Cin, then the
 //   fp32 bias is added and the sum is cast to the output type.
+// The same kernel with one temporal tap (KT = 1, w [1, 3, 3, Cin, Cout], y
+// [B, T, ...] from x [B, T, ...]) is the stride-1 3x3 SAME 2-D convolution
+// of every frame: the VAE decoder's resample convs after the nearest x2
+// upsample, which the JAX package leaves to XLA (bf16 operands and fp32
+// sums on its chip) and which cuDNN ran in fp32 here with a 37 GB
+// workspace at 480p.
 // The wrapper (ops/conv3d.py) hands over x as it is and the weight once per
-// weight tensor as bf16 [27, CinP, CoutP] (CinP, CoutP: multiples of 16,
+// weight tensor as bf16 [9 KT, CinP, CoutP] (CinP, CoutP: multiples of 16,
 // zero-padded); its conv_plan() picks the tile plan passed in here.
 //
 // What bounds it on the H100: operations. The full-resolution 96 -> 96
@@ -30,8 +36,8 @@
 //     trade registers with setmaxnreg (72 / 216). Consumer warpgroup c, warp
 //     w owns output row 4c + w; its two wgmma M tiles are that row's pixels
 //     0-15 and 16-31.
-//   * The K loop walks (CK-channel chunk of Cin) x (temporal tap kt), CK 32
-//     where CinP and shared memory allow it, else 16. Each stage of a ring
+//   * The K loop walks (CK-channel chunk of Cin) x (temporal tap kt < KT),
+//     CK 32 where CinP and shared memory allow it, else 16. Each stage of a ring
 //     of 2 to 4 holds the 9 spatial taps of the weight, [9, CK, N] bf16, and
 //     the halo'd bf16 input slab [10, 34, CK] of frame t + kt, guarded by a
 //     full mbarrier and an empty one (one arrival per consumer warp). One
@@ -121,8 +127,8 @@ struct Plan {
 struct Args {
   const void* x;          // [B, Tp, H, W, Cin] fp32 or bf16
   const float* bias;      // [Cout] or null
-  void* y;                // [B, Tp - 2, H, W, Cout] fp32 or bf16
-  int B, Tp, H, W, Cin, Cout, CinP;
+  void* y;                // [B, Tp - KT + 1, H, W, Cout] fp32 or bf16
+  int B, Tp, KT, H, W, Cin, Cout, CinP;
   int stages, nstg, nslices, tiles_w;
   int src;                // Src
   int in_bf16, out_bf16;  // element types of x and y
@@ -262,7 +268,7 @@ conv3d_kernel(const __grid_constant__ CUtensorMap tw,
   const uint32_t xfull0 = empty0 + 8 * a.stages;      // staging filled
 
   // block -> (N slice, frame bt = b * T + t, spatial tile)
-  const int T = a.Tp - 2;
+  const int T = a.Tp - a.KT + 1;
   int idx = blockIdx.x;
   const int slice = idx % a.nslices;
   idx /= a.nslices;
@@ -272,7 +278,7 @@ conv3d_kernel(const __grid_constant__ CUtensorMap tw,
   const int y0 = (tile / a.tiles_w) * kTileH;
   const int b = bt / T, t = bt % T;
   const int n0 = slice * N;
-  const int nk = 3 * (a.CinP / CK);            // stages of the K loop
+  const int nk = a.KT * (a.CinP / CK);         // stages of the K loop
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -293,8 +299,8 @@ conv3d_kernel(const __grid_constant__ CUtensorMap tw,
     if (a.src == kTmaBf16 && tid != 0) return;
     // x coordinates of K step k: channel c0, frame b * Tp + t + kt
     auto load_x = [&](int k, uint32_t dst, uint32_t bar) {
-      tma_load_4d(dst, &tx, bar, (k / 3) * CK, x0 - 1, y0 - 1,
-                  b * a.Tp + t + k % 3);
+      tma_load_4d(dst, &tx, bar, (k / a.KT) * CK, x0 - 1, y0 - 1,
+                  b * a.Tp + t + k % a.KT);
     };
     if (a.src == kTmaF32 && tid == 0) {
       for (int k = 0; k < a.nstg && k < nk; ++k) {
@@ -313,7 +319,8 @@ conv3d_kernel(const __grid_constant__ CUtensorMap tw,
 #pragma unroll
         for (int m = 0; m < P::kPanels; ++m)
           tma_load_3d(stage + m * P::kPanelBytes, &tw, bar,
-                      n0 + m * P::kPanelCols, (k / 3) * CK, 9 * (k % 3));
+                      n0 + m * P::kPanelCols, (k / a.KT) * CK,
+                      9 * (k % a.KT));
         if (a.src == kTmaBf16) load_x(k, stage + P::kSlabOff, bar);
       }
       if (a.src == kTmaBf16) continue;
@@ -329,8 +336,8 @@ conv3d_kernel(const __grid_constant__ CUtensorMap tw,
           load_x(k + a.nstg, stg0 + sb * P::kStg, xfull0 + 8 * sb);
         }
       } else {
-        stage_manual<CK>(a, slab, (long)(b * a.Tp + t + k % 3) * a.H,
-                         (k / 3) * CK, x0, y0, tid);
+        stage_manual<CK>(a, slab, (long)(b * a.Tp + t + k % a.KT) * a.H,
+                         (k / a.KT) * CK, x0, y0, tid);
         mbar_arrive(bar);
       }
     }
@@ -452,10 +459,11 @@ cudaError_t launch(const void* w, const Args& a, int CoutP, int smem_bytes,
       (int)P::bytes(a.stages, a.nstg) != smem_bytes ||
       smem_bytes > kSmemLimit)
     return cudaErrorInvalidValue;
-  // the prepared weight [27, CinP, CoutP] bf16, read in boxes of one column
-  // panel x CK channels x 9 spatial taps
+  // the prepared weight [9 KT, CinP, CoutP] bf16, read in boxes of one
+  // column panel x CK channels x 9 spatial taps
   const uint64_t e = sizeof(__nv_bfloat16);
-  const uint64_t dims[3] = {(uint64_t)CoutP, (uint64_t)a.CinP, 27};
+  const uint64_t dims[3] = {(uint64_t)CoutP, (uint64_t)a.CinP,
+                            (uint64_t)(9 * a.KT)};
   const uint64_t strides[2] = {CoutP * e, (uint64_t)a.CinP * CoutP * e};
   const uint32_t box[3] = {(uint32_t)P::kPanelCols, (uint32_t)CK, 9};
   CUtensorMap tw, tx;
@@ -482,7 +490,7 @@ cudaError_t launch(const void* w, const Args& a, int CoutP, int smem_bytes,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return err;
-  const int T = a.Tp - 2;
+  const int T = a.Tp - a.KT + 1;
   const long blocks = (long)a.nslices * a.B * T * a.tiles_w *
                       ((a.H + kTileH - 1) / kTileH);
   conv3d_kernel<N, CK><<<(unsigned)blocks, kThreads, smem_bytes, stream>>>(
@@ -506,26 +514,28 @@ cudaError_t launch_n(int N, const void* w, const Args& a, int CoutP,
 
 extern "C" {
 
-// x: [B, Tp, H, W, Cin] of in_dtype; w: bf16 [27, CinP, CoutP] (16-byte
-// aligned); bias fp32 [Cout] or null; y [B, Tp-2, H, W, Cout] of out_dtype
-// (dtypes: 0 = float32, 1 = bfloat16). The plan comes from
-// ops/conv3d.py::conv_plan: N (16, 32, 96 or 128, dividing CoutP), CK (16
-// or 32, dividing CinP), stages, manual (stage x with the producer's
-// threads instead of TMA, which needs rows of Cin elements that are a
-// multiple of 16 bytes and a 16-byte aligned x), staging (fp32 staging
+// x: [B, Tp, H, W, Cin] of in_dtype; w: bf16 [9 taps, CinP, CoutP] (16-byte
+// aligned); bias fp32 [Cout] or null; y [B, Tp - taps + 1, H, W, Cout] of
+// out_dtype (dtypes: 0 = float32, 1 = bfloat16); taps: the temporal taps,
+// 3 (the causal 3x3x3 conv) or 1 (a 3x3 conv of every frame). The plan
+// comes from ops/conv3d.py::conv_plan: N (16, 32, 96 or 128, dividing
+// CoutP), CK (16 or 32, dividing CinP), stages, manual (stage x with the
+// producer's threads instead of TMA, which needs rows of Cin elements that
+// are a multiple of 16 bytes and a 16-byte aligned x), staging (fp32 staging
 // buffers: 1 or 2 for fp32 x read by TMA, else 0) and smem_bytes, which
 // must equal this file's own count. Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for arguments outside that.
 int wf_conv3d_causal(const void* x, const void* w, const void* bias, void* y,
-                     int B, int Tp, int H, int W, int Cin, int CinP, int Cout,
-                     int CoutP, int N, int CK, int stages, int manual,
+                     int B, int Tp, int taps, int H, int W, int Cin, int CinP,
+                     int Cout, int CoutP, int N, int CK, int stages, int manual,
                      int staging, int smem_bytes, int in_dtype, int out_dtype,
                      void* stream) {
   const int xe = in_dtype ? 2 : 4;
   const bool tma_ok = (Cin * xe) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (Tp < 3 || B < 1 || H < 1 || W < 1 || Cin < 1 || Cin > CinP ||
-      Cout < 1 || Cout > CoutP || CinP % CK != 0 || N <= 0 ||
+  if ((taps != 1 && taps != 3) || Tp < taps || B < 1 || H < 1 || W < 1 ||
+      Cin < 1 || Cin > CinP || Cout < 1 || Cout > CoutP || CinP % CK != 0 ||
+      N <= 0 ||
       CoutP % N != 0 || (in_dtype != 0 && in_dtype != 1) ||
       (out_dtype != 0 && out_dtype != 1) || (!manual && !tma_ok) ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
@@ -536,6 +546,7 @@ int wf_conv3d_causal(const void* x, const void* w, const void* bias, void* y,
   a.y = y;
   a.B = B;
   a.Tp = Tp;
+  a.KT = taps;
   a.H = H;
   a.W = W;
   a.Cin = Cin;

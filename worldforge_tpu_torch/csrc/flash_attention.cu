@@ -22,7 +22,7 @@
 //     TMA, S and O += P.V as wgmma from shared memory and registers. The
 //     tensor maps are 4D (D, H, S, B), so the ragged last tile of a batch
 //     row is zero-filled by TMA instead of reading the next batch row.
-//   * fp32 (d = 64, 128, 384): the tensor cores through 3xTF32: every fp32
+//   * fp32 (d = 64, 80, 128, 384): the tensor cores through 3xTF32: every fp32
 //     product is three TF32 mma.sync m16n8k8 products hi.hi + hi.lo + lo.hi
 //     (hi = the input rounded to TF32, lo = the rest rounded again), summed
 //     in fp32, which keeps fp32 accuracy (one TF32 pass keeps about three
@@ -58,7 +58,8 @@ template <int D>
 struct F32Smem {
   // Row strides (floats) chosen so the fragment loads hit 32 distinct banks:
   // Q and K rows are read as (row lane/4, column lane%4), so a stride of 4
-  // mod 32; V rows as (row lane%4, column lane/4), so 8 mod 32.
+  // times an odd number mod 32 (4 for d 64, 128, 384; 20 for d 80); V rows
+  // as (row lane%4, column lane/4), so 8 mod 32 (24 for d 80).
   static constexpr int LQ = D + 4, LK = D + 4, LV = D + 8, LS = kFK + 4;
   static constexpr int q = 0, k = kFQ * LQ, v = k + kFK * LK,
                        s = v + kFK * LV;
@@ -419,6 +420,7 @@ int wf_flash_attention(const void* q, const void* k, const void* v,
     if (D == 128) return launch_bf16<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
   } else if (dtype == 0) {
     if (D == 64) return launch_f32<64>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
+    if (D == 80) return launch_f32<80>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
     if (D == 128) return launch_f32<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
     if (D == 384) return launch_f32<384>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
   }

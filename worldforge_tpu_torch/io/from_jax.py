@@ -66,11 +66,7 @@ def unstack_layers(stacked: dict) -> list:
 def dit_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """A ``worldforge_tpu`` Wan DiT param tree -> the port's DiT params
     (``models/wan/dit.py``): same keys, blocks unstacked into a list."""
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out = tree_from_numpy(out, device, dtype)
-    out["blocks"] = [tree_from_numpy(layer, device, dtype)
-                     for layer in unstack_layers(tree["blocks"])]
-    return out
+    return _unstack_keys(tree, ("blocks",), device, dtype)
 
 
 def longcat_dit_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
@@ -78,3 +74,38 @@ def longcat_dit_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     (``models/longcat/dit.py``): same keys, the ``[L, ...]`` blocks
     unstacked into a list, as for the Wan DiT."""
     return dit_params_from_jax(tree, device, dtype)
+
+
+def _unstack_keys(tree: dict, keys, device, dtype) -> dict:
+    out = tree_from_numpy({k: v for k, v in tree.items() if k not in keys},
+                          device, dtype)
+    for k in keys:
+        out[k] = [tree_from_numpy(layer, device, dtype)
+                  for layer in unstack_layers(tree[k])]
+    return out
+
+
+def vggt_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` VGGT tree (``init_vggt_full``) -> the port's
+    (``models/vggt/inference.py``): the aggregator's stacked
+    ``frame_blocks`` / ``global_blocks`` unstacked into lists; the DINO
+    blocks and the camera trunk are lists on both sides."""
+    out = tree_from_numpy({k: v for k, v in tree.items()
+                           if k != "aggregator"}, device, dtype)
+    out["aggregator"] = _unstack_keys(tree["aggregator"],
+                                      ("frame_blocks", "global_blocks"),
+                                      device, dtype)
+    return out
+
+
+def umt5_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` UMT5 tree -> the port's
+    (``models/encoders/umt5.py``): the stacked ``blocks`` unstacked."""
+    return _unstack_keys(tree, ("blocks",), device, dtype)
+
+
+def clip_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` CLIP vision tree -> the port's
+    (``models/encoders/clip_vision.py``): the stacked ``blocks``
+    unstacked."""
+    return _unstack_keys(tree, ("blocks",), device, dtype)

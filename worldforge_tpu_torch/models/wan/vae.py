@@ -10,10 +10,20 @@ kernel's plain version):
   - every 3x3x3 stride-1 causal conv -> ``ops/conv3d.conv3d_causal``
     (kernel 4), exactly where the JAX ``_causal_conv3d`` takes its
     ``"pallas"`` branch: inputs rounded to bf16, fp32 accumulation;
+  - on the card, the decoder's stride-1 3x3 resample convs (after the
+    nearest x2) -> ``ops/conv3d.conv2d_3x3``, kernel 4 with one temporal
+    tap;
   - the mid-block single-head attention -> flash attention (kernel 1), fp32.
 The other convs (the 3x1x1 time convs, 1x1x1 shortcuts and projections, the
-2D up/down-sampling convs) are PyTorch convolutions, as they stay XLA convs
-in JAX, with TF32 off (``core/params.py::no_tf32``).
+encoder's stride-2 convs) stay XLA convs in JAX, which passes them no
+precision: on its chip they run bf16 operands with fp32 sums. On the card
+they run so here too (``_xla_conv``: cuDNN's TF32 algorithms on operands
+rounded to bf16, exact products, fp32 sums and result), which also keeps
+cuDNN off the fp32 algorithm that took a 36.77 GB workspace and 280-358
+ms a call for one 480p resample conv (``chip_smoke.py``'s
+vae_conv2d_workspace line, NVIDIA H100 80GB HBM3 at 700 W). On the CPU they, and the
+resample convs, stay full fp32 (TF32 off), as the JAX package's CPU tests
+run them.
 
 The streaming encoder and decoder are in ``vae_stream.py``.
 """
@@ -30,7 +40,7 @@ import torch.nn.functional as F
 
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.ops.attention import attention
-from worldforge_tpu_torch.ops.conv3d import conv3d_causal
+from worldforge_tpu_torch.ops.conv3d import conv2d_3x3, conv3d_causal
 
 # Per-channel latent statistics (model metadata).
 WAN_LATENTS_MEAN = np.array([
@@ -80,12 +90,23 @@ def _causal_conv3d(p, x, *, stride_t: int = 1, spatial_same: bool = True,
         return conv3d_causal(x, p["w"], p.get("b"), out_dtype=x.dtype)
     kh = p["w"].shape[1]
     pad_hw = kh // 2 if spatial_same and kh > 1 else 0
-    return P.conv(p, x, stride=(stride_t, 1, 1), padding=(0, pad_hw, pad_hw))
+    return _xla_conv(p, x, stride=(stride_t, 1, 1),
+                     padding=(0, pad_hw, pad_hw))
 
 
 def _conv2d(p, x, *, stride: int = 1, padding: int = 0):
     """x: [N,H,W,C], kernel [kh,kw,in,out]."""
-    return P.conv(p, x, stride=stride, padding=padding)
+    if (x.device.type == "cuda" and stride == 1 and padding == 1
+            and tuple(p["w"].shape[:2]) == (3, 3)):
+        return conv2d_3x3(x, p["w"], p.get("b"), out_dtype=x.dtype)
+    return _xla_conv(p, x, stride=stride, padding=padding)
+
+
+def _xla_conv(p, x, *, stride, padding):
+    """A conv the JAX package leaves to XLA: bf16 operands with fp32 sums
+    on the card, full fp32 on the CPU (``P.conv``)."""
+    return P.conv(p, x, stride=stride, padding=padding,
+                  bf16_operands=x.device.type == "cuda")
 
 
 def _rms_norm_c(p, x, eps: float = 1e-12):

@@ -12,6 +12,10 @@ Contract: x [B, T+2, H, W, Cin] already front-padded in time, SAME spatial
 padding, w [3, 3, 3, Cin, Cout] (DHWIO), optional bias [Cout]. Inputs and
 weights are rounded to bf16, products accumulate in fp32, the fp32 bias is
 added and the result is cast to ``out_dtype``.
+
+``conv2d_3x3`` is the same kernel with one temporal tap: the stride-1 3x3
+SAME convolution of every frame [N, H, W, Cin] with w [3, 3, Cin, Cout],
+on the same contract (the VAE decoder's resample convs on the card).
 """
 
 from __future__ import annotations
@@ -38,6 +42,20 @@ def conv3d_causal_plain(x, w, b=None, *, out_dtype=None):
     with no_tf32():
         y = F.conv3d(xb, wb, padding=(0, 1, 1))
     y = y.permute(0, 2, 3, 4, 1)
+    if b is not None:
+        y = y + b.float()
+    return y.to(out_dtype).contiguous()
+
+
+def conv2d_3x3_plain(x, w, b=None, *, out_dtype=None):
+    """``conv2d_3x3``'s function in plain PyTorch: the fp32 conv of the
+    bf16-rounded operands (TF32 off)."""
+    out_dtype = out_dtype or x.dtype
+    xb = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)      # NCHW view
+    wb = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)      # OIHW
+    with no_tf32():
+        y = F.conv2d(xb, wb, padding=1)
+    y = y.permute(0, 2, 3, 1)
     if b is not None:
         y = y + b.float()
     return y.to(out_dtype).contiguous()
@@ -125,12 +143,14 @@ def conv_plan(cin: int, cout: int, x_dtype=torch.float32,
 
 
 def prepare_weight(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, 3, Cin, Cout] -> bf16 [27, Cin16, Cout16] zero-padded to
-    multiples of 16, the layout the kernel stages from."""
-    cin, cout = w.shape[3], w.shape[4]
-    wp = torch.zeros((27, _round16(cin), _round16(cout)),
+    """[KT, 3, 3, Cin, Cout] -> bf16 [9 KT, Cin16, Cout16] zero-padded to
+    multiples of 16, the layout the kernel stages from (a 2-D [3, 3, Cin,
+    Cout] weight is KT = 1)."""
+    cin, cout = w.shape[-2], w.shape[-1]
+    taps = w.numel() // (cin * cout)
+    wp = torch.zeros((taps, _round16(cin), _round16(cout)),
                      dtype=torch.bfloat16, device=w.device)
-    wp[:, :cin, :cout] = w.reshape(27, cin, cout).to(torch.bfloat16)
+    wp[:, :cin, :cout] = w.reshape(taps, cin, cout).to(torch.bfloat16)
     return wp
 
 
@@ -151,41 +171,42 @@ def prepared_weight(w: torch.Tensor) -> torch.Tensor:
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("conv3d", {
-        "wf_conv3d_causal": ([p, p, p, p] + [i] * 16 + [p], i),
+        "wf_conv3d_causal": ([p, p, p, p] + [i] * 17 + [p], i),
         "wf_conv3d_error_string": ([i], ctypes.c_char_p),
     })
 
 
-def _launch(x, w, b, out_dtype):
+def _launch(x, w, b, out_dtype, taps):
+    """x [B, Tp, H, W, Cin]; w [3, 3, 3, Cin, Cout] (taps 3) or [3, 3, Cin,
+    Cout] (taps 1)."""
     bn_, tp, hh, ww, cin = x.shape
-    if w.shape[:4] != (3, 3, 3, cin):
+    if w.shape[:-1] != (3,) * (taps // 3 + 2) + (cin,):
         raise ValueError(f"conv3d kernel: weight {tuple(w.shape)} for input "
                          f"{tuple(x.shape)}")
-    if tp < 3:
-        raise ValueError("conv3d kernel: needs at least 3 padded frames")
+    if tp < taps:
+        raise ValueError(f"conv3d kernel: needs at least {taps} frames")
     if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise ValueError(f"conv3d kernel: dtypes {x.dtype} -> {out_dtype}")
     if w.device != x.device or (b is not None and b.device != x.device):
         raise ValueError("conv3d kernel: tensors on two devices")
-    cout = w.shape[4]
+    cout = w.shape[-1]
     x = x.contiguous()          # read as it is: no bf16 copy of x
     plan = conv_plan(cin, cout, x.dtype, x.data_ptr() % 16 == 0)
     wp = prepared_weight(w)
     bias = b.float().contiguous() if b is not None else None
-    y = torch.empty((bn_, tp - 2, hh, ww, cout), dtype=out_dtype,
+    y = torch.empty((bn_, tp - taps + 1, hh, ww, cout), dtype=out_dtype,
                     device=x.device)
     lib = _lib()
     err = lib.wf_conv3d_causal(
         x.data_ptr(), wp.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(), bn_, tp,
-        hh, ww, cin, plan.cin_p, cout, plan.cout_p, plan.n, plan.ck,
+        taps, hh, ww, cin, plan.cin_p, cout, plan.cout_p, plan.n, plan.ck,
         plan.stages, int(plan.manual), plan.staging, plan.smem_bytes,
         _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("conv3d kernel launch failed: "
                            + lib.wf_conv3d_error_string(err).decode())
-    conv3d_causal.launches += 1
     return y
 
 
@@ -200,7 +221,29 @@ def conv3d_causal(x: torch.Tensor, w: torch.Tensor,
         return conv3d_causal_plain(x, w, b, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_causal: unsupported device {x.device}")
-    return _launch(x, w, b, out_dtype)
+    y = _launch(x, w, b, out_dtype, 3)
+    conv3d_causal.launches += 1
+    return y
 
 
 conv3d_causal.launches = 0
+
+
+def conv2d_3x3(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None, *,
+               out_dtype=None) -> torch.Tensor:
+    """x [N, H, W, Cin], w [3, 3, Cin, Cout] (HWIO), b [Cout] or None:
+    the stride-1 3x3 SAME convolution, [N, H, W, Cout]. CUDA tensors launch
+    kernel 4 with one temporal tap (the N frames as one batch row); CPU
+    tensors take ``conv2d_3x3_plain``."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return conv2d_3x3_plain(x, w, b, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_3x3: unsupported device {x.device}")
+    y = _launch(x[None], w, b, out_dtype, 1)[0]
+    conv2d_3x3.launches += 1
+    return y
+
+
+conv2d_3x3.launches = 0

@@ -23,7 +23,8 @@ import torch
 from worldforge_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # finite "minus infinity": keeps exp() NaN-free on padding
-_KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64, 128, 384)}
+_KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128),
+                     torch.float32: (64, 80, 128, 384)}
 
 
 def flash_attention_plain(q, k, v, *, kv_lens=None, scale=None,
@@ -134,7 +135,7 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
     return_lse: also return the running max ``m`` and softmax normaliser
     ``l`` per query row as [B, H, Sq] fp32 (the output stays normalised).
     CUDA tensors launch the kernel (bf16 with head dim 64 or 128, fp32 with
-    64, 128 or 384) and raise on anything else; CPU tensors take
+    64, 80, 128 or 384) and raise on anything else; CPU tensors take
     ``flash_attention_plain``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
