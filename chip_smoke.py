@@ -59,6 +59,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and steps 2 and 3 must hand a channel back. Before it, the reduced
    random-init LongCat runs ``generate_i2v`` (distill, and standard with
    CFG) and ``generate_vc`` on the card and on the CPU, which must agree.
+12. depthcrafter -- the DepthCrafter video warp stage (after the warp phase
+   in the order of a run): a widened tiny SVD UNet + VAE (and a tiny CLIP)
+   on the card against the CPU computing the card's conv arithmetic, from
+   one set of weights and one noise stream: the encode, one UNet forward
+   and the decode, and ``DepthCrafterPipeline`` (7 frames, window 4,
+   overlap 2, 2 steps); ``warp_video`` with the edge filter on both (masks
+   equal); then the SVD UNet (1.52B) and VAE at full width, fp32, with
+   CLIP-H, on a 40-frame 512x832 video (window 24, overlap 8, 5 steps) ->
+   ``normalize_depth`` -> depth npz -> ``cli/warp_depthcrafter``, with the
+   cuts listed on its line; one UNet forward at the published 110-frame
+   window (the dc_window110 line), one on 8 frames of 1024x1024 (81,920
+   rows of temporal attention in one launch: dc_square1024) and one
+   24-frame forward under ``torch.profiler`` (dc_profile).
 
 The line before the last holds the kernel table; the last line is the device
 summary.
@@ -132,6 +145,21 @@ WARP_DIRECTION, WARP_DEGREE = "right", 15.0
 # UMT5: 512 token ids (no tokenizer here), the prompt's 28 and the
 # negative prompt's 64 of them unmasked
 PROMPT_TOKENS, NEGATIVE_TOKENS = 28, 64
+
+# DepthCrafter: 512 x 832 frames -> 64 x 104 latents (6,656 tokens at the
+# UNet's first level, 5 heads of 64); 40 of the published 110-frame window
+# and overlap 8 of 25, so two windows run (the re-init and the blend), at
+# the CLI's 5 steps; the VAE decodes 8 frames a chunk (its mid attention:
+# [8, 6656, 1, 512])
+DC_H, DC_W = 512, 832
+DC_TOKENS = (DC_H // 8) * (DC_W // 8)                             # 6,656
+DC_FRAMES, DC_WINDOW, DC_OVERLAP, DC_STEPS = 40, 24, 8, 5
+DC_DECODE_CHUNK = 8
+DC_PUBLISHED_WINDOW, DC_PUBLISHED_OVERLAP = 110, 25
+DC_HEADS = 5
+DC_SQUARE_FRAMES = 8     # frames of the 1024 x 1024 forward
+# kernel 1 on more than 65,535 B*H rows (the grid's y limit)
+GRID_ROWS = 70000
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -716,11 +744,11 @@ def phase_kernels():
                  (WIDTH // 8), (HEIGHT // 8) * (WIDTH // 8), 1, 384,
                  torch.float32, 1e-4, 1e-4, "flash_attention vae fp32 d384", 3)
     for dtype, dims in ((torch.bfloat16, (64, 128)),
-                        (torch.float32, (64, 80, 128, 384))):
+                        (torch.float32, (64, 80, 128, 384, 512))):
         for d in dims:
             _check_flash_masked(gen, records, d, dtype)
     for d, dtype in ((128, torch.bfloat16), (384, torch.float32),
-                     (80, torch.float32)):
+                     (80, torch.float32), (512, torch.float32)):
         _check_flash_masked(gen, records, d, dtype, b=2, sq=333, sk=333,
                             kv_lens=(333, 129))
     # the warp's and the encoders' shapes: the DINO backbone and the VGGT
@@ -809,6 +837,7 @@ def phase_kernels():
                 in_dtype=torch.float32, label="rope_qk longcat guided fp32 in")
     _check_conv(gen, records, 4, REFINE_H, REFINE_W, 96, 96, 3,
                 "conv3d 96->96 refine 704x1280 T'6")
+    main.update(_dc_kernel_checks(gen, records))
     for rec in records:
         emit({"phase": "kernels", **rec})
     bad = [r["check"] for r in records if not r["ok"]]
@@ -816,6 +845,94 @@ def phase_kernels():
         raise SystemExit(f"chip_smoke: kernels disagree with their plain "
                          f"versions: {bad}")
     return main
+
+
+# kernel 4's one-tap instantiation at the DepthCrafter stage's 3x3 convs,
+# (N, H, W, Cin, Cout): every (Cin, Cout) pair the UNet and VAE give it at
+# 512 x 832, each at a size where it runs. The UNet on a 24-frame window of
+# 64 x 104 latents: conv_in 8 -> 320, the resnets and upsamplers at the
+# four levels, the skip concatenations' Cin 640, 960, 1280, 1920 and 2560,
+# conv_out to 4. The VAE on a chunk of 8 frames: the encoder's conv_in from
+# 3 and conv_out to 8 moments, the decoder's conv_in from 4 and conv_out to
+# 3, the 128 / 256 / 512 resnets and upsamplers. The first is the table's
+# row; ``phase_depthcrafter`` fails if the path launches a pair not here.
+DC_CONV2D = (
+    (DC_WINDOW, DC_H // 8, DC_W // 8, 320, 320),
+    (DC_WINDOW, DC_H // 8, DC_W // 8, 8, 320),
+    (DC_WINDOW, DC_H // 8, DC_W // 8, 640, 320),
+    (DC_WINDOW, DC_H // 8, DC_W // 8, 960, 320),
+    (DC_WINDOW, DC_H // 8, DC_W // 8, 640, 640),
+    (DC_WINDOW, DC_H // 8, DC_W // 8, 320, 4),
+    (DC_WINDOW, DC_H // 16, DC_W // 16, 320, 640),
+    (DC_WINDOW, DC_H // 16, DC_W // 16, 960, 640),
+    (DC_WINDOW, DC_H // 16, DC_W // 16, 1280, 640),
+    (DC_WINDOW, DC_H // 16, DC_W // 16, 1920, 640),
+    (DC_WINDOW, DC_H // 16, DC_W // 16, 1280, 1280),
+    (DC_WINDOW, DC_H // 32, DC_W // 32, 640, 1280),
+    (DC_WINDOW, DC_H // 32, DC_W // 32, 1920, 1280),
+    (DC_WINDOW, DC_H // 32, DC_W // 32, 2560, 1280),
+    (DC_WINDOW, DC_H // 64, DC_W // 64, 2560, 1280),
+    (DC_WINDOW, DC_H // 64, DC_W // 64, 1280, 1280),
+    (DC_DECODE_CHUNK, DC_H, DC_W, 3, 128),
+    (DC_DECODE_CHUNK, DC_H, DC_W, 128, 128),
+    (DC_DECODE_CHUNK, DC_H, DC_W, 256, 128),
+    (DC_DECODE_CHUNK, DC_H, DC_W, 256, 256),
+    (DC_DECODE_CHUNK, DC_H, DC_W, 128, 3),
+    (DC_DECODE_CHUNK, DC_H // 2, DC_W // 2, 128, 256),
+    (DC_DECODE_CHUNK, DC_H // 2, DC_W // 2, 512, 256),
+    (DC_DECODE_CHUNK, DC_H // 2, DC_W // 2, 512, 512),
+    (DC_DECODE_CHUNK, DC_H // 4, DC_W // 4, 256, 512),
+    (DC_DECODE_CHUNK, DC_H // 8, DC_W // 8, 512, 512),
+    (DC_DECODE_CHUNK, DC_H // 8, DC_W // 8, 512, 8),
+    (DC_DECODE_CHUNK, DC_H // 8, DC_W // 8, 4, 512),
+)
+
+
+def _dc_kernel_checks(gen, records):
+    """Kernels 1 and 4 at the DepthCrafter stage's shapes. Kernel 1: the
+    SVD VAE's mid attention (fp32, one head of 512, on a decode chunk of 8
+    frames), the UNet's fp32 heads of 64 at the published 110-frame window
+    (spatial over 110 frames of 6,656 tokens, temporal over 6,656 rows of
+    110 frames, cross-attention to the one CLIP token), d 512 at small
+    ragged shapes and on inputs x8; and the grid: more than 65,535 B*H rows
+    in fp32 and bf16. Kernel 4: every 3x3 conv shape of ``DC_CONV2D``, fp32
+    in and out as the UNet and VAE call it. Returns the table rows'
+    records, keyed as ``DC_ROWS``."""
+    rows = {}
+    rows["flash_attention fp32 d512 (svd vae mid)"] = _check_flash(
+        gen, records, DC_DECODE_CHUNK, DC_TOKENS, DC_TOKENS, 1, 512,
+        torch.float32, 1e-4, 1e-4, "flash_attention svd vae fp32 d512", 3)
+    _check_flash(gen, records, 2, 130, 200, 1, 512, torch.float32, 1e-4,
+                 1e-4, "flash_attention fp32 d512 ragged", 3)
+    _check_flash_f32_precision(gen, records, 1, DC_TOKENS, 512)
+    w = DC_PUBLISHED_WINDOW
+    rows["flash_attention fp32 d64 (svd unet spatial)"] = _check_flash(
+        gen, records, w, DC_TOKENS, DC_TOKENS, DC_HEADS, 64, torch.float32,
+        1e-4, 1e-4, "flash_attention svd unet spatial fp32 d64", 2)
+    rows["flash_attention fp32 d64 (svd unet temporal)"] = _check_flash(
+        gen, records, DC_TOKENS, w, w, DC_HEADS, 64, torch.float32, 1e-4,
+        1e-4, "flash_attention svd unet temporal fp32 d64", 3)
+    rows["flash_attention fp32 d64 (svd unet cross Sk=1)"] = _check_flash(
+        gen, records, w, DC_TOKENS, 1, DC_HEADS, 64, torch.float32, 1e-4,
+        1e-4, "flash_attention svd unet cross-attn Sk=1 fp32 d64", 3)
+    grid = [_check_flash(gen, records, GRID_ROWS, 16, 16, 1, d, dtype, tol,
+                         tol_l2, f"flash_attention grid B*H 70000 {name} d{d}",
+                         3)
+            for d, dtype, name, tol, tol_l2 in (
+                (64, torch.float32, "fp32", 1e-4, 1e-4),
+                (64, torch.bfloat16, "bf16", 2e-2, 1e-2),
+                (128, torch.bfloat16, "bf16", 2e-2, 1e-2))]
+    rows["flash_attention fp32 d64 (B*H > 65535)"] = {
+        **grid[0], "grid_checks": [
+            {k: r[k] for k in ("check", "shape", "dtype", "max_abs_err",
+                               "rel_l2_err", "ok", "ms", "plain_ms")}
+            for r in grid]}
+    for i, (n, hh, ww, cin, cout) in enumerate(DC_CONV2D):
+        rec = _check_conv2d(gen, records, n, hh, ww, cin, cout, 3,
+                            f"conv2d_3x3 svd {cin}->{cout} {n}x{hh}x{ww}")
+        if i == 0:
+            rows["conv2d_3x3 (svd unet 320->320)"] = rec
+    return rows
 
 
 # ------------------------------------------------------------------ main
@@ -837,8 +954,9 @@ KERNEL_META = {
     "conv2d_3x3": {
         "route": "cuda", "source": "worldforge_tpu_torch/csrc/conv3d.cu",
         "replaces": "worldforge_tpu/ops/conv3d.py:39",
-        "note": "kernel 4 with one temporal tap: the VAE decoder's 3x3 "
-                "resample convs, an XLA conv in the JAX package"},
+        "note": "kernel 4 with one temporal tap: the Wan VAE decoder's "
+                "3x3 resample convs and the SVD UNet's and VAE's stride-1 "
+                "3x3 convs, XLA convs in the JAX package"},
     "bsa": {
         "route": "cuda", "source": "worldforge_tpu_torch/csrc/bsa.cu",
         "replaces": "worldforge_tpu/ops/bsa.py:100"},
@@ -876,13 +994,64 @@ def _require_launches(launches, names, phase):
                          f"path: {idle}")
 
 
+# the table's rows at the DepthCrafter stage's shapes: (row, wrapper, which
+# keys of the wrapper's ``launches_by_shape`` the row counts). A row counts
+# the launches at its own shape, in the runs that give it that shape: the
+# 40-frame pipeline (the VAE's mid attention on chunks of 8 frames, the
+# UNet's 320 -> 320 convs on 24-frame windows), the forward at the
+# published 110-frame window (the UNet's first-level attention) and the
+# 1024 x 1024 forward (kernel 1 on more than 65,535 B*H rows).
+DC_ROWS = (
+    ("flash_attention fp32 d512 (svd vae mid)", "flash_attention",
+     lambda k: k == ("fp32 d512", DC_DECODE_CHUNK, DC_TOKENS, DC_TOKENS)),
+    ("flash_attention fp32 d64 (svd unet spatial)", "flash_attention",
+     lambda k: k == ("fp32 d64", DC_PUBLISHED_WINDOW * DC_HEADS, DC_TOKENS,
+                     DC_TOKENS)),
+    ("flash_attention fp32 d64 (svd unet temporal)", "flash_attention",
+     lambda k: k == ("fp32 d64", DC_TOKENS * DC_HEADS, DC_PUBLISHED_WINDOW,
+                     DC_PUBLISHED_WINDOW)),
+    ("flash_attention fp32 d64 (svd unet cross Sk=1)", "flash_attention",
+     lambda k: k == ("fp32 d64", DC_PUBLISHED_WINDOW * DC_HEADS, DC_TOKENS,
+                     1)),
+    ("flash_attention fp32 d64 (B*H > 65535)", "flash_attention",
+     lambda k: k[0] == "fp32 d64" and k[1] > 65535),
+    ("conv2d_3x3 (svd unet 320->320)", "conv2d_3x3",
+     lambda k: k == DC_CONV2D[0]),
+)
+
+
+class Launches(dict):
+    """One run's launches by wrapper (kernel 1's also by instantiation, as
+    ``"flash_attention fp32 d512"``); ``by_shape`` holds the wrappers'
+    ``launches_by_shape``, {wrapper: {shape key: launches}}."""
+
+    by_shape: dict
+
+
 def _reset_counters():
-    for fn in kernel_counters().values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_shape"):
+            fn.launches_by_shape = {}
+    counters["flash_attention"].launches_by_instantiation = {}
 
 
 def _read_counters():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    counters = kernel_counters()
+    out = Launches((name, fn.launches) for name, fn in counters.items())
+    for inst, n in counters["flash_attention"].launches_by_instantiation.items():
+        out[f"flash_attention {inst}"] = n
+    out.by_shape = {name: dict(fn.launches_by_shape)
+                    for name, fn in counters.items()
+                    if hasattr(fn, "launches_by_shape")}
+    return out
+
+
+def _shape_counts(launches):
+    """``launches.by_shape`` with string keys, for a JSON line."""
+    return {name: {" ".join(map(str, k)): n for k, n in shapes.items()}
+            for name, shapes in launches.by_shape.items()}
 
 
 def _flf_latents(seed=21):
@@ -1358,6 +1527,430 @@ def phase_warp(work_dir):
                          "the CPU")
     _require_launches(launches, WARP_PATH_KERNELS, "warp")
     return runs[-1]["out"], launches
+
+
+DC_UNET_KERNELS = ("flash_attention", "conv2d_3x3",
+                   "flash_attention fp32 d64")
+DEPTHCRAFTER_PATH_KERNELS = DC_UNET_KERNELS + ("flash_attention fp32 d512",)
+
+
+def _dc_video(t, h, w, seed=0):
+    """A synthetic video [T, H, W, 3] in [0, 1]: a sky gradient over a
+    textured ground plane with a few boxes, the camera panning 3 px a
+    frame."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    boxes = [(rng.uniform(0, 2 * w), rng.uniform(0.35, 0.7) * h,
+              rng.uniform(0.08, 0.2) * w, rng.uniform(0.15, 0.3) * h,
+              rng.uniform(0.1, 0.9, 3)) for _ in range(6)]
+    out = np.empty((t, h, w, 3), np.float32)
+    sky = yy < 0.4 * h
+    for i in range(t):
+        x = xx + 3.0 * i
+        img = out[i]
+        img[..., 0] = np.where(sky, 0.5 + 0.3 * yy / h,
+                               0.35 + 0.2 * np.sin(x / 17.0)
+                               * np.cos(yy / 11.0))
+        img[..., 1] = np.where(sky, 0.6 + 0.2 * yy / h, 0.45)
+        img[..., 2] = np.where(sky, 0.9, 0.3 + 0.1 * np.sin(x / 7.0))
+        for x0, y0, bw, bh, col in boxes:
+            inside = ((x >= x0) & (x < x0 + bw) & (yy >= y0)
+                      & (yy < y0 + bh))
+            img[inside] = col
+    out += 0.02 * rng.standard_normal(out.shape).astype(np.float32)
+    return np.clip(out, 0.0, 1.0)
+
+
+def _dc_depth(t, h, w):
+    """Normalised depth [T, H, W] with a box in front of a slanted plane,
+    moving 1 px a frame (sharp edges for the edge filter)."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = [0.2 + 0.4 * xx / w + 0.2 * yy / h
+         + 0.35 * ((xx - i > 0.3 * w) & (xx - i < 0.6 * w)
+                   & (yy > 0.25 * h) & (yy < 0.75 * h))
+         for i in range(t)]
+    d = np.stack(d).astype(np.float32)
+    return (d - d.min()) / (d.max() - d.min())
+
+
+def _small_depthcrafter_check():
+    """``SVDUNetConfig.tiny()`` widened to (64, 64, 128, 128) with heads
+    of 64 and ``SVDVAEConfig.tiny()`` widened to (32, 32, 64, 512) (its mid
+    attention one head of 512), weights drawn on the CPU and copied to the
+    card, against the CPU computing the card's conv arithmetic in plain
+    PyTorch (``unet._bf16_convs`` replaced for the run: the card rounds
+    every conv's operands to bf16, the CPU path keeps fp32 convs):
+
+    - the VAE encode, one UNet forward and the VAE decode on the same
+      inputs: relative L2 <= 2e-2 each;
+    - ``DepthCrafterPipeline`` on 7 frames of 64 x 128 (window 4, overlap
+      2: three windows; 2 steps), its per-frame context from
+      ``clip_frame_encoder`` over ``CLIPVisionConfig.tiny()`` widened to
+      160 (2 heads of 80, as CLIP-H's) with a projection to 64, from one
+      noise stream. The CPU run is fed the card's UNet outputs: at each
+      call it computes its own on the card's inputs, then goes on with the
+      card's, so a last-bit difference cannot flip bf16 roundings that
+      flip more through the forty-odd convs of the later calls. Relative
+      L2 <= 2e-2 for each UNet call's output, for each call's inputs (the
+      CPU's own against the card's: the CLIP context, the conditioning
+      encode, the windows, the re-init and the Euler steps) and for the
+      decoded frames (the CPU decodes its own latents);
+    - ``warp_video`` with the edge filter on 7 frames of 400 x 448: no mask
+      pixel may differ."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.depthcrafter import unet
+    from worldforge_tpu_torch.models.depthcrafter.unet import (
+        SVDUNetConfig, init_svd_unet, svd_unet_forward)
+    from worldforge_tpu_torch.models.depthcrafter.vae import (
+        SVDVAEConfig, init_svd_vae, svd_vae_decode, svd_vae_encode)
+    from worldforge_tpu_torch.models.encoders import clip_vision
+    from worldforge_tpu_torch.pipelines import depthcrafter as dcp
+    from worldforge_tpu_torch.warp.dc_warp import warp_video
+    ucfg = dataclasses.replace(SVDUNetConfig.tiny(),
+                               block_out_channels=(64, 64, 128, 128),
+                               num_attention_heads=(1, 1, 2, 2),
+                               cross_attention_dim=64)
+    vcfg = dataclasses.replace(SVDVAEConfig.tiny(),
+                               block_out_channels=(32, 32, 64, 512))
+    ccfg = dataclasses.replace(clip_vision.CLIPVisionConfig.tiny(),
+                               width=160)
+    up = init_svd_unet(P.make_generator(31), ucfg)
+    vp = init_svd_vae(P.make_generator(32), vcfg)
+    clip = (clip_vision.init_clip_vision(P.make_generator(36), ccfg),
+            clip_vision.init_clip_projection(P.make_generator(37), ccfg, 64))
+    cup, cvp, cclip = (P.tree_map(lambda t: t.cuda(), t)
+                       for t in (up, vp, clip))
+    rng = np.random.default_rng(33)
+    video = rng.random((7, 64, 128, 3)).astype(np.float32)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 64, 128)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((1, 4, 8, 8, 16)).astype(
+        np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((1, 4, 1, 64)).astype(
+        np.float32))
+    ids = torch.tensor([[7.0, 127.0, 0.02]])
+    z = torch.from_numpy(0.5 * rng.standard_normal((4, 4, 8, 16)).astype(
+        np.float32))
+
+    def rel_l2(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def run(uparams, vparams, clip_params, dev, unet_fn):
+        def to(t):
+            return t.to(dev)
+        noise = np.random.default_rng(34)
+        pipe = dcp.DepthCrafterPipeline(
+            uparams, ucfg, vparams, vcfg,
+            encode_frames_clip=dcp.clip_frame_encoder(*clip_params, ccfg))
+        out = {
+            "encode": svd_vae_encode(vparams, vcfg, to(frames), scale=False),
+            "unet": svd_unet_forward(uparams, ucfg, to(x), 1.0, to(ctx),
+                                     to(ids)),
+            "decode": svd_vae_decode(vparams, vcfg, to(z))}
+        saved = dcp.svd_unet_forward
+        dcp.svd_unet_forward = unet_fn
+        try:
+            out["pipeline"] = torch.from_numpy(pipe(
+                None, video, num_inference_steps=2, window_size=4,
+                overlap=2, decode_chunk_size=4,
+                noise_fn=lambda s: noise.standard_normal(s).astype(
+                    np.float32)))
+        finally:
+            dcp.svd_unet_forward = saved
+        return out
+
+    calls = []        # the card's UNet calls: (tensor inputs on the CPU, out)
+
+    def card_unet(params, cfg, *args, **kwargs):
+        out = svd_unet_forward(params, cfg, *args, **kwargs)
+        calls.append(([a.cpu() if torch.is_tensor(a) else a for a in args],
+                      out.cpu()))
+        return out
+
+    forced = {"unet_out": [], "unet_in": []}
+
+    def cpu_unet(params, cfg, *args, **kwargs):
+        card_args, card_out = calls[len(forced["unet_out"])]
+        forced["unet_in"].append(max(
+            rel_l2(a, b) for a, b in zip(args, card_args)
+            if torch.is_tensor(a)))
+        own = svd_unet_forward(params, cfg, *card_args, **kwargs)
+        forced["unet_out"].append(rel_l2(own, card_out))
+        return card_out.clone()
+
+    _reset_counters()
+    card = run(cup, cvp, cclip, "cuda", card_unet)
+    launches = _read_counters()
+    saved = unet._bf16_convs
+    unet._bf16_convs = lambda x: True
+    try:
+        cpu = run(up, vp, clip, "cpu", cpu_unet)
+    finally:
+        unet._bf16_convs = saved
+
+    errs = {k: rel_l2(card[k], cpu[k]) for k in card}
+    errs["pipeline unet calls, max"] = max(forced["unet_out"])
+    errs["pipeline unet inputs, max"] = max(forced["unet_in"])
+    tol = 2e-2
+    wframes = rng.random((7, 400, 448, 3)).astype(np.float32)
+    depth = _dc_depth(7, 400, 448)
+    kw = dict(direction="left", degree=10.0, look_at_depth=1.0,
+              enable_edge_filter=True)
+    warps = {dev: warp_video(wframes, depth, device=dev, **kw)
+             for dev in ("cuda", "cpu")}
+    mask_diff = int(sum((a != b).sum() for a, b in zip(warps["cuda"][1],
+                                                        warps["cpu"][1])))
+    frame_diff = int(sum((a != b).any(-1).sum() for a, b in zip(
+        warps["cuda"][0], warps["cpu"][0])))
+    ok = (all(bool(torch.isfinite(v).all()) for v in card.values())
+          and len(calls) == len(forced["unet_out"]) == 3 * 2
+          and all(e <= tol for e in errs.values()) and mask_diff == 0
+          and all(m.mean() > 0 for m in warps["cpu"][1]))
+    emit({"phase": "depthcrafter_small_vs_cpu",
+          "unet": "SVDUNetConfig.tiny(), block_out_channels (64, 64, 128, "
+                  "128), heads of 64",
+          "vae": "SVDVAEConfig.tiny(), block_out_channels (32, 32, 64, 512)",
+          "video": list(video.shape), "window": 4, "overlap": 2, "steps": 2,
+          "rel_l2": errs, "tol_rel_l2": tol,
+          "pipeline_unet_calls": forced,
+          "warp": {"frames": list(wframes.shape), "edge_filter": True,
+                   "card_vs_cpu_mask_px_differing": mask_diff,
+                   "card_vs_cpu_frame_px_differing": frame_diff,
+                   "mask_coverage": [round(float(m.mean()), 4)
+                                     for m in warps["cpu"][1]]},
+          "launches_on_card": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: the small DepthCrafter stage "
+                         "disagrees with the CPU")
+    _require_launches(launches, DEPTHCRAFTER_PATH_KERNELS,
+                      "small DepthCrafter")
+
+
+def phase_depthcrafter(work_dir):
+    """The DepthCrafter video warp stage through the user's entry points:
+    the SVD UNet and VAE at full width (random fp32 weights from a seed),
+    ``DepthCrafterPipeline`` on a 40-frame 512 x 832 synthetic video
+    (window 24, overlap 8: two windows; 5 steps; decode chunks of 8), its
+    per-frame context from CLIP-H (``vit_h_14``, fp32, random) and a
+    projection to 1024 through ``clip_frame_encoder`` ->
+    ``normalize_depth`` -> a depth npz -> ``cli/warp_depthcrafter`` with
+    ``--depth_npz`` (the CLI's defaults: left 15 degrees, no edge filter;
+    random weights give a depth of noise, so past frame 0, whose camera is
+    the source's, the masks cover little). Then one UNet forward at the
+    published 110-frame window (the smallest ``attn_chunks`` that fits),
+    one on 8 frames of 1024 x 1024 (each counted in its own window) and one
+    24-frame forward under ``torch.profiler``. Returns the three runs'
+    launches by path."""
+    import numpy as np
+    from worldforge_tpu_torch.cli import warp_depthcrafter as dc_cli
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.frames import read_frames_from_directory
+    from worldforge_tpu_torch.models.depthcrafter.unet import (
+        SVDUNetConfig, init_svd_unet, svd_unet_forward)
+    from worldforge_tpu_torch.models.depthcrafter.vae import (SVDVAEConfig,
+                                                              init_svd_vae)
+    from worldforge_tpu_torch.models.encoders import clip_vision
+    from worldforge_tpu_torch.pipelines import depthcrafter as dcp
+    from worldforge_tpu_torch.warp import dc_warp
+
+    _small_depthcrafter_check()
+    os.makedirs(work_dir, exist_ok=True)
+    rec = {"phase": "depthcrafter",
+           "config": "SVDUNetConfig.svd() + SVDVAEConfig.svd(), fp32",
+           "video": [DC_FRAMES, DC_H, DC_W], "window": DC_WINDOW,
+           "overlap": DC_OVERLAP, "steps": DC_STEPS,
+           "decode_chunk_size": DC_DECODE_CHUNK,
+           "cuts": {"frames": f"{DC_FRAMES} of the published "
+                              f"{DC_PUBLISHED_WINDOW}-frame window",
+                    "window": f"{DC_WINDOW} of {DC_PUBLISHED_WINDOW}",
+                    "overlap": f"{DC_OVERLAP} of {DC_PUBLISHED_OVERLAP}",
+                    "weights": "random, from a seed"}}
+    ucfg, vcfg = SVDUNetConfig.svd(), SVDVAEConfig.svd()
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    up = init_svd_unet(P.make_generator(41, "cuda"), ucfg)
+    vp = init_svd_vae(P.make_generator(42, "cuda"), vcfg)
+    ccfg = clip_vision.CLIPVisionConfig.vit_h_14()
+    cp = clip_vision.init_clip_vision(P.make_generator(45, "cuda"), ccfg)
+    proj = clip_vision.init_clip_projection(P.make_generator(46, "cuda"),
+                                            ccfg, ucfg.cross_attention_dim)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.time() - t0
+    rec["unet_params"] = sum(t.numel() for t in _leaves(up))
+    rec["vae_params"] = sum(t.numel() for t in _leaves(vp))
+    rec["clip_params"] = sum(t.numel() for t in _leaves((cp, proj)))
+    rec["weights_gb"] = torch.cuda.memory_allocated() / 2 ** 30
+    video = _dc_video(DC_FRAMES, DC_H, DC_W)
+    clip_s = []
+    encode_clip = dcp.clip_frame_encoder(cp, proj, ccfg)
+
+    def timed_clip(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode_clip(frames)
+        torch.cuda.synchronize()
+        clip_s.append(time.perf_counter() - t0)
+        return out
+
+    pipe = dcp.DepthCrafterPipeline(up, ucfg, vp, vcfg,
+                                    encode_frames_clip=timed_clip)
+    with timed_calls(dcp, "svd_vae_encode", []) as enc, \
+            timed_calls(dcp, "svd_unet_forward", []) as fwd, \
+            timed_calls(dcp, "svd_vae_decode", []) as dec:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        frames_out = pipe(torch.Generator(device="cuda").manual_seed(43),
+                          video, num_inference_steps=DC_STEPS,
+                          window_size=DC_WINDOW, overlap=DC_OVERLAP,
+                          decode_chunk_size=DC_DECODE_CHUNK)
+        pipe_s = time.time() - t0
+    rec["pipeline_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    depth = dcp.normalize_depth(frames_out)
+    encode_s = sum(r["s"] for r in enc)
+    decode_s = sum(r["s"] for r in dec)
+    steps = len(fwd)
+    rec.update({"pipeline_s": pipe_s, "clip_s": clip_s[0],
+                "encode_s": encode_s,
+                "encode_calls": len(enc), "unet_forwards": steps,
+                "unet_forward_s": [r["s"] for r in fwd],
+                "s_per_unet_forward": sum(r["s"] for r in fwd) / steps,
+                "s_per_step": (pipe_s - clip_s[0] - encode_s - decode_s)
+                / steps,
+                "decode_s": decode_s, "decode_calls": len(dec)})
+    npz = os.path.join(work_dir, "dc_depth.npz")
+    np.savez(npz, depth=depth, frames=video)
+    out_dir = os.path.join(work_dir, "dc_warp")
+    with timed_calls(dc_warp, "splat_disk", []) as splat, \
+            timed_calls(dc_warp, "morph_open", []) as morph, \
+            timed_calls(dc_warp, "edge_point_mask", []) as edge, \
+            timed_calls(dc_cli, "warp_video", []) as whole:
+        t0 = time.time()
+        dc_cli.main(["--depth_npz", npz, "--output_path", out_dir])
+        rec["cli_s"] = time.time() - t0
+    launches = _read_counters()
+    rec.update({"warp_s": whole[0]["s"],
+                "device_splat_s": sum(r["s"] for r in splat),
+                "host_morph_open_s": sum(r["s"] for r in morph),
+                "host_edge_filter_s": sum(r["s"] for r in edge)})
+    rec["total_s"] = pipe_s + rec["cli_s"]
+    wf, wm, _ = read_frames_from_directory(os.path.join(out_dir, "imgs"))
+    rec["warp_frames"] = len(wf)
+    rec["mask_coverage"] = [round(float(m.mean()), 4) for m in wm]
+    rec["depth_range"] = [float(depth.min()), float(depth.max())]
+    rec["launches"] = launches
+    rec["launches_by_shape"] = _shape_counts(launches)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # every 3x3 conv the path gave kernel 4 was held against its plain
+    # version in the kernels phase (DC_CONV2D)
+    unchecked = sorted({k[3:] for k in launches.by_shape["conv2d_3x3"]}
+                       - {c[3:] for c in DC_CONV2D})
+    rec["conv2d_3x3_pairs_unchecked"] = unchecked
+    windows = 1 + -(-(DC_FRAMES - DC_WINDOW) // (DC_WINDOW - DC_OVERLAP))
+    ok = (frames_out.shape == (DC_FRAMES, DC_H, DC_W, 3)
+          and bool(np.isfinite(frames_out).all())
+          and depth.shape == (DC_FRAMES, DC_H, DC_W)
+          and steps == windows * DC_STEPS and windows == 2
+          and len(wf) == len(wm) == DC_FRAMES
+          and wf[0].shape == (DC_H, DC_W, 3) and bool(wm[0].all())
+          and not unchecked)
+    rec["windows"] = windows
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit("chip_smoke: the DepthCrafter stage's output is "
+                         "wrong")
+    _require_launches(launches, DEPTHCRAFTER_PATH_KERNELS, "depthcrafter")
+    del frames_out, video, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # single UNet forwards, each counted in its own window
+    paths = {"depthcrafter": launches}
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    ids = torch.tensor([[7.0, 127.0, 0.02]], device="cuda")
+    t_cont = 0.25 * math.log(700.0)
+
+    def inputs(f):
+        return (torch.randn((1, f, 8, DC_H // 8, DC_W // 8), generator=gen,
+                            device="cuda"),
+                torch.zeros((1, f, 1, ucfg.cross_attention_dim),
+                            device="cuda"))
+
+    x, ctx = inputs(DC_PUBLISHED_WINDOW)
+    tried, y = [], None
+    _reset_counters()
+    for chunks in (1, 2, 4, 8, 16):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            y = svd_unet_forward(up, ucfg, x, t_cont, ctx, ids,
+                                 attn_chunks=chunks)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            tried.append({"attn_chunks": chunks, "fits": False})
+            continue
+        tried.append({"attn_chunks": chunks, "fits": True,
+                      "s": time.time() - t0,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "finite": bool(torch.isfinite(y).all())})
+        break
+    paths["dc_window110"] = _read_counters()
+    del x, ctx, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "dc_window110", "latents": [1, DC_PUBLISHED_WINDOW, 8,
+                                                DC_H // 8, DC_W // 8],
+          "tried": tried, "launches": paths["dc_window110"],
+          "launches_by_shape": _shape_counts(paths["dc_window110"])})
+    if not tried[-1]["fits"] or not tried[-1]["finite"]:
+        raise SystemExit("chip_smoke: the 110-frame UNet forward failed")
+    _require_launches(paths["dc_window110"], DC_UNET_KERNELS, "dc_window110")
+    # the grid repair on the path itself: a square 1024 x 1024 video (the
+    # CLI's default --max_res) gives the first level's temporal attention
+    # (1024/8)^2 x 5 = 81,920 rows, more than gridDim.y's 65,535
+    x = torch.randn((1, DC_SQUARE_FRAMES, 8, 128, 128), generator=gen,
+                    device="cuda")
+    ctx = torch.zeros((1, DC_SQUARE_FRAMES, 1, ucfg.cross_attention_dim),
+                      device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    y = svd_unet_forward(up, ucfg, x, t_cont, ctx, ids)
+    torch.cuda.synchronize()
+    paths["dc_square1024"] = _read_counters()
+    square = {"phase": "dc_square1024", "latents": list(x.shape),
+              "temporal_attention_rows": 128 * 128 * DC_HEADS,
+              "s": time.time() - t0,
+              "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "finite": bool(torch.isfinite(y).all()),
+              "launches": paths["dc_square1024"],
+              "launches_by_shape": _shape_counts(paths["dc_square1024"])}
+    emit(square)
+    if not square["finite"]:
+        raise SystemExit("chip_smoke: the 1024x1024 UNet forward failed")
+    _require_launches(paths["dc_square1024"], DC_UNET_KERNELS,
+                      "dc_square1024")
+    del x, ctx, y
+    x, ctx = inputs(DC_WINDOW)
+    _profile_forward(lambda: svd_unet_forward(up, ucfg, x, t_cont, ctx, ids),
+                     "dc_profile", "one SVD UNet forward (fp32) on a "
+                     "24-frame 512x832 window under torch.profiler",
+                     {"latents": list(x.shape)})
+    del up, vp, cp, proj, x, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
 
 
 def _leaves(tree):
@@ -2091,6 +2684,8 @@ def main() -> int:
     by_path = {}
     warp_dir, by_path["warp"] = phase_warp(
         os.path.join(HERE, "build", "chip_smoke"))
+    by_path.update(phase_depthcrafter(
+        os.path.join(HERE, "build", "chip_smoke")))
     frames, _ = _frames_480p(warp_dir)
     ctx, by_path["encoders"] = phase_encoders(
         frames[0, :, 0].transpose(1, 2, 0))
@@ -2103,17 +2698,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["longcat_guided"] = phase_longcat_guided(*longcat_pipe)
 
-    launches = {name: sum(counts[name] for counts in by_path.values())
-                for name in KERNEL_META}
+    names = set().union(*by_path.values())
+    launches = {name: sum(counts.get(name, 0) for counts in by_path.values())
+                for name in sorted(names)}
     emit({"phase": "launches", "by_path": by_path, "total": launches})
+    rows = [(name, meta, name, None) for name, meta in KERNEL_META.items()]
+    rows += [(row, {**KERNEL_META[counter], "launches_counted":
+                    "the launches at this row's shape"}, counter, shape)
+             for row, counter, shape in DC_ROWS]
+
+    def count(counts, counter, shape):
+        if shape is None:
+            return counts.get(counter, 0)
+        return sum(n for k, n in getattr(counts, "by_shape", {}).get(
+            counter, {}).items() if shape(k))
+
     table = []
-    for name, meta in KERNEL_META.items():
+    for name, meta, counter, shape in rows:
         rec = main_recs[name]
-        table.append({"name": name, **meta, "launches": launches[name],
-                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                      "bound_by": rec["bound_by"],
-                      "library_ms": rec["library_ms"]})
+        row = {"name": name, **meta,
+               "launches": sum(count(c, counter, shape)
+                               for c in by_path.values()),
+               "launches_by_path": {path: count(c, counter, shape)
+                                    for path, c in by_path.items()},
+               "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"],
+               "library_ms": rec["library_ms"]}
+        if name == "flash_attention":
+            row["launches_by_instantiation"] = {
+                k[len("flash_attention "):]: n for k, n in launches.items()
+                if k.startswith("flash_attention ")}
+        if "grid_checks" in rec:
+            row["grid_checks"] = rec["grid_checks"]
+        table.append(row)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -236,3 +236,50 @@ def test_run_warp_vggt_depth_at_preprocessed_size(tmp_path, monkeypatch):
     pixels = np.asarray(Image.open(img)).reshape(-1, 3)[:14 * 28]
     same = (tf[1][:14, :28].reshape(-1, 3) == pixels).all(axis=-1)
     assert same.mean() > 0.8
+
+
+def test_warp_depthcrafter_cli_on_cpu(tmp_path, monkeypatch):
+    """``warp_depthcrafter --depth_npz --device cpu`` writes the same images
+    and masks as the JAX CLI from the same frames directory and depth (at a
+    smaller size than the frames: both resize the frames to the depth's),
+    with the edge filter on; without ``--device`` it needs the card."""
+    from PIL import Image
+    from worldforge_tpu.cli import warp_depthcrafter as jcli
+    from worldforge_tpu_torch.cli import warp_depthcrafter as tcli
+    rng = np.random.default_rng(7)
+    frames_dir = tmp_path / "frames"
+    frames_dir.mkdir()
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (450, 500, 3), np.uint8)).save(
+            frames_dir / f"f{i:02d}.png")
+    yy, xx = np.mgrid[0:400, 0:448].astype(np.float32) / 10
+    depth = np.stack([0.2 + 0.01 * xx + 0.005 * yy
+                      + 0.4 * ((xx - i > 15) & (xx - i < 30) & (yy > 12))
+                      for i in range(4)]).astype(np.float32)
+    npz = str(tmp_path / "depth.npz")
+    np.savez(npz, depth=depth / depth.max())
+    common = ["--video_path", str(frames_dir), "--depth_npz", npz,
+              "--direction", "right", "--degree", "8",
+              "--enable_edge_filter"]
+    tcli.main(common + ["--output_path", str(tmp_path / "t"), "--device",
+                        "cpu"])
+    jcli.main(common + ["--output_path", str(tmp_path / "j")])
+    out = tmp_path / "t" / "imgs"
+    assert sorted(os.listdir(out)) == sorted(
+        [f"rendered_image_{i:02d}.png" for i in range(4)]
+        + [f"mask_{i:02d}.png" for i in range(4)])
+    for name in ("video.mp4", "mask.mp4"):
+        assert os.path.getsize(tmp_path / "t" / name) > 0
+    tf, tm, _ = tframes.read_frames_from_directory(str(out))
+    jf, jm, _ = tframes.read_frames_from_directory(
+        str(tmp_path / "j" / "imgs"))
+    assert tf[0].shape == (400, 448, 3)
+    assert 0 < np.mean(tm[2]) < 1
+    np.testing.assert_array_equal(np.stack(tm), np.stack(jm))
+    np.testing.assert_array_equal(np.stack(tf), np.stack(jf))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(common + ["--output_path", str(tmp_path / "c")])
+    with pytest.raises(SystemExit, match="DepthCrafter weights required"):
+        tcli.main(["--video_path", str(frames_dir), "--output_path",
+                   str(tmp_path / "n"), "--device", "cpu"])

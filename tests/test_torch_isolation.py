@@ -26,7 +26,7 @@ def _imported_roots(path):
 
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
-    LongCat guided, warp and encoder modules among them."""
+    LongCat guided, warp, encoder and DepthCrafter modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -38,7 +38,13 @@ def test_isolation_covers_the_port_modules():
                 "models/vggt/model.py", "models/vggt/heads.py",
                 "models/vggt/inference.py", "cli/run_warp.py",
                 "models/encoders/umt5.py", "models/encoders/clip_vision.py",
-                "io/from_jax.py", "ops/sampling.py"):
+                "io/from_jax.py", "ops/sampling.py",
+                "sampling/euler_edm.py", "models/depthcrafter/unet.py",
+                "models/depthcrafter/vae.py",
+                "models/depthcrafter/inference.py",
+                "pipelines/depthcrafter.py", "warp/edge_filter.py",
+                "warp/dc_warp.py", "warp/pcd.py",
+                "cli/warp_depthcrafter.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 
@@ -84,6 +90,20 @@ def test_cpu_launch_counters_stay_zero():
     fused_norm.modulated_layer_norm(torch.zeros(1, 2, 8), torch.zeros(1, 1, 8),
                                     torch.zeros(1, 1, 8))
     assert fused_norm.modulated_layer_norm.launches == before
+
+
+def test_cpu_calls_leave_the_by_shape_counters_alone():
+    """Kernels 1 and 4 also count their launches by instantiation and by
+    shape; a CPU call launches nothing and adds to none of them."""
+    from worldforge_tpu_torch.ops import conv3d, flash_attention as fa
+    counters = (fa.flash_attention, conv3d.conv2d_3x3)
+    before = [(fn.launches, dict(fn.launches_by_shape)) for fn in counters]
+    by_inst = dict(fa.flash_attention.launches_by_instantiation)
+    q = torch.zeros(1, 3, 1, 64)
+    fa.flash_attention(q, q, q)
+    conv3d.conv2d_3x3(torch.zeros(2, 4, 5, 3), torch.zeros(3, 3, 3, 8))
+    assert [(fn.launches, fn.launches_by_shape) for fn in counters] == before
+    assert fa.flash_attention.launches_by_instantiation == by_inst
 
 
 def test_random_init_pipeline_on_cpu():

@@ -41,6 +41,8 @@ def _qkv(rng, b, sq, sk, h, d):
     (2, 130, 200, 2, 64, None),        # d = 64 (tiny / random-init DiT)
     (2, 96, 300, 2, 64, [0, 170]),     # a row with kv_len = 0
     (1, 70, 90, 1, 384, None),         # fp32 single head, the VAE's d
+    (2, 130, 200, 1, 512, None),       # the SVD VAE's single head of 512
+    (2, 130, 200, 1, 512, [200, 77]),
 ])
 def test_flash_attention_matches_pallas(rng, b, sq, sk, h, d, kv_lens):
     """fp32 inputs: both sides compute fp32 scores and an fp32 P.V, so the

@@ -135,6 +135,29 @@ def rms_norm(p: dict, x: torch.Tensor, *, eps: float = 1e-5,
     return y.to(odtype) * p["scale"].to(odtype)
 
 
+def group_norm_init(dim: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def group_norm(p: dict, x: torch.Tensor, *, groups: int = 32,
+               eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over channels-last input [N, ..., C]: statistics over the
+    spatial dims and the channel group in fp32, as
+    ``worldforge_tpu/core/params.py::group_norm`` (the group count falls to
+    the largest divisor of C at most ``groups``)."""
+    odtype = x.dtype
+    c = x.shape[-1]
+    g = min(groups, c)
+    while c % g != 0:
+        g -= 1
+    xf = x.float().reshape(x.shape[0], -1, g, c // g)
+    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True,
+                               correction=0)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return (y * p["scale"].float() + p["bias"].float()).to(odtype)
+
+
 # ---------------------------------------------------------------- conv
 
 

@@ -12,11 +12,14 @@
 // Wan self-attention against 0.83 GB of q/k/v/o). Reaching it needs wgmma,
 // whose operands come from shared memory in the layout TMA writes, and
 // enough query rows per block that each K/V tile read serves many of them:
-//   * One block per (128-row query tile, head): query tiles on blockIdx.x,
-//     heads on blockIdx.y, so the blocks in flight share one head's K and V
-//     in L2. 384 threads: a producer warpgroup (one thread issues every
-//     copy; setmaxnreg gives its registers away) and two consumer
-//     warpgroups of 64 query rows each.
+//   * One block per (128-row query tile, head), consecutive blocks on one
+//     head's query tiles, so the blocks in flight share that head's K and V
+//     in L2. (Kernel 1 numbers its blocks on gridDim.x alone, whose limit
+//     is 2^31 - 1: gridDim.y stops at 65,535, fewer than the B*H rows of
+//     the SVD UNet's temporal attention at 1024 x 1024.) 384 threads: a
+//     producer warpgroup (one thread issues every copy; setmaxnreg gives
+//     its registers away) and two consumer warpgroups of 64 query rows
+//     each.
 //   * The producer fills Q once and a ring of kStages K/V stages of 128 keys
 //     with TMA (cp.async.bulk.tensor, 128-byte swizzle), each stage guarded
 //     by a full mbarrier (arrive.expect_tx, completed by the copy's bytes)
@@ -80,15 +83,18 @@ __device__ __forceinline__ float ex2(float x) {
 
 // ------------------------------------------------------------ tile sources
 
-// Kernel 1: block (x, y = b * H + h) takes query rows [128x, 128x + 128) of
-// batch b, head h; kv tile t is keys [128t, 128t + 128), for t < the tile
-// count of kv_lens[b]. Tensor maps are 4D (D, H, S, B).
+// Kernel 1: block x = bh * qtiles + i (bh = b * H + h, qtiles query tiles
+// per head) takes query rows [128i, 128i + 128) of batch b, head h; kv tile
+// t is keys [128t, 128t + 128), for t < the tile count of kv_lens[b].
+// Tensor maps are 4D (D, H, S, B).
 struct DenseTiles {
-  int b, h, q0, n, kv_len;
+  int bh, b, h, q0, n, kv_len;
   __device__ explicit DenseTiles(const Params& p) {
-    b = blockIdx.y / p.H;
-    h = blockIdx.y % p.H;
-    q0 = blockIdx.x * kRows;
+    const int qtiles = (p.Sq + kRows - 1) / kRows;
+    bh = blockIdx.x / qtiles;
+    b = bh / p.H;
+    h = bh % p.H;
+    q0 = (blockIdx.x % qtiles) * kRows;
     kv_len = max(0, min(p.kv_lens[b], p.Sk));
     n = (kv_len + kKeys - 1) / kKeys;
   }
@@ -281,7 +287,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
             __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
     if (p.m != nullptr && t4 == 0) {
-      const long ml = (long)blockIdx.y * p.Sq + tiles.q0;
+      const long ml = (long)tiles.bh * p.Sq + tiles.q0;
       if (ok0) {
         p.m[ml + r0] = m0;
         p.l[ml + r0] = l0;

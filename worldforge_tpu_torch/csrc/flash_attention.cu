@@ -22,21 +22,29 @@
 //     TMA, S and O += P.V as wgmma from shared memory and registers. The
 //     tensor maps are 4D (D, H, S, B), so the ragged last tile of a batch
 //     row is zero-filled by TMA instead of reading the next batch row.
-//   * fp32 (d = 64, 80, 128, 384): the tensor cores through 3xTF32: every fp32
-//     product is three TF32 mma.sync m16n8k8 products hi.hi + hi.lo + lo.hi
-//     (hi = the input rounded to TF32, lo = the rest rounded again), summed
-//     in fp32, which keeps fp32 accuracy (one TF32 pass keeps about three
-//     decimal digits). mma.sync, not wgmma: TF32 wgmma takes only K-major
-//     operands and V [keys, D] is not K-major for P.V. A block holds 64
-//     query rows; a 16x384 fp32 accumulator would be 192 registers a
-//     thread in one warp, so each 16-row group has two warps, each owning
-//     half of O's columns and computing half of S's depth; the two halves
-//     of S meet in shared memory, which also turns S from the accumulator
-//     layout into P's A-operand layout. K and V tiles of 32 keys are loaded
+//   * fp32 (d = 64, 80, 128, 384, 512): the tensor cores through 3xTF32:
+//     every fp32 product is three TF32 mma.sync m16n8k8 products hi.hi +
+//     hi.lo + lo.hi (hi = the input rounded to TF32, lo = the rest rounded
+//     again), summed in fp32, which keeps fp32 accuracy (one TF32 pass keeps
+//     about three decimal digits). mma.sync, not wgmma: TF32 wgmma takes only
+//     K-major operands and V [keys, D] is not K-major for P.V. A 16x384 fp32
+//     accumulator would be 192 registers a thread in one warp, so each
+//     16-row group has WPG warps, each owning 1/WPG of O's columns and
+//     computing 1/WPG of S's depth; the parts of S meet in shared memory,
+//     which also turns S from the accumulator layout into P's A-operand
+//     layout. d <= 384 runs 64 query rows a block with two warps a group;
+//     d = 512 (the SVD VAE's single head) 32 rows with four warps a group:
+//     64 rows would need 283 KB of shared memory for Q, K, V and S against
+//     the 227 KB a block may have, and two warps a group 128 accumulators a
+//     thread. Both are 256 threads. K and V tiles of 32 keys are loaded
 //     with cp.async, each while the other one is in use. The tensor cores
 //     truncate as they add into an fp32 accumulator, a bias that grows with
 //     the count of products, so each product is summed in short runs (a few
 //     k-steps of S, one kv tile of O) that are then added in fp32.
+//   * Blocks are numbered on gridDim.x alone (x = bh * qtiles + query tile),
+//     whose limit is 2^31 - 1: on gridDim.y, B*H would stop at 65,535, and
+//     the SVD UNet's temporal attention has B*H = (H/8)(W/8) x 5 rows at its
+//     first level (81,920 at 1024 x 1024).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,20 +58,30 @@ constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------- fp32 3xTF32
 
-constexpr int kFQ = 64;          // query rows per block: 4 groups of 16
 constexpr int kFK = 32;          // keys per kv tile
-constexpr int kFThreads = 256;   // 8 warps: two per 16-row group
+constexpr int kFThreads = 256;   // 8 warps: (QB / 16) groups x WPG warps
+
+// The tiling of head dim D: QB query rows per block, WPG warps per 16-row
+// group (QB / 16 * WPG = 8 warps).
+template <int D>
+struct F32Tile {
+  static constexpr int QB = D > 384 ? 32 : 64;
+  static constexpr int WPG = D > 384 ? 4 : 2;
+  static_assert(QB / 16 * WPG * 32 == kFThreads, "8 warps a block");
+};
 
 template <int D>
 struct F32Smem {
+  static constexpr int QB = F32Tile<D>::QB, WPG = F32Tile<D>::WPG;
   // Row strides (floats) chosen so the fragment loads hit 32 distinct banks:
   // Q and K rows are read as (row lane/4, column lane%4), so a stride of 4
-  // times an odd number mod 32 (4 for d 64, 128, 384; 20 for d 80); V rows
-  // as (row lane%4, column lane/4), so 8 mod 32 (24 for d 80).
+  // times an odd number mod 32 (4 for d 64, 128, 384, 512; 20 for d 80); V
+  // rows as (row lane%4, column lane/4), so 8 mod 32 (24 for d 80).
   static constexpr int LQ = D + 4, LK = D + 4, LV = D + 8, LS = kFK + 4;
-  static constexpr int q = 0, k = kFQ * LQ, v = k + kFK * LK,
+  static constexpr int q = 0, k = QB * LQ, v = k + kFK * LK,
                        s = v + kFK * LV;
-  static constexpr size_t bytes = sizeof(float) * (s + 2 * kFQ * LS);
+  static constexpr size_t bytes = sizeof(float) * (s + WPG * QB * LS);
+  static_assert(bytes <= 232448, "227 KB of shared memory a block");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -131,8 +149,8 @@ __device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
   for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
 }
 
-// One block per (64-query tile, b*h); warp w takes rows 16*(w/2) .. +16 and
-// half w%2: O's columns [half*D/2, +D/2) and S's depth [half*D/2, +D/2).
+// One block per (QB-query tile, b*h); warp w takes rows 16*(w/WPG) .. +16
+// and part w%WPG: O's columns [part*D/WPG, +D/WPG) and S's depth likewise.
 // m16n8k8 fragments (g = lane/4, t = lane%4): A holds (g, t), (g+8, t),
 // (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); C holds
 // (g, 2t..2t+1) and (g+8, 2t..2t+1).
@@ -144,7 +162,8 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    float* __restrict__ m_out, float* __restrict__ l_out,
                    int Sq, int Sk, int H, float scale) {
   using L = F32Smem<D>;
-  constexpr int HD = D / 2;      // O columns / S depth per warp
+  constexpr int QB = L::QB, WPG = L::WPG;
+  constexpr int HD = D / WPG;    // O columns / S depth per warp
   constexpr int NO = HD / 8;     // O column blocks per warp
   // The tensor cores add into their fp32 accumulator with truncation, a
   // bias that grows with the number of products summed: so each product
@@ -156,13 +175,14 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Qs = fsm + L::q;
   float* Ks = fsm + L::k;
   float* Vs = fsm + L::v;
-  float* Ss = fsm + L::s;        // [2 halves][64 rows][LS]
+  float* Ss = fsm + L::s;        // [WPG parts][QB rows][LS]
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kFQ;
+  const int qtiles = (Sq + QB - 1) / QB;
+  const int bh = blockIdx.x / qtiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % qtiles) * QB;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int rg = warp / 2, half = warp % 2;
+  const int rg = warp / WPG, part = warp % WPG;
   const int r0 = rg * 16 + g, r1 = r0 + 8;       // this thread's rows
   const long rs = (long)H * D;                   // token stride
   const int kv_len = max(0, min(kv_lens[b], Sk));
@@ -172,7 +192,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (long)b * Sk * rs + (long)h * D;
 
   if (ntiles > 0) {
-    stage_f32<D>(Qs, qb, kFQ, min(kFQ, Sq - q0), rs, L::LQ);
+    stage_f32<D>(Qs, qb, QB, min(QB, Sq - q0), rs, L::LQ);
     stage_f32<D>(Ks, kb, kFK, min(kFK, Sk), rs, L::LK);
   }
   cp_async_commit();
@@ -191,8 +211,8 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();               // Q and K(t) have landed
     __syncthreads();
 
-    // half of S's depth: rows r0, r1 x 32 keys x D/2, summed in chunks of
-    // KC k-steps that are added in fp32
+    // this warp's part of S's depth: rows r0, r1 x 32 keys x D/WPG, summed
+    // in chunks of KC k-steps that are added in fp32
     float sp[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) sp[j][0] = sp[j][1] = sp[j][2] = sp[j][3] = 0.f;
@@ -204,7 +224,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         tp[j][0] = tp[j][1] = tp[j][2] = tp[j][3] = 0.f;
 #pragma unroll
       for (int kk = k0; kk < k0 + KC; ++kk) {
-        const int d0 = half * HD + kk * 8 + t4;
+        const int d0 = part * HD + kk * 8 + t4;
         const float a[4] = {Qs[r0 * L::LQ + d0], Qs[r1 * L::LQ + d0],
                             Qs[r0 * L::LQ + d0 + 4], Qs[r1 * L::LQ + d0 + 4]};
         uint32_t ahi[4], alo[4];
@@ -221,7 +241,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) sp[j][e] += tp[j][e];
     }
-    float* sh = Ss + half * kFQ * L::LS;
+    float* sh = Ss + part * QB * L::LS;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       *reinterpret_cast<float2*>(sh + r0 * L::LS + 8 * j + 2 * t4) =
@@ -229,26 +249,26 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(sh + r1 * L::LS + 8 * j + 2 * t4) =
           make_float2(sp[j][2], sp[j][3]);
     }
-    __syncthreads();                  // S halves written; K(t) is free
+    __syncthreads();                  // S parts written; K(t) is free
     if (t + 1 < ntiles)
       stage_f32<D>(Ks, kb + (long)(key0 + kFK) * rs, kFK,
                    min(kFK, Sk - key0 - kFK), rs, L::LK);
     cp_async_commit();
 
-    // S = both halves, read in P's A-operand layout: k-step kk covers keys
-    // 8kk .. 8kk+7, s[kk] = (r0, t4), (r1, t4), (r0, t4+4), (r1, t4+4)
+    // S = the sum of the WPG parts, read in P's A-operand layout: k-step kk
+    // covers keys 8kk .. 8kk+7, s[kk] = (r0, t4), (r1, t4), (r0, t4+4),
+    // (r1, t4+4)
     float s[4][4];
-    const float* s0p = Ss;
-    const float* s1p = Ss + kFQ * L::LS;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = (e & 1) ? r1 : r0;
         const int col = 8 * kk + t4 + (e >> 1) * 4;
-        const float val = (s0p[row * L::LS + col] + s1p[row * L::LS + col]) *
-                          scale;
-        s[kk][e] = key0 + col < kv_len ? val : kNegInf;
+        float sum = Ss[row * L::LS + col];
+#pragma unroll
+        for (int w = 1; w < WPG; ++w) sum += Ss[(w * QB + row) * L::LS + col];
+        s[kk][e] = key0 + col < kv_len ? sum * scale : kNegInf;
       }
     }
     float mx0 = kNegInf, mx1 = kNegInf;
@@ -284,7 +304,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     cp_async_wait<1>();               // V(t) has landed
     __syncthreads();
-    // O = alpha O + P V over this warp's D/2 columns, NG column blocks at a
+    // O = alpha O + P V over this warp's D/WPG columns, NG column blocks at a
     // time: each tile's product is summed apart and added in fp32
 #pragma unroll
     for (int n0 = 0; n0 < NO; n0 += NG) {
@@ -294,7 +314,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         tp[i][0] = tp[i][1] = tp[i][2] = tp[i][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float* vr = Vs + (8 * kk + t4) * L::LV + half * HD + g;
+        const float* vr = Vs + (8 * kk + t4) * L::LV + part * HD + g;
 #pragma unroll
         for (int i = 0; i < NG; ++i) {
           const float bv[2] = {vr[8 * (n0 + i)], vr[4 * L::LV + 8 * (n0 + i)]};
@@ -310,7 +330,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         a[3] = fmaf(a[3], al1, tp[i][3]);
       }
     }
-    __syncthreads();                  // V(t) and the S halves are free
+    __syncthreads();                  // V(t) and the S parts are free
     if (t + 1 < ntiles)
       stage_f32<D>(Vs, vb + (long)(key0 + kFK) * rs, kFK,
                    min(kFK, Sk - key0 - kFK), rs, L::LV);
@@ -327,8 +347,8 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
   const bool ok0 = q0 + r0 < Sq, ok1 = q0 + r1 < Sq;
-  float* o0 = o + ((long)b * Sq + q0 + r0) * rs + (long)h * D + half * HD;
-  float* o1 = o + ((long)b * Sq + q0 + r1) * rs + (long)h * D + half * HD;
+  float* o0 = o + ((long)b * Sq + q0 + r0) * rs + (long)h * D + part * HD;
+  float* o1 = o + ((long)b * Sq + q0 + r1) * rs + (long)h * D + part * HD;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = 8 * n + 2 * t4;
@@ -339,7 +359,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(o1 + c) =
           make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
   }
-  if (m_out != nullptr && half == 0 && t4 == 0) {
+  if (m_out != nullptr && part == 0 && t4 == 0) {
     if (ok0) {
       m_out[(long)bh * Sq + q0 + r0] = m0;
       l_out[(long)bh * Sq + q0 + r0] = l0;
@@ -377,8 +397,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   p.Sk = Sk;
   p.H = H;
   p.scale = scale;
-  dim3 grid((Sq + sm90::kRows - 1) / sm90::kRows, B * H);
-  return sm90::launch<D, sm90::DenseTiles>(tq, tk, tv, p, grid, stream);
+  const long blocks = (long)((Sq + sm90::kRows - 1) / sm90::kRows) * B * H;
+  if (blocks < 1 || blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  return sm90::launch<D, sm90::DenseTiles>(tq, tk, tv, p,
+                                           dim3((unsigned)blocks), stream);
 }
 
 template <int D>
@@ -391,8 +413,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
       fa_f32_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kFQ - 1) / kFQ, B * H);
-  fa_f32_tf32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
+  constexpr int QB = F32Tile<D>::QB;
+  const long blocks = (long)((Sq + QB - 1) / QB) * B * H;
+  if (blocks < 1 || blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  fa_f32_tf32_kernel<D><<<(unsigned)blocks, kFThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), kv_lens, static_cast<float*>(o), m, l,
       Sq, Sk, H, scale);
@@ -423,6 +447,7 @@ int wf_flash_attention(const void* q, const void* k, const void* v,
     if (D == 80) return launch_f32<80>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
     if (D == 128) return launch_f32<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
     if (D == 384) return launch_f32<384>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
+    if (D == 512) return launch_f32<512>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

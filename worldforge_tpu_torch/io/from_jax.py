@@ -8,7 +8,8 @@ same layouts (dense kernels ``[in, out]``, conv kernels spatial-first
 change is the unstacking. Leaves arrive as numpy arrays (``np.asarray`` of
 each JAX leaf); bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) are carried
 over bit for bit. A Wan VAE tree needs no unstacking: ``tree_from_numpy``
-carries it over as it is.
+carries it over as it is, as it does the SVD UNet and VAE trees, whose
+blocks are lists in JAX too.
 """
 
 from __future__ import annotations
@@ -109,3 +110,16 @@ def clip_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     (``models/encoders/clip_vision.py``): the stacked ``blocks``
     unstacked."""
     return _unstack_keys(tree, ("blocks",), device, dtype)
+
+
+def svd_unet_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` SVD UNet tree (``init_svd_unet``) -> the port's
+    (``models/depthcrafter/unet.py``): same keys; its blocks are lists on
+    both sides, so nothing is unstacked."""
+    return tree_from_numpy(tree, device, dtype)
+
+
+def svd_vae_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` SVD VAE tree (``init_svd_vae``) -> the port's
+    (``models/depthcrafter/vae.py``): same keys, lists kept."""
+    return tree_from_numpy(tree, device, dtype)

@@ -235,7 +235,8 @@ def conv2d_3x3(x: torch.Tensor, w: torch.Tensor,
     """x [N, H, W, Cin], w [3, 3, Cin, Cout] (HWIO), b [Cout] or None:
     the stride-1 3x3 SAME convolution, [N, H, W, Cout]. CUDA tensors launch
     kernel 4 with one temporal tap (the N frames as one batch row); CPU
-    tensors take ``conv2d_3x3_plain``."""
+    tensors take ``conv2d_3x3_plain``. Each launch adds one to ``launches``
+    and to ``launches_by_shape[(N, H, W, Cin, Cout)]``."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return conv2d_3x3_plain(x, w, b, out_dtype=out_dtype)
@@ -243,7 +244,11 @@ def conv2d_3x3(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv2d_3x3: unsupported device {x.device}")
     y = _launch(x[None], w, b, out_dtype, 1)[0]
     conv2d_3x3.launches += 1
+    key = (*x.shape, w.shape[-1])
+    conv2d_3x3.launches_by_shape[key] = (
+        conv2d_3x3.launches_by_shape.get(key, 0) + 1)
     return y
 
 
 conv2d_3x3.launches = 0
+conv2d_3x3.launches_by_shape = {}

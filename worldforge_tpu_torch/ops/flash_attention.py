@@ -24,7 +24,7 @@ from worldforge_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # finite "minus infinity": keeps exp() NaN-free on padding
 _KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128),
-                     torch.float32: (64, 80, 128, 384)}
+                     torch.float32: (64, 80, 128, 384, 512)}
 
 
 def flash_attention_plain(q, k, v, *, kv_lens=None, scale=None,
@@ -115,6 +115,12 @@ def _launch(q, k, v, kv_lens, scale, return_lse):
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.wf_flash_attention_error_string(err).decode())
     flash_attention.launches += 1
+    inst = f"{'bf16' if q.dtype == torch.bfloat16 else 'fp32'} d{d}"
+    by = flash_attention.launches_by_instantiation
+    by[inst] = by.get(inst, 0) + 1
+    shape = flash_attention.launches_by_shape
+    key = (inst, b * h, sq, sk)
+    shape[key] = shape.get(key, 0) + 1
     return (o, m, l) if return_lse else o
 
 
@@ -135,8 +141,10 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
     return_lse: also return the running max ``m`` and softmax normaliser
     ``l`` per query row as [B, H, Sq] fp32 (the output stays normalised).
     CUDA tensors launch the kernel (bf16 with head dim 64 or 128, fp32 with
-    64, 80, 128 or 384) and raise on anything else; CPU tensors take
-    ``flash_attention_plain``."""
+    64, 80, 128, 384 or 512) and raise on anything else; CPU tensors take
+    ``flash_attention_plain``. Each launch adds one to ``launches``, to
+    ``launches_by_instantiation["fp32 d512"]`` (its dtype and head dim) and
+    to ``launches_by_shape[("fp32 d512", B * H, Sq, Sk)]``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -148,3 +156,5 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_instantiation = {}
+flash_attention.launches_by_shape = {}

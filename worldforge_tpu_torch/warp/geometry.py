@@ -1,7 +1,7 @@
 """Pinhole geometry: unprojection, rigid transforms, projection.
 
-Counterpart of ``worldforge_tpu/warp/geometry.py`` (:16-56). Points are
-``[3, N]`` fp32 tensors on any device. Every 3x3 product is computed as
+Counterpart of ``worldforge_tpu/warp/geometry.py`` (:16-73). Points are
+``[3, N]`` fp32 tensors on any device (``dc_unproject``'s are ``[N, 3]``). Every 3x3 product is computed as
 the JAX package's CPU dot computes it, a fused multiply-add chain
 ``fma(m2, p2, fma(m1, p1, m0 p0))`` (``_mat3``), so that the warp masks are
 bit-identical to its warp: a product summed in another order (cuBLAS) or
@@ -79,3 +79,30 @@ def project(points_cam: torch.Tensor, intrinsic
     safe_z = torch.where(z.abs() > 1e-6, z, torch.ones_like(z))
     uvw = _mat3(_as_f32(intrinsic, points_cam.device), points_cam / safe_z)
     return uvw[:2], z
+
+
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x / s`` rounded once in fp32 on every device: CUDA divides a tensor
+    by a Python number as a product with its reciprocal, which can differ
+    in the last bit."""
+    return x / torch.tensor(s, dtype=torch.float32, device=x.device)
+
+
+def dc_unproject(inv_depth: torch.Tensor, f: float = 525.0) -> torch.Tensor:
+    """DepthCrafter unprojection: fixed intrinsics f = 525, c = (W/2, H/2);
+    the input is 1/(depth+0.1). Returns points [N, 3] in the source camera
+    frame (the world: identity pose)."""
+    h, w = inv_depth.shape
+    dev = inv_depth.device
+    ii, jj = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    d = inv_depth.float()
+    x = _div((jj - 0.5 * w) * d, f)
+    y = _div((ii - 0.5 * h) * d, f)
+    return torch.stack([x.reshape(-1), y.reshape(-1), d.reshape(-1)], dim=-1)
+
+
+def dc_intrinsic(h: int, w: int, f: float = 525.0) -> np.ndarray:
+    return np.array([[f, 0.0, 0.5 * w], [0.0, f, 0.5 * h], [0.0, 0.0, 1.0]],
+                    np.float32)

@@ -1,20 +1,25 @@
-"""Z-buffer point splat of the VGGT warp: nearest pixel, nearest in z wins.
+"""Z-buffer point splats of the warps: nearest in z wins.
 
 Counterpart of ``worldforge_tpu/warp/splat.py`` (:37-101,
-``_winner_take_all`` and ``splat_nearest``). JAX finds the winners with a
+``_winner_take_all`` and ``splat_nearest``, the VGGT warp; :139-215,
+``_disk_offsets``, ``splat_disk`` and ``morph_open``, the DepthCrafter
+warp). JAX finds the winners with a
 deterministic two-pass ``segment_min``: the least z per pixel, then the
 least point index among the points at that z (a first-wins sequential
 z-buffer). Here both passes are ``scatter_reduce_(..., "amin")``, which is
 exact and independent of the order of the writes on the CPU and the card.
 All frames of a trajectory splat in one call (a leading frame axis), as
-JAX's ``vmap`` does. The DepthCrafter splats (``splat_disk``,
-``render_points_nearest``) come with the DepthCrafter warp.
+JAX's ``vmap`` does. ``splat_disk`` covers every pixel whose centre lies
+within a point's radius and finds the winners the same two-pass way over
+the expanded (point, pixel) set, the ties going to the lowest point id;
+``morph_open`` is cv2 on the host, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from worldforge_tpu_torch.warp.geometry import _as_f32, _mat3
@@ -25,11 +30,12 @@ _BIG_I = 2 ** 31 - 1
 
 def _winner_take_all(flat_idx: torch.Tensor, z: torch.Tensor,
                      colors: torch.Tensor, valid: torch.Tensor,
-                     num_pixels: int
+                     num_pixels: int, pid: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Min-z scatter of F frames: flat_idx, z, valid [F, N], colors [N, C].
+    """Min-z scatter of F frames: flat_idx, z, valid [F, N], colors [M, C].
     Returns (color [F, P, C], zbuf [F, P], mask [F, P]). Ties in z go to the
-    lowest point index."""
+    lowest point id: ``pid`` [F, N] (ids into colors), by default the
+    entry's index."""
     f, n = z.shape
     dev = z.device
     stride = num_pixels + 1                      # + the overflow bucket
@@ -41,7 +47,8 @@ def _winner_take_all(flat_idx: torch.Tensor, z: torch.Tensor,
     zbuf = zbuf.reshape(f, stride)[:, :num_pixels]
     at = torch.gather(zbuf, 1, flat_idx.clamp(0, num_pixels - 1))
     is_win = valid & (zm == at)
-    pid = torch.arange(n, device=dev).expand(f, n)
+    if pid is None:
+        pid = torch.arange(n, device=dev).expand(f, n)
     win = torch.full((f * stride,), _BIG_I, dtype=torch.int64, device=dev)
     win.scatter_reduce_(0, idx, torch.where(is_win, pid, _BIG_I).reshape(-1),
                         "amin")
@@ -83,3 +90,57 @@ def splat_nearest(points_cam: torch.Tensor, colors: torch.Tensor, intrinsic,
     if single:
         return img[0], m[0], depth[0]
     return img, m, depth
+
+
+def _disk_offsets(radius_px: float):
+    r = int(np.ceil(radius_px + 0.5))
+    return [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+
+
+def splat_disk(points: torch.Tensor, colors: torch.Tensor, extrinsic,
+               intrinsic, *, h: int, w: int, radius_ndc: float = 0.005):
+    """DepthCrafter-style splat. points [N, 3] world, extrinsic 4x4 used as
+    the OpenCV w2c (the trajectory matrix as it is), colors [N, C]. Each
+    point covers the pixels whose centres fall within the NDC radius; the
+    least z per pixel wins. Returns (image [H, W, C], mask [H, W])."""
+    dev = points.device
+    e = _as_f32(extrinsic, dev)
+    pc = _mat3(e[:3, :3], points.T.float()) + e[:3, 3][:, None]  # [3, N]
+    z = pc[2]
+    ok0 = z > 1e-6
+    safe_z = torch.where(ok0, z, torch.ones_like(z))
+    uvw = _mat3(_as_f32(intrinsic, dev), pc / safe_z[None])
+    uf, vf = uvw[0], uvw[1]
+
+    radius_px = radius_ndc * min(h, w) / 2.0
+    n = points.shape[0]
+    offs = torch.tensor(_disk_offsets(radius_px), dtype=torch.int32,
+                        device=dev)                          # [K, 2]
+    # every (offset, point) pair, offset-major as JAX concatenates them
+    px = torch.floor(uf).int()[None] + offs[:, 1:2]          # [K, N]
+    py = torch.floor(vf).int()[None] + offs[:, 0:1]
+    dist2 = (uf[None] - px.float()) ** 2 + (vf[None] - py.float()) ** 2
+    ok = (ok0[None] & (dist2 <= radius_px ** 2) & (px >= 0) & (px < w)
+          & (py >= 0) & (py < h))
+    flat = (py * w + px.clamp(0, w - 1)).long()
+    pid = torch.arange(n, device=dev).expand(len(offs), n)
+    color, _, mask = _winner_take_all(
+        flat.reshape(1, -1), z.expand(len(offs), n).reshape(1, -1), colors,
+        ok.reshape(1, -1), h * w, pid.reshape(1, -1))
+    return color.reshape(h, w, -1), mask.reshape(h, w)
+
+
+def morph_open(mask: np.ndarray, ksize: int = 5) -> np.ndarray:
+    """Binary morphological open (erode then dilate) with a ksize x ksize
+    ones kernel, the post-splat cleanup: cv2 on the host for its border
+    handling, scipy where cv2 is missing (as the JAX package)."""
+    try:
+        import cv2
+        return cv2.morphologyEx(mask.astype(np.uint8), cv2.MORPH_OPEN,
+                                np.ones((ksize, ksize), np.uint8)
+                                ).astype(mask.dtype)
+    except ImportError:
+        from scipy import ndimage
+        st = np.ones((ksize, ksize), bool)
+        return ndimage.binary_opening(mask.astype(bool), structure=st).astype(
+            mask.dtype)
