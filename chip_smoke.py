@@ -72,6 +72,32 @@ Phases (each prints one JSON line; any failure exits non-zero):
    window (the dc_window110 line), one on 8 frames of 1024x1024 (81,920
    rows of temporal attention in one launch: dc_square1024) and one
    24-frame forward under ``torch.profiler`` (dc_profile).
+13. wan_facades -- after the generate, reusing the encoders phase's
+   UMT5-XXL contexts and CLIP-H (on the warp's first and last frames): the
+   Wan2.1 T2V-14B, FLF2V-14B and VACE-14B (layers 0, 5, ..., 35) at full
+   width and depth, random bf16 weights with every zero-initialised leaf
+   randomised (the head, FLF2V's ``emb_pos``, VACE's ``before_proj`` /
+   ``after_proj``), one at a time and each freed before the next, through
+   ``WanT2VPipeline.generate`` / ``WanVacePipeline.generate`` at 480x832
+   with the cuts on their lines (VACE repaints the warp's holes: its source
+   is the warp's frames through ``prepare_source`` and
+   ``VaceVideoProcessor.load_video_pair``, its mask 1 - validity), and one
+   T2V forward at the published 81 frames (32,760 tokens); kernels 1-4
+   must launch on each. Before it, reduced T2V / FLF2V / VACE pipelines on
+   the card against the CPU (3 UniPC steps with CFG, one set of weights and
+   one noise stream), ``prepare_vace_context`` with reference images, the
+   processor's resize and one ``dpm_update`` of each order.
+14. avatar -- after the LongCat guided i2v: the LongCat-Video-Avatar (the
+   13.6B base with its audio blocks, wav2vec2-base, the Wan2.1 VAE; random
+   weights, the DiT's zero leaves randomised) through
+   ``load_avatar_pipeline``, its ``encode_audio`` on a synthetic waveform
+   and ``generate_i2v_audio`` on the warp's first frame with CFG, with the
+   frame and step cuts on its line, the peak by span (wav2vec2, encode, DiT
+   forward, decode); kernels 1, 2 and 4 must launch. Before it, a widened
+   tiny avatar on the card against the CPU (``generate_i2v_audio`` with CFG
+   and with distill, a multitalk forward, the k/v cache against the joint
+   forward) and ``run_avatar --random-init`` with ``--device cuda`` against
+   ``--device cpu`` on a synthetic 16-bit WAV.
 
 The line before the last holds the kernel table; the last line is the device
 summary.
@@ -160,6 +186,30 @@ DC_HEADS = 5
 DC_SQUARE_FRAMES = 8     # frames of the 1024 x 1024 forward
 # kernel 1 on more than 65,535 B*H rows (the grid's y limit)
 GRID_ROWS = 70000
+
+# The Wan facades: T2V-14B / FLF2V-14B / VACE-14B at 480x832, 17 of the
+# published 81 frames (5 x 30 x 52 = 7,800 tokens), 3 of 50 steps, CFG 5.0;
+# one T2V forward at the published 81 frames (21 x 30 x 52 = 32,760
+# tokens). FLF2V's image context is CLIP-H on the first and the last
+# frame: 2 x 257 tokens. VACE-14B's layers are the published
+# Wan2.1-VACE-14B config.json's (the JAX default, every second layer, is
+# the 1.3B layout).
+FACADE_FRAMES, FACADE_STEPS = GEN_FRAMES, 3
+FACADE_TOKENS = (FACADE_FRAMES // 4 + 1) * (HEIGHT // 16) * (WIDTH // 16)
+T2V_PUBLISHED_FRAMES = 81
+FLF2V_IMAGE_TOKENS = 2 * 257
+VACE_14B_LAYERS = (0, 5, 10, 15, 20, 25, 30, 35)
+# The LongCat avatar: the CLI's default 93 frames -> 24 latent frames of
+# 30 x 52 = 37,440 tokens, the reference image's frame as the cond frame,
+# so the per-frame audio cross-attention folds 23 noise frames into the
+# batch: [23, 1,560 -> 32, 32 heads of 128]; a synthetic 3.72 s waveform
+# at 16 kHz. The generate is cut to 49 frames, 2 of 50 steps, CFG 4.0: the
+# single-pass decode of 93 frames does not fit beside the resident DiT
+# (the phase measures it alone); one DiT forward runs at 93 frames.
+AVATAR_CLI_FRAMES, AVATAR_FRAMES, AVATAR_STEPS = 93, 49, 2
+AVATAR_NOISE_FRAMES = (AVATAR_CLI_FRAMES - 1) // 4
+AVATAR_AUDIO_TOKENS = 32
+AVATAR_SECONDS, AUDIO_RATE = 3.72, 16000
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -837,6 +887,27 @@ def phase_kernels():
                 in_dtype=torch.float32, label="rope_qk longcat guided fp32 in")
     _check_conv(gen, records, 4, REFINE_H, REFINE_W, 96, 96, 3,
                 "conv3d 96->96 refine 704x1280 T'6")
+    # the Wan facades' and the avatar's new shapes: FLF2V's image
+    # cross-attention (7,800 queries -> 2 x 257 CLIP-H tokens) and the
+    # avatar's per-frame audio cross-attention (23 noise frames folded into
+    # the batch, 1,560 queries each -> 32 audio tokens; 64 in multitalk),
+    # and short key runs with kv_lens at small shapes (the tiny avatar's 4
+    # and 8 audio tokens on its card-vs-CPU check)
+    main[FLF2V_ROW] = _check_flash(
+        gen, records, 1, FACADE_TOKENS, FLF2V_IMAGE_TOKENS, 40, 128,
+        torch.bfloat16, 2e-2, 1e-2, FLF2V_ROW, 10)
+    main[AUDIO_ROW] = _check_flash(
+        gen, records, AVATAR_NOISE_FRAMES, LC_COND_TOKENS,
+        AVATAR_AUDIO_TOKENS, LC_HEADS, 128, torch.bfloat16, 2e-2, 1e-2,
+        AUDIO_ROW, 10)
+    _check_flash(gen, records, AVATAR_NOISE_FRAMES, LC_COND_TOKENS,
+                 2 * AVATAR_AUDIO_TOKENS, LC_HEADS, 128, torch.bfloat16,
+                 2e-2, 1e-2, "flash_attention avatar multitalk audio "
+                 "cross-attn 64 keys", 10)
+    _check_flash_masked(gen, records, 128, torch.bfloat16, sk=32,
+                        kv_lens=(32, 17, 0))
+    _check_flash_masked(gen, records, 64, torch.float32, b=2, sq=100, sk=8,
+                        kv_lens=(8, 5))
     main.update(_dc_kernel_checks(gen, records))
     for rec in records:
         emit({"phase": "kernels", **rec})
@@ -1018,6 +1089,20 @@ DC_ROWS = (
     ("conv2d_3x3 (svd unet 320->320)", "conv2d_3x3",
      lambda k: k == DC_CONV2D[0]),
 )
+
+# the table's rows at the Wan facades' and the avatar's new kernel-1
+# shapes, counted at their own shape on the paths that give it
+FLF2V_ROW = "flash_attention bf16 d128 (flf2v image cross-attn, 514 keys)"
+AUDIO_ROW = "flash_attention bf16 d128 (avatar audio cross-attn, 32 keys)"
+FACADE_ROWS = (
+    (FLF2V_ROW, "flash_attention",
+     lambda k: k == ("bf16 d128", 40, FACADE_TOKENS, FLF2V_IMAGE_TOKENS)),
+    (AUDIO_ROW, "flash_attention",
+     lambda k: k == ("bf16 d128", AVATAR_NOISE_FRAMES * LC_HEADS,
+                     LC_COND_TOKENS, AVATAR_AUDIO_TOKENS)),
+)
+AVATAR_PATH_KERNELS = ("flash_attention", "rope_qk", "conv3d_causal",
+                       "conv2d_3x3")
 
 
 class Launches(dict):
@@ -2019,12 +2104,14 @@ def _small_encoders_check():
     _require_launches(launches, ENCODER_PATH_KERNELS, "small encoders")
 
 
-def phase_encoders(first_frame):
+def phase_encoders(first_frame, last_frame):
     """UMT5-XXL (random bf16 weights, built on the card layer by layer) on
     512 token ids, the prompt's 28 and the negative prompt's 64 unmasked,
     and CLIP-H (``vit_h_14``, fp32) on the first 480 x 832 frame through
     ``preprocess_clip``, at full width and depth; both freed before the
-    DiT loads. Returns the generate's contexts and the path's launches."""
+    DiT loads. CLIP-H also encodes the last frame, FLF2V's second image
+    (after the path's counters are read). Returns the contexts and the
+    path's launches."""
     from worldforge_tpu_torch.core import params as P
     from worldforge_tpu_torch.models.encoders import clip_vision, umt5
     import numpy as np
@@ -2066,13 +2153,18 @@ def phase_encoders(first_frame):
     torch.cuda.synchronize()
     rec["clip_s"] = time.time() - t0
     rec["clip_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _read_counters()
+    image_last = clip_vision.clip_vision_hidden(
+        cp, ccfg, torch.as_tensor(clip_vision.preprocess_clip(last_frame),
+                                  device="cuda"))
     del cp
     gc.collect()
     torch.cuda.empty_cache()
-    launches = _read_counters()
-    ctx = {"pe": text[:1], "ne": text[1:], "ie": image}
+    ctx = {"pe": text[:1], "ne": text[1:], "ie": image,
+           "ie_last": image_last}
     ok = (tuple(ctx["pe"].shape) == (1, TEXT_LEN, 4096)
           and tuple(ctx["ie"].shape) == (1, 257, 1280)
+          and tuple(ctx["ie_last"].shape) == (1, 257, 1280)
           and all(bool(torch.isfinite(v).all()) for v in ctx.values())
           and not bool(text[0, PROMPT_TOKENS:].any()))
     rec.update({"text_tokens": TEXT_LEN, "unmasked": [PROMPT_TOKENS,
@@ -2598,6 +2690,765 @@ KERNEL_GROUPS = (
 )
 
 
+def _randomize_zero_leaves(tree, gen, std=0.02):
+    """Every all-zero floating leaf of a param tree -> N(0, std^2) drawn
+    from ``gen`` on the leaf's device (the zero-initialised Wan head, FLF2V's
+    ``emb_pos``, VACE's ``before_proj`` / ``after_proj``, the biases), so no
+    branch of the forward hides behind a zero."""
+    from worldforge_tpu_torch.core import params as P
+
+    def f(t):
+        if t.is_floating_point() and t.numel() and not bool(t.any()):
+            return (std * P.normal(gen, tuple(t.shape))).to(t.dtype)
+        return t
+    return P.tree_map(f, tree)
+
+
+def _to_card(tree):
+    from worldforge_tpu_torch.core import params as P
+    return P.tree_map(lambda t: t.cuda(), tree)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def _numpy_noise(seed):
+    """A numpy noise stream for ``noise_fn``: the same draws on both sides
+    of a card-vs-CPU check."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return lambda s: rng.standard_normal(s).astype(np.float32)
+
+
+def _small_wan_facades_check():
+    """Reduced T2V, FLF2V and VACE pipelines (the random-init loader's
+    widths, 2 layers, the small VAE; fp32 policy; every zero leaf
+    randomised; weights drawn on the CPU and copied to the card), 3 UniPC
+    steps with CFG, on the card with the kernels and on the CPU with their
+    plain versions from one noise stream; ``prepare_vace_context`` with two
+    reference images; ``VaceVideoProcessor``'s resize of a synthetic uint8
+    video on the card against the CPU; one ``dpm_update`` of each order."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.core.dtypes import FP32_POLICY
+    from worldforge_tpu_torch.io import vace_processor as vp
+    from worldforge_tpu_torch.io.checkpoints import DEFAULT_RANDOM_VAE
+    from worldforge_tpu_torch.models.wan.dit import (WanDiTConfig,
+                                                     init_wan_dit)
+    from worldforge_tpu_torch.models.wan.vace import VaceConfig, init_vace
+    from worldforge_tpu_torch.models.wan.vae import init_wan_vae
+    from worldforge_tpu_torch.pipelines.wan_t2v import WanT2VPipeline
+    from worldforge_tpu_torch.pipelines.wan_vace import (
+        WanVacePipeline, prepare_vace_context)
+    from worldforge_tpu_torch.sampling import dpm
+
+    z = DEFAULT_RANDOM_VAE.z_dim
+    kw = dict(out_dim=z, dim=256, ffn_dim=512, num_heads=4, num_layers=2,
+              text_len=16, text_dim=64)
+    gen = P.make_generator(31)
+    vae = _randomize_zero_leaves(init_wan_vae(gen, DEFAULT_RANDOM_VAE), gen)
+    rng = np.random.default_rng(32)
+    f32 = lambda a: a.astype(np.float32)
+    f, hw = 5, 64
+    pe, ne = (f32(rng.standard_normal((1, 16, 64))) for _ in range(2))
+    first, last = (f32(rng.uniform(-1, 1, (1, 3, hw, hw))) for _ in range(2))
+    clip2 = f32(rng.standard_normal((1, 514, 1280)))
+    src = f32(rng.uniform(-1, 1, (1, 3, f, hw, hw)))
+    mask = np.zeros((1, 1, f, hw, hw), np.float32)
+    mask[..., hw // 2:] = 1.0
+
+    def wan(model_type, in_dim):
+        cfg = WanDiTConfig(model_type=model_type, in_dim=in_dim, **kw)
+        params = _randomize_zero_leaves(
+            init_wan_dit(gen, cfg, dtype=torch.float32), gen)
+        return WanT2VPipeline(dit_params=params, dit_cfg=cfg,
+                              vae_params=vae, vae_cfg=DEFAULT_RANDOM_VAE,
+                              policy=FP32_POLICY)
+
+    vcfg = VaceConfig(base=WanDiTConfig(model_type="t2v", in_dim=z, **kw),
+                      vace_layers=(0, 1), vace_in_dim=2 * z + 64)
+    vace = WanVacePipeline(
+        vace_params=_randomize_zero_leaves(
+            init_vace(gen, vcfg, dtype=torch.float32), gen),
+        vace_cfg=vcfg, vae_params=vae, vae_cfg=DEFAULT_RANDOM_VAE,
+        policy=FP32_POLICY)
+    gen_kw = dict(num_inference_steps=3, guidance_scale=5.0,
+                  output_type="latent")
+    t2v_kw = dict(height=hw, width=hw, num_frames=f, **gen_kw)
+    # (pipeline, its params field, run, kernels that must launch, gate):
+    # T2V returns latents without a VAE (fp32 DiT only); FLF2V and VACE
+    # encode through kernel 4, whose bf16 input rounding flips on last-bit
+    # differences, so they are held at bf16 noise level
+    wan_kernels = ("flash_attention", "rope_qk", "modulated_layer_norm")
+    runs = {
+        "t2v": (wan("t2v", z), "dit_params",
+                lambda p: p.generate(None, pe, ne, noise_fn=_numpy_noise(33),
+                                     **t2v_kw), wan_kernels, 1e-3),
+        "flf2v": (wan("flf2v", 4 + 2 * z), "dit_params",
+                  lambda p: p.generate(None, pe, ne, first_frame=first,
+                                       last_frame=last, image_embeds=clip2,
+                                       noise_fn=_numpy_noise(33), **t2v_kw),
+                  wan_kernels + ("conv3d_causal",), 2e-2),
+        "vace": (vace, "vace_params",
+                 lambda p: p.generate(None, src, mask, pe, ne,
+                                      context_scale=0.8,
+                                      noise_fn=_numpy_noise(33), **gen_kw),
+                 wan_kernels + ("conv3d_causal",), 2e-2),
+    }
+    for name, (pipe, field, run, need, tol) in runs.items():
+        on_card = dataclasses.replace(
+            pipe, vae_params=_to_card(pipe.vae_params),
+            **{field: _to_card(getattr(pipe, field))})
+        _reset_counters()
+        a = run(on_card).float().cpu()
+        launches = _read_counters()
+        b = run(pipe).float().cpu()
+        rel_l2 = _rel_l2(a, b)
+        ok = bool(torch.isfinite(a).all()) and rel_l2 < tol
+        emit({"phase": "wan_facades_small_vs_cpu", "run": name,
+              "shape": list(a.shape), "steps": 3, "guidance_scale": 5.0,
+              "rel_l2": rel_l2, "rel_max": _rel_max(a, b),
+              "tol_rel_l2": tol, "launches_on_card": launches, "ok": ok})
+        if not ok:
+            raise SystemExit(f"chip_smoke: small {name} disagrees with the "
+                             f"CPU run of the plain versions")
+        _require_launches(launches, need, f"small {name}")
+
+    # the VACE context with two reference images in front
+    refs = [f32(rng.uniform(-1, 1, (1, 3, 1, hw, hw))) for _ in range(2)]
+    args = (torch.from_numpy(src), torch.from_numpy(mask))
+    ctx_card = prepare_vace_context(
+        *(t.cuda() for t in args), _to_card(vae), DEFAULT_RANDOM_VAE,
+        ref_images=[torch.from_numpy(r).cuda() for r in refs])
+    ctx_cpu = prepare_vace_context(
+        *args, vae, DEFAULT_RANDOM_VAE,
+        ref_images=[torch.from_numpy(r) for r in refs])
+    ctx_err = _rel_l2(ctx_card, ctx_cpu)
+    # the processor's antialiased cubic resize + crop (host code) of a
+    # synthetic uint8 video, its resize run once more on the card
+    video = rng.integers(0, 256, (20, 40, 56, 3), dtype=np.uint8)
+    proc = vp.VaceVideoProcessor(seq_len=60, max_area=24 * 32)
+    out, ids, (oh, ow), _ = proc.load_video(video)
+    sel = vp._to_float01(video[ids])
+    card = vp._resize_crop(sel.cuda(), oh, ow).cpu()
+    proc_err = float((card - out).abs().max())
+    # one DPM-Solver++ update of each order (the warm-up of order 3)
+    sched = dpm.make_flow_dpm_schedule(6, solver_order=3)
+    x = torch.from_numpy(f32(rng.standard_normal((1, 16, 5, 8, 8))))
+    ms = [torch.from_numpy(f32(rng.standard_normal(tuple(x.shape))))
+          for _ in range(3)]
+    dpm_err = {}
+    for i in range(3):
+        hist = ms[:i + 1][::-1]
+        a = dpm.dpm_update(sched, i, x.cuda(), *(m.cuda() for m in hist))
+        b = dpm.dpm_update(sched, i, x, *hist)
+        dpm_err[int(sched.order[i])] = _rel_max(a.cpu(), b)
+    ok = (ctx_err < 2e-2 and proc_err <= 1e-5
+          and max(dpm_err.values()) <= 1e-6 and sorted(dpm_err) == [1, 2, 3])
+    emit({"phase": "wan_facades_small_vs_cpu", "run": "pieces",
+          "vace_context_shape": list(ctx_card.shape),
+          "vace_context_rel_l2": ctx_err, "tol_vace_context": 2e-2,
+          "processor_frames": len(ids), "processor_size": [oh, ow],
+          "processor_max_abs": proc_err, "tol_processor": 1e-5,
+          "dpm_rel_max_by_order": dpm_err, "tol_dpm": 1e-6, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: VACE context, processor or DPM "
+                         "pieces disagree with the CPU")
+
+
+def _facade_vae():
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig, init_wan_vae
+    cfg = WanVAEConfig.wan_2_1()
+    return init_wan_vae(P.make_generator(41, "cuda"), cfg), cfg
+
+
+def _run_facade(name, build, generate, module, forward_name, extra):
+    """Build one full-width facade on the card (its zero leaves randomised),
+    run its generate with the counters from 0, and time every DiT forward
+    and the streaming decode. Returns (record, launches, the pipeline,
+    whether the output is right)."""
+    from worldforge_tpu_torch.pipelines import wan_t2v
+    import numpy as np
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pipe = build()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    fwd, dec, peaks = [], [], []
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with timed_calls(module, forward_name, fwd, peaks=peaks), \
+            timed_calls(wan_t2v, "vae_decode_streaming", dec, peaks=peaks):
+        out = generate(pipe)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    launches = _read_counters()
+    peak = max(peaks + [r["peak_gb"] for r in fwd + dec]
+               + [torch.cuda.max_memory_allocated() / 2 ** 30])
+    steps = [fwd[2 * i]["s"] + fwd[2 * i + 1]["s"]
+             for i in range(len(fwd) // 2)]
+    ok = (out.shape == (1, 3, FACADE_FRAMES, HEIGHT, WIDTH)
+          and bool(np.isfinite(out).all()))
+    rec = {"phase": "wan_facades", "model": name, **extra,
+           "cuts": {"frames": f"{FACADE_FRAMES} of 81",
+                    "steps": f"{FACADE_STEPS} of 50",
+                    "decode": "streaming"},
+           "height": HEIGHT, "width": WIDTH, "frames": FACADE_FRAMES,
+           "tokens": FACADE_TOKENS, "guidance_scale": 5.0,
+           "flow_shift": 5.0, "init_s": init_s, "total_s": total_s,
+           "dit_forward_s": [r["s"] for r in fwd],
+           "step_dit_s": steps, "decode_s": sum(r["s"] for r in dec),
+           "peak_gb": peak, "peak_by_span_gb": {
+               "dit_forward": max(r["peak_gb"] for r in fwd),
+               "decode": max(r["peak_gb"] for r in dec)},
+           "launches": launches, "out_shape": list(out.shape),
+           "out_range": [float(out.min()), float(out.max())], "ok": ok}
+    return rec, launches, pipe, ok
+
+
+def phase_wan_facades(warp_dir, ctx):
+    """Wan2.1-T2V-14B, FLF2V-14B and VACE-14B at full width and depth
+    (random bf16 weights from seeds, every zero leaf randomised), one at a
+    time and each freed before the next, through ``WanT2VPipeline`` /
+    ``WanVacePipeline.generate`` at 480 x 832 with the cuts on their lines,
+    fed by the encoders phase's UMT5-XXL and CLIP-H contexts and the warp's
+    frames; one T2V forward at the published 81 frames. Kernels 1-4 must
+    launch on each path. Before it, the reduced card-vs-CPU checks."""
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.vace_processor import (VaceVideoProcessor,
+                                                        prepare_source)
+    from worldforge_tpu_torch.models.wan.dit import (WanDiTConfig,
+                                                     init_wan_dit,
+                                                     wan_dit_forward)
+    from worldforge_tpu_torch.models.wan.vace import VaceConfig, init_vace
+    from worldforge_tpu_torch.pipelines import wan_t2v, wan_vace
+
+    _small_wan_facades_check()
+    by_path = {}
+    pe, ne = ctx["pe"], ctx["ne"]
+    frames, valid = _frames_480p(warp_dir)    # [1,3,F,H,W], [1,1,F,H,W]
+    gen_kw = dict(num_inference_steps=FACADE_STEPS, guidance_scale=5.0,
+                  flow_shift=5.0)
+    t2v_kw = dict(height=HEIGHT, width=WIDTH, num_frames=FACADE_FRAMES,
+                  **gen_kw)
+
+    def wan_pipe(cfg, seed):
+        g = P.make_generator(seed, "cuda")
+        vae, vcfg = _facade_vae()
+        return wan_t2v.WanT2VPipeline(
+            dit_params=_randomize_zero_leaves(init_wan_dit(g, cfg), g),
+            dit_cfg=cfg, vae_params=vae, vae_cfg=vcfg, streaming_vae=True)
+
+    # T2V-14B: the JAX defaults, the published Wan2.1-T2V-14B widths
+    t2v_cfg = WanDiTConfig(model_type="t2v", in_dim=16)
+    rec, by_path["t2v"], pipe, ok = _run_facade(
+        "t2v_14b", lambda: wan_pipe(t2v_cfg, 42),
+        lambda p: p.generate(torch.Generator(device="cuda").manual_seed(1),
+                             pe, ne, **t2v_kw),
+        wan_t2v, "wan_dit_forward",
+        {"config": "WanDiTConfig(model_type='t2v', in_dim=16): dim 5120, "
+                   "40 layers, 40 heads, ffn 13824"})
+    # one forward at the published 81 frames (21 x 30 x 52 latent tokens)
+    lat = torch.randn((1, 16, T2V_PUBLISHED_FRAMES // 4 + 1, HEIGHT // 8,
+                       WIDTH // 8), generator=torch.Generator(
+                           device="cuda").manual_seed(2), device="cuda")
+    tb = torch.full((1,), 999.0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out81 = wan_dit_forward(pipe.dit_params, t2v_cfg, lat, tb, pe)
+    torch.cuda.synchronize()
+    rec["forward_81_frames"] = {
+        "tokens": (T2V_PUBLISHED_FRAMES // 4 + 1) * (HEIGHT // 16)
+        * (WIDTH // 16), "s": time.time() - t0,
+        "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "finite": bool(torch.isfinite(out81).all())}
+    by_path["t2v81"] = _read_counters()
+    ok = ok and rec["forward_81_frames"]["finite"]
+    emit(rec)
+    if not ok:
+        raise SystemExit("chip_smoke: T2V-14B output is wrong")
+    _require_launches(by_path["t2v"], WAN_PATH_KERNELS, "t2v")
+    del pipe, lat, out81
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # FLF2V-14B: the warp's frames 0 and 16, CLIP-H on both
+    image_embeds = torch.cat([ctx["ie"], ctx["ie_last"]], dim=1)
+    first = frames[:, :, 0] * 2.0 - 1.0
+    last = frames[:, :, FACADE_FRAMES - 1] * 2.0 - 1.0
+    rec, by_path["flf2v"], pipe, ok = _run_facade(
+        "flf2v_14b", lambda: wan_pipe(WanDiTConfig(model_type="flf2v"), 43),
+        lambda p: p.generate(torch.Generator(device="cuda").manual_seed(1),
+                             pe, ne, first_frame=first, last_frame=last,
+                             image_embeds=image_embeds, **t2v_kw),
+        wan_t2v, "wan_dit_forward",
+        {"config": "WanDiTConfig(model_type='flf2v'): the 14B widths, "
+                   "in_dim 36, 2 x 257 CLIP-H tokens (emb_pos)",
+         "image_embeds": list(image_embeds.shape)})
+    emit(rec)
+    if not ok:
+        raise SystemExit("chip_smoke: FLF2V-14B output is wrong")
+    _require_launches(by_path["flf2v"], WAN_PATH_KERNELS, "flf2v")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # VACE-14B repaints the warp's holes: the source is the warp's 17
+    # frames and the edit mask 1 - validity, through prepare_source and
+    # VaceVideoProcessor.load_video_pair
+    video = (frames[0].transpose(1, 2, 3, 0) * 255.0).round().astype(
+        np.uint8)                                  # [T, H, W, 3]
+    edit = 1.0 - valid[0].transpose(1, 2, 3, 0)    # [T, H, W, 1]
+    src, src_mask, ids, size, _ = VaceVideoProcessor().load_video_pair(
+        video, edit)
+    src_v, src_m, _ = prepare_source([src], [src_mask], [None],
+                                     FACADE_FRAMES, size)
+    vace_cfg = VaceConfig(base=t2v_cfg, vace_layers=VACE_14B_LAYERS,
+                          vace_in_dim=96)
+
+    def vace_pipe():
+        g = P.make_generator(44, "cuda")
+        vae, vcfg = _facade_vae()
+        return wan_vace.WanVacePipeline(
+            vace_params=_randomize_zero_leaves(init_vace(g, vace_cfg), g),
+            vace_cfg=vace_cfg, vae_params=vae, vae_cfg=vcfg,
+            streaming_vae=True)
+
+    rec, by_path["vace"], pipe, ok = _run_facade(
+        "vace_14b", vace_pipe,
+        lambda p: p.generate(torch.Generator(device="cuda").manual_seed(1),
+                             src_v[0][None], src_m[0][None], pe, ne,
+                             **gen_kw),
+        wan_vace, "vace_forward",
+        {"config": "VaceConfig(base=T2V-14B, vace_layers=(0, 5, ..., 35), "
+                   "vace_in_dim=96), the published Wan2.1-VACE-14B layout",
+         "source": {"frames": len(ids), "size": list(size),
+                    "edit_coverage": float(edit.mean())}})
+    ok = ok and len(ids) == FACADE_FRAMES and tuple(size) == (HEIGHT, WIDTH)
+    emit(rec)
+    if not ok:
+        raise SystemExit("chip_smoke: VACE-14B output is wrong")
+    _require_launches(by_path["vace"], WAN_PATH_KERNELS, "vace")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _avatar_waveform(seconds, seed=0):
+    """A speech-like synthetic waveform [1, L] at 16 kHz: a few voiced
+    harmonics under a syllable-rate envelope, plus noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(round(seconds * AUDIO_RATE))) / AUDIO_RATE
+    f0 = 140.0 + 20.0 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / AUDIO_RATE
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = 0.5 * (1.0 + np.sin(2 * np.pi * 4.0 * t)) ** 2
+    x = 0.2 * env * voiced + 0.01 * rng.standard_normal(t.shape)
+    return x.astype(np.float32)[None]
+
+
+def _small_avatar_check(work_dir):
+    """A widened tiny avatar (2 heads of 64, 4 audio tokens) with the tiny
+    wav2vec2 and the small VAE, fp32 policy, every zero leaf randomised,
+    weights drawn on the CPU and copied to the card, both sides fed one
+    numpy noise stream: ``generate_i2v_audio`` with CFG and with distill,
+    one multitalk forward, and the k/v-cache forward against the joint
+    forward; then ``run_avatar --random-init`` with ``--device cuda`` and
+    ``--device cpu`` on a synthetic 16-bit WAV (the CPU run takes weights
+    drawn on the CPU, the card run a copy of them, and both the same noise
+    stream): both write an mp4 and their frames agree."""
+    import dataclasses
+    import functools
+    import wave
+
+    import numpy as np
+    from worldforge_tpu_torch.cli import run_avatar
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.core.dtypes import FP32_POLICY
+    from worldforge_tpu_torch.io import checkpoints
+    from worldforge_tpu_torch.io import frames as frames_io
+    from worldforge_tpu_torch.io.checkpoints import DEFAULT_RANDOM_VAE
+    from worldforge_tpu_torch.models.encoders.wav2vec2 import (
+        Wav2Vec2Config, init_wav2vec2)
+    from worldforge_tpu_torch.models.longcat import avatar
+    from worldforge_tpu_torch.models.longcat.dit import LongCatDiTConfig
+    from worldforge_tpu_torch.models.wan.vae import init_wan_vae
+    from worldforge_tpu_torch.pipelines.avatar import (AvatarPipeline,
+                                                       encode_audio_windows)
+
+    wcfg = Wav2Vec2Config.tiny()
+    base = LongCatDiTConfig(in_channels=DEFAULT_RANDOM_VAE.z_dim,
+                            out_channels=DEFAULT_RANDOM_VAE.z_dim,
+                            hidden_size=128, depth=2, num_heads=2,
+                            caption_channels=64, adaln_tembed_dim=32,
+                            frequency_embedding_size=16)
+    cfg = avatar.AvatarConfig(base=base, audio_blocks=wcfg.num_layers,
+                              audio_channels=wcfg.hidden_size,
+                              intermediate_dim=32, output_dim=16,
+                              context_tokens=4)
+    gen = P.make_generator(51)
+    dit = _randomize_zero_leaves(
+        avatar.init_avatar_dit(gen, cfg, dtype=torch.float32), gen)
+    w2v = _randomize_zero_leaves(init_wav2vec2(gen, wcfg), gen)
+    vae = _randomize_zero_leaves(init_wan_vae(gen, DEFAULT_RANDOM_VAE), gen)
+    pipe = AvatarPipeline(dit_params=dit, dit_cfg=cfg, vae_params=vae,
+                          vae_cfg=DEFAULT_RANDOM_VAE, policy=FP32_POLICY)
+    on_card = dataclasses.replace(pipe, dit_params=_to_card(dit),
+                                  vae_params=_to_card(vae))
+    rng = np.random.default_rng(52)
+    f32 = lambda a: a.astype(np.float32)
+    f, hw = 9, 64
+    image = f32(rng.uniform(-1, 1, (1, 3, hw, hw)))
+    wav = _avatar_waveform(0.4, seed=53)
+    wins = {"cuda": encode_audio_windows(_to_card(w2v), wcfg, wav, f),
+            "cpu": encode_audio_windows(w2v, wcfg, wav, f)}
+    win_err = _rel_max(wins["cuda"].cpu(), wins["cpu"])
+    pe, ne = (f32(rng.standard_normal((1, 8, 64))) for _ in range(2))
+    pm = np.zeros((1, 8), np.int32)
+    pm[:, :5] = 1
+    nm = np.ones((1, 8), np.int32)
+    kw = dict(height=hw, width=hw, num_frames=f, num_inference_steps=3,
+              guidance_scale=4.0, output_type="latent")
+    need = ("flash_attention", "rope_qk", "conv3d_causal")
+    for name, distill in (("i2v cfg", False), ("i2v distill", True)):
+        outs = {}
+        for dev, p in (("cuda", on_card), ("cpu", pipe)):
+            _reset_counters()
+            outs[dev] = p.generate_i2v_audio(
+                None, image, wins[dev], pe, pm, ne, nm, use_distill=distill,
+                noise_fn=_numpy_noise(54), **kw).float().cpu()
+            if dev == "cuda":
+                launches = _read_counters()
+        rel_l2 = _rel_l2(outs["cuda"], outs["cpu"])
+        # the reference image's VAE encode runs kernel 4 (bf16 inputs)
+        ok = bool(torch.isfinite(outs["cuda"]).all()) and rel_l2 < 2e-2
+        emit({"phase": "avatar_small_vs_cpu", "run": name,
+              "shape": list(outs["cuda"].shape), "rel_l2": rel_l2,
+              "rel_max": _rel_max(outs["cuda"], outs["cpu"]),
+              "tol_rel_l2": 2e-2, "audio_windows_rel_max": win_err,
+              "launches_on_card": launches, "ok": ok and win_err < 1e-4})
+        if not (ok and win_err < 1e-4):
+            raise SystemExit(f"chip_smoke: small avatar {name} disagrees "
+                             f"with the CPU run of the plain versions")
+        _require_launches(launches, need, f"small avatar {name}")
+
+    # the DiT alone (fp32, kernel 1 in 3xTF32): multitalk, and the k/v
+    # cache against the joint forward
+    x = f32(rng.standard_normal((1, base.in_channels, 4, 8, 8)))
+    ctx = f32(rng.standard_normal((1, 8, 64)))
+    aud = f32(rng.standard_normal((2, 13, 5, wcfg.num_layers,
+                                   wcfg.hidden_size)))
+    masks = np.zeros((2, 8, 8), np.float32)
+    masks[0, :, :4] = 1.0
+    masks[1, :, 4:] = 1.0
+    t = np.array([[0.0, 0.0, 600.0, 600.0]], np.float32)
+
+    def both(fn, *arrays):
+        ts = [torch.from_numpy(a) for a in arrays]
+        return {"cuda": fn(on_card.dit_params,
+                           *(t.cuda() for t in ts)).float().cpu(),
+                "cpu": fn(dit, *ts).float().cpu()}
+
+    multi = both(lambda p, x_, t_, c_, a_, m_, pm_: avatar.avatar_dit_forward(
+        p, cfg, x_, t_, c_, a_, encoder_attention_mask=pm_,
+        num_cond_latents=2, ref_target_masks=m_, policy=FP32_POLICY),
+        x, t, ctx, aud, masks, pm)
+    joint = both(lambda p, x_, t_, c_, a_, pm_: avatar.avatar_dit_forward(
+        p, cfg, x_, t_, c_, a_, encoder_attention_mask=pm_,
+        num_cond_latents=2, policy=FP32_POLICY), x, t, ctx, aud[:1], pm)
+
+    def cached(p, x_, c_, a_, pm_):
+        cache = avatar.avatar_dit_cache_cond(p, cfg, x_[:, :, :2],
+                                             policy=FP32_POLICY)
+        return avatar.avatar_dit_forward_with_cache(
+            p, cfg, x_[:, :, 2:], torch.full((1,), 600.0,
+                                             device=x_.device), c_, a_,
+            cache, (2,), encoder_attention_mask=pm_, policy=FP32_POLICY)
+    cache = both(cached, x, ctx, aud[:1], pm)
+    errs = {"multitalk_card_vs_cpu": _rel_max(multi["cuda"], multi["cpu"]),
+            "cache_card_vs_cpu": _rel_max(cache["cuda"], cache["cpu"]),
+            "cache_vs_joint_card": _rel_max(cache["cuda"],
+                                            joint["cuda"][:, :, 2:])}
+    ok = max(errs.values()) < 1e-4
+    emit({"phase": "avatar_small_vs_cpu", "run": "dit forwards",
+          "max_rel_err": errs, "tol": 1e-4, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: small avatar forwards disagree")
+
+    # run_avatar on both devices: the CPU run's weights drawn on the CPU,
+    # the card run's a copy of them; one noise stream for both; the frames
+    # before the mp4's lossy encode are compared
+    img_path = os.path.join(work_dir, "avatar_face.png")
+    from PIL import Image
+    Image.fromarray((image[0].transpose(1, 2, 0) * 127.5 + 127.5).astype(
+        np.uint8)).save(img_path)
+    wav_path = os.path.join(work_dir, "avatar_voice.wav")
+    with wave.open(wav_path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(AUDIO_RATE)
+        w.writeframes((np.clip(wav[0], -1, 1) * 32767).astype("<i2")
+                      .tobytes())
+    real_load = checkpoints.load_avatar_pipeline
+    real_export = frames_io.export_video
+    written = {}
+
+    def load_on(dev):
+        def load(*args, **kwargs):
+            kwargs["device"] = "cpu"
+            p, enc_t, _ = real_load(*args, **kwargs)
+            w = init_wav2vec2(P.make_generator(2),
+                              checkpoints.DEFAULT_RANDOM_WAV2VEC2)
+            if dev == "cuda":
+                p = dataclasses.replace(p, dit_params=_to_card(p.dit_params),
+                                        vae_params=_to_card(p.vae_params))
+                w = _to_card(w)
+            p.generate_i2v_audio = functools.partial(
+                p.generate_i2v_audio, noise_fn=_numpy_noise(55))
+
+            def enc_a(wave_, n):
+                return encode_audio_windows(
+                    w, checkpoints.DEFAULT_RANDOM_WAV2VEC2, wave_, n)
+            return p, enc_t, enc_a
+        return load
+
+    def export(dev):
+        def run(frames, path, fps=16):
+            written[dev] = np.stack(frames)
+            real_export(frames, path, fps=fps)
+        return run
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work_dir, f"avatar_{dev}.mp4")
+        checkpoints.load_avatar_pipeline = load_on(dev)
+        frames_io.export_video = export(dev)
+        _reset_counters()
+        try:
+            run_avatar.main(["--image", img_path, "--audio", wav_path,
+                             "--random-init", "--device", dev,
+                             "--num-frames", "9", "--num-inference-steps",
+                             "4", "--output", out])
+        finally:
+            checkpoints.load_avatar_pipeline = real_load
+            frames_io.export_video = real_export
+        if dev == "cuda":
+            launches = _read_counters()
+        outs[dev] = out
+    a, b = (torch.from_numpy(written[d]) for d in ("cuda", "cpu"))
+    rel_l2 = _rel_l2(a, b)
+    # the CLI runs the default bf16 policy: card kernels and CPU plain
+    # versions round differently at every bf16 cast
+    tol = 5e-2
+    ok = (all(os.path.getsize(o) > 0 for o in outs.values())
+          and a.shape == (9, hw, hw, 3) and rel_l2 < tol)
+    emit({"phase": "avatar_small_vs_cpu", "run": "run_avatar cli",
+          "frames": list(a.shape), "mp4_bytes": {
+              d: os.path.getsize(o) for d, o in outs.items()},
+          "rel_l2": rel_l2, "tol_rel_l2": tol,
+          "launches_on_card": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: run_avatar on the card disagrees "
+                         "with the CPU")
+    _require_launches(launches, AVATAR_PATH_KERNELS, "small run_avatar")
+
+
+def _decode_alone(t_lat: int) -> dict:
+    """The Wan2.1 VAE's single-pass decode of ``t_lat`` latent frames at
+    480 x 832 (random weights and latents) on its own: seconds and peak.
+    Run in a child process (``_measure_decode_alone``)."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.vae import (WanVAEConfig,
+                                                     init_wan_vae, vae_decode)
+    cfg = WanVAEConfig.wan_2_1()
+    params = init_wan_vae(P.make_generator(41, "cuda"), cfg)
+    z = torch.randn((1, cfg.z_dim, t_lat, HEIGHT // 8, WIDTH // 8),
+                    generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    video = vae_decode(params, cfg, z)
+    torch.cuda.synchronize()
+    return {"latent_frames": t_lat, "frames": int(video.shape[2]),
+            "s": time.time() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "held_before_gb": held,
+            "card_gb": torch.cuda.get_device_properties(0).total_memory
+            / 2 ** 30, "finite": bool(torch.isfinite(video).all())}
+
+
+def _measure_decode_alone(t_lat: int) -> dict:
+    """``_decode_alone`` in a child process started before any phase holds
+    memory, so its blocks come from a fresh allocator (with expandable
+    segments, which do not change what is allocated); the child exits
+    before this returns."""
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    code = ("import json, chip_smoke; "
+            f"print(json.dumps(chip_smoke._decode_alone({t_lat})))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise SystemExit(f"chip_smoke: the single-pass decode of {t_lat} "
+                         f"latent frames failed on its own:\n"
+                         f"{res.stderr[-3000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    emit({"phase": "avatar_decode_alone", **rec})
+    if not rec["finite"]:
+        raise SystemExit("chip_smoke: the decode alone is not finite")
+    return rec
+
+
+def phase_avatar(frames, ctx, work_dir, decode93):
+    """The LongCat-Video-Avatar at full width and depth: what the JAX
+    converted branch builds (the 13.6B LongCat base with the audio blocks,
+    wav2vec2-base, the Wan2.1 VAE; random weights from seeds, the DiT's
+    zero leaves randomised) through ``load_avatar_pipeline``, the
+    ``encode_audio`` it returns (a synthetic 3.72 s waveform) and
+    ``generate_i2v_audio`` on the warp's first frame at 480 x 832, with the
+    encoders phase's UMT5-XXL contexts and the cuts on its line; kernels 1,
+    2 and 4 must launch. Then one DiT forward at the CLI's default 93
+    frames (37,440 tokens). ``decode93`` is the single-pass decode of its
+    24 latent frames measured alone (``_measure_decode_alone``): its peak
+    beside the DiT's weights says whether 93 frames fit the card. Before
+    it, the reduced card-vs-CPU checks. Returns the launches of the
+    generate and of the forward."""
+    import numpy as np
+    from worldforge_tpu_torch.io.checkpoints import load_avatar_pipeline
+    from worldforge_tpu_torch.models.encoders.wav2vec2 import Wav2Vec2Config
+    from worldforge_tpu_torch.models.longcat.avatar import (
+        AvatarConfig, avatar_dit_forward)
+    from worldforge_tpu_torch.models.longcat.dit import LongCatDiTConfig
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
+    from worldforge_tpu_torch.pipelines import avatar as avatar_pipe
+    from worldforge_tpu_torch.core import params as P
+
+    _small_avatar_check(work_dir)
+    cfg = AvatarConfig(base=LongCatDiTConfig.longcat_13b())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe, _, encode_audio = load_avatar_pipeline(
+        random_init=True, device="cuda", dit_cfg=cfg,
+        vae_cfg=WanVAEConfig.wan_2_1(), w2v_cfg=Wav2Vec2Config(), seed=61)
+    pipe.dit_params = _randomize_zero_leaves(
+        pipe.dit_params, P.make_generator(62, "cuda"))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    params = sum(t.numel() for t in _leaves(pipe.dit_params))
+    weights_gb = torch.cuda.memory_allocated() / 2 ** 30
+    wav = _avatar_waveform(AVATAR_SECONDS, seed=63)
+    image = frames[:, :, 0] * 2.0 - 1.0
+    pm = torch.zeros((1, TEXT_LEN), dtype=torch.int32, device="cuda")
+    nm = torch.zeros_like(pm)
+    pm[:, :PROMPT_TOKENS] = 1
+    nm[:, :NEGATIVE_TOKENS] = 1
+
+    fwd, enc, dec, peaks = [], [], [], []
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    windows = encode_audio(wav, AVATAR_FRAMES)
+    torch.cuda.synchronize()
+    w2v_s = time.time() - t0
+    w2v_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with timed_calls(avatar_pipe, "avatar_dit_forward", fwd, peaks=peaks), \
+            timed_calls(avatar_pipe, "vae_encode", enc, peaks=peaks), \
+            timed_calls(avatar_pipe, "vae_decode", dec, peaks=peaks):
+        out = pipe.generate_i2v_audio(
+            torch.Generator(device="cuda").manual_seed(3), image, windows,
+            ctx["pe"], pm, ctx["ne"], nm, height=HEIGHT, width=WIDTH,
+            num_frames=AVATAR_FRAMES, num_inference_steps=AVATAR_STEPS,
+            guidance_scale=4.0)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    launches = _read_counters()
+    spans = {"wav2vec2": w2v_peak,
+             "vae_encode": max(r["peak_gb"] for r in enc),
+             "dit_forward": max(r["peak_gb"] for r in fwd),
+             "vae_decode": max(r["peak_gb"] for r in dec)}
+    ok = (out.shape == (1, 3, AVATAR_FRAMES, HEIGHT, WIDTH)
+          and tuple(windows.shape) == (1, AVATAR_FRAMES, cfg.audio_window,
+                                       12, 768)
+          and bool(np.isfinite(out).all()))
+    del out
+
+    # one forward at the CLI's 93 frames: 24 latent frames, the first the
+    # reference image's at t = 0
+    t_cli = (AVATAR_CLI_FRAMES - 1) // 4 + 1
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lat = torch.randn((1, 16, t_cli, HEIGHT // 8, WIDTH // 8), generator=g,
+                      device="cuda")
+    tb = torch.full((1, t_cli), 500.0, device="cuda")
+    tb[:, 0] = 0.0
+    windows93 = encode_audio(wav, AVATAR_CLI_FRAMES)
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    v = avatar_dit_forward(pipe.dit_params, cfg, lat, tb, ctx["pe"],
+                           windows93, encoder_attention_mask=pm,
+                           num_cond_latents=1, policy=pipe.policy)
+    torch.cuda.synchronize()
+    forward93 = {"tokens": t_cli * (HEIGHT // 16) * (WIDTH // 16),
+                 "s": time.time() - t0,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "finite": bool(torch.isfinite(v).all())}
+    launches93 = _read_counters()
+    ok = ok and forward93["finite"]
+
+    # the pipeline's weights (DiT, VAE, wav2vec2) beside the decode's own
+    # peak (its VAE weights are held_before_gb)
+    decode93 = dict(decode93, pipeline_weights_gb=weights_gb)
+    decode93["fits_beside_dit"] = (decode93["peak_gb"]
+                                   - decode93["held_before_gb"] + weights_gb
+                                   < decode93["card_gb"])
+    del pipe, encode_audio, v, lat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "avatar", "config": "AvatarConfig(base=LongCatDiTConfig."
+          "longcat_13b()) + Wav2Vec2Config() + WanVAEConfig.wan_2_1()",
+          "dit_params": params, "weights_gb": weights_gb,
+          "cuts": {"frames": f"{AVATAR_FRAMES} of the CLI's "
+                   f"{AVATAR_CLI_FRAMES}: the single-pass decode of 93 "
+                   f"frames does not fit beside the DiT (decode_93_frames_"
+                   f"alone)", "steps": f"{AVATAR_STEPS} of 50"},
+          "height": HEIGHT, "width": WIDTH, "frames": AVATAR_FRAMES,
+          "latent_frames": (AVATAR_FRAMES - 1) // 4 + 1,
+          "tokens": ((AVATAR_FRAMES - 1) // 4 + 1) * (HEIGHT // 16)
+          * (WIDTH // 16),
+          "audio_s": AVATAR_SECONDS, "audio_samples": int(wav.shape[1]),
+          "audio_windows": list(windows.shape), "guidance_scale": 4.0,
+          "init_s": init_s, "wav2vec2_s": w2v_s, "total_s": total_s,
+          "encode_s": sum(r["s"] for r in enc),
+          "dit_forward_s": [r["s"] for r in fwd],
+          "decode_s": sum(r["s"] for r in dec),
+          "peak_gb": max(spans.values()), "peak_by_span_gb": spans,
+          "peak_span": max(spans, key=spans.get), "launches": launches,
+          "forward_93_frames": forward93, "launches_93_frames": launches93,
+          "decode_93_frames_alone": decode93, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: avatar output is wrong")
+    _require_launches(launches, AVATAR_PATH_KERNELS, "avatar")
+    _require_launches(launches93, ("flash_attention", "rope_qk"),
+                      "avatar 93-frame forward")
+    return {"avatar": launches, "avatar93": launches93}
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     for group, keys in KERNEL_GROUPS:
@@ -2677,6 +3528,7 @@ def _profile_forward(forward, phase, what, extra, warmup=None):
 def main() -> int:
     phase_device()
     phase_build()
+    decode93 = _measure_decode_alone((AVATAR_CLI_FRAMES - 1) // 4 + 1)
     main_recs = phase_kernels()
     phase_flf()
     phase_vae()
@@ -2688,15 +3540,21 @@ def main() -> int:
         os.path.join(HERE, "build", "chip_smoke")))
     frames, _ = _frames_480p(warp_dir)
     ctx, by_path["encoders"] = phase_encoders(
-        frames[0, :, 0].transpose(1, 2, 0))
+        frames[0, :, 0].transpose(1, 2, 0),
+        frames[0, :, -1].transpose(1, 2, 0))
     by_path["generate"] = phase_generate(warp_dir, ctx)
-    del ctx
     gc.collect()
     torch.cuda.empty_cache()
+    by_path.update(phase_wan_facades(warp_dir, ctx))
     by_path["refine"], longcat_pipe = phase_refine()
     gc.collect()
     torch.cuda.empty_cache()
     by_path["longcat_guided"] = phase_longcat_guided(*longcat_pipe)
+    del longcat_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(phase_avatar(frames, ctx, os.path.join(
+        HERE, "build", "chip_smoke"), decode93))
 
     names = set().union(*by_path.values())
     launches = {name: sum(counts.get(name, 0) for counts in by_path.values())
@@ -2705,7 +3563,7 @@ def main() -> int:
     rows = [(name, meta, name, None) for name, meta in KERNEL_META.items()]
     rows += [(row, {**KERNEL_META[counter], "launches_counted":
                     "the launches at this row's shape"}, counter, shape)
-             for row, counter, shape in DC_ROWS]
+             for row, counter, shape in DC_ROWS + FACADE_ROWS]
 
     def count(counts, counter, shape):
         if shape is None:

@@ -26,7 +26,8 @@ def _imported_roots(path):
 
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
-    LongCat guided, warp, encoder and DepthCrafter modules among them."""
+    LongCat guided, warp, encoder, DepthCrafter, Wan facade and avatar
+    modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -44,7 +45,12 @@ def test_isolation_covers_the_port_modules():
                 "models/depthcrafter/inference.py",
                 "pipelines/depthcrafter.py", "warp/edge_filter.py",
                 "warp/dc_warp.py", "warp/pcd.py",
-                "cli/warp_depthcrafter.py"):
+                "cli/warp_depthcrafter.py", "sampling/dpm.py",
+                "pipelines/wan_t2v.py", "models/wan/vace.py",
+                "pipelines/wan_vace.py", "io/vace_processor.py",
+                "models/encoders/wav2vec2.py", "models/longcat/avatar.py",
+                "pipelines/avatar.py", "io/checkpoints.py",
+                "cli/run_avatar.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 

@@ -123,3 +123,25 @@ def svd_vae_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """A ``worldforge_tpu`` SVD VAE tree (``init_svd_vae``) -> the port's
     (``models/depthcrafter/vae.py``): same keys, lists kept."""
     return tree_from_numpy(tree, device, dtype)
+
+
+def vace_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` VACE tree (``init_vace``) -> the port's
+    (``models/wan/vace.py``): the base DiT's stacked ``blocks`` unstacked;
+    ``vace_blocks`` (with ``before_proj`` / ``after_proj``) is a list on
+    both sides, ``vace_patch_embedding`` a dense."""
+    return _unstack_keys(tree, ("blocks",), device, dtype)
+
+
+def avatar_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` avatar DiT tree (``init_avatar_dit``) -> the
+    port's (``models/longcat/avatar.py``): the stacked blocks (the LongCat
+    block with the audio extras) unstacked; ``audio_proj`` as it is."""
+    return _unstack_keys(tree, ("blocks",), device, dtype)
+
+
+def wav2vec2_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` wav2vec2 tree (``init_wav2vec2``) -> the port's
+    (``models/encoders/wav2vec2.py``): same keys; ``convs`` and ``layers``
+    are lists on both sides, so nothing is unstacked."""
+    return tree_from_numpy(tree, device, dtype)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -263,6 +263,39 @@ def unpatchify(x: torch.Tensor, grid: Tuple[int, int, int],
     return x.reshape(b, out_dim, f * pt, hh * ph, ww * pw)
 
 
+def embed_time(params, cfg: WanDiTConfig, t: torch.Tensor):
+    """Timestep embeddings (fp32 island): e [B, dim] for the head and e0
+    [B, 6, dim] for the blocks' adaLN."""
+    te = sinusoidal_embedding_1d(cfg.freq_dim, t)
+    te = P.dense(params["time_embedding"]["fc1"], te,
+                 compute_dtype=torch.float32)
+    e = P.dense(params["time_embedding"]["fc2"], F.silu(te),
+                compute_dtype=torch.float32)
+    e0 = P.dense(params["time_projection"], F.silu(e),
+                 compute_dtype=torch.float32).reshape(t.shape[0], 6, cfg.dim)
+    return e, e0
+
+
+def embed_text(params, context: torch.Tensor, policy: Policy):
+    """The text context (padded to text_len upstream) -> [B, L, dim]."""
+    return P.dense(params["text_embedding"]["fc2"],
+                   P.gelu_tanh(P.dense(params["text_embedding"]["fc1"],
+                                       context.to(policy.compute_dtype))))
+
+
+def dit_head(params, cfg: WanDiTConfig, hN, e, grid):
+    """The head: modulated norm, then the output projection (bf16-stored
+    weights under an fp32 request take the hi/lo split in P.dense);
+    [B, L, dim] -> [B, out_dim, F, H, W] fp32."""
+    b = hN.shape[0]
+    hm = params["head"]["modulation"].float() + e[:, None]
+    sh, sc = hm[:, 0].reshape(b, 1, cfg.dim), hm[:, 1].reshape(b, 1, cfg.dim)
+    hN = P.layer_norm({}, hN, eps=cfg.eps, out_dtype=torch.float32)
+    hN = hN * (1.0 + sc) + sh
+    out = P.dense(params["head"]["head"], hN, compute_dtype=torch.float32)
+    return unpatchify(out, grid, cfg.patch_size, cfg.out_dim).float()
+
+
 # ------------------------------------------------------------------ forward
 
 
@@ -288,7 +321,6 @@ def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
                                   "later slice of the port)")
     if y is not None:
         x = torch.cat([x, y], dim=1)
-    b = x.shape[0]
     pt, ph, pw = cfg.patch_size
     grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
     f, hh, ww = grid
@@ -296,20 +328,8 @@ def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
     tokens = patchify(x.to(policy.compute_dtype), cfg.patch_size)
     h0 = P.dense(params["patch_embedding"], tokens,
                  compute_dtype=policy.compute_dtype)
-
-    # time embeddings (fp32 island)
-    te = sinusoidal_embedding_1d(cfg.freq_dim, t)
-    te = P.dense(params["time_embedding"]["fc1"], te,
-                 compute_dtype=torch.float32)
-    e = P.dense(params["time_embedding"]["fc2"], F.silu(te),
-                compute_dtype=torch.float32)  # [B, dim]
-    e0 = P.dense(params["time_projection"], F.silu(e),
-                 compute_dtype=torch.float32).reshape(b, 6, cfg.dim)
-
-    # text context (padded to text_len upstream)
-    ctx = P.dense(params["text_embedding"]["fc2"],
-                  P.gelu_tanh(P.dense(params["text_embedding"]["fc1"],
-                                      context.to(policy.compute_dtype))))
+    e, e0 = embed_time(params, cfg, t)
+    ctx = embed_text(params, context, policy)
     img_ctx_len = 0
     if clip_fea is not None and cfg.model_type in ("i2v", "flf2v"):
         ie = params["img_emb"]
@@ -330,11 +350,4 @@ def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
         hN = wan_dit_layer_forward(layer, cfg, hN, e0, ctx, cos, sin,
                                    img_ctx_len, policy)
 
-    # head: modulated norm, then the output projection (bf16-stored weights
-    # under an fp32 request take the hi/lo split in P.dense)
-    hm = params["head"]["modulation"].float() + e[:, None]
-    sh, sc = hm[:, 0].reshape(b, 1, cfg.dim), hm[:, 1].reshape(b, 1, cfg.dim)
-    hN = P.layer_norm({}, hN, eps=cfg.eps, out_dtype=torch.float32)
-    hN = hN * (1.0 + sc) + sh
-    out = P.dense(params["head"]["head"], hN, compute_dtype=torch.float32)
-    return unpatchify(out, grid, cfg.patch_size, cfg.out_dim).float()
+    return dit_head(params, cfg, hN, e, grid)

@@ -51,6 +51,39 @@ def _as_tensor(x, device, dtype=torch.float32) -> Optional[torch.Tensor]:
                            else x, dtype=dtype).to(device)
 
 
+def frame_condition(encode: Callable, first: torch.Tensor,
+                    last: Optional[torch.Tensor], num_frames: int,
+                    h_lat: int, w_lat: int, vae_scale_t: int
+                    ) -> torch.Tensor:
+    """The conditioning input [B, 4 + z, T', h, w]: a 4-channel temporal
+    mask || the latents of the conditioning video. i2v (``last`` None)
+    encodes [first, zeros...] and masks frame 0; flf2v encodes
+    [first, zeros..., last] and masks frames 0 and -1. The mask's frame 0 is
+    repeated ``vae_scale_t`` times and the frames folded into 4 channels per
+    latent frame. first / last: [B, 3, H, W] in [-1, 1]."""
+    b, _, height, width = first.shape
+    dev = first.device
+    t_lat = (num_frames - 1) // vae_scale_t + 1
+    n_zero = num_frames - 1 - (last is not None)
+    parts = [first[:, :, None].float(),
+             torch.zeros((b, 3, n_zero, height, width), dtype=torch.float32,
+                         device=dev)]
+    if last is not None:
+        parts.append(last[:, :, None].float())
+    cond_lat = encode(torch.cat(parts, dim=2)).float()
+
+    mask = np.zeros((b, 1, num_frames, h_lat, w_lat), np.float32)
+    mask[:, :, 0] = 1.0
+    if last is not None:
+        mask[:, :, -1] = 1.0
+    head = np.repeat(mask[:, :, 0:1], vae_scale_t, axis=2)
+    mask = np.concatenate([head, mask[:, :, 1:]], axis=2)
+    mask = mask.reshape(b, t_lat, vae_scale_t, h_lat, w_lat)
+    mask = mask.transpose(0, 2, 1, 3, 4)  # [B, 4, T', h, w]
+    return torch.cat([torch.from_numpy(np.ascontiguousarray(mask)).to(dev),
+                      cond_lat], dim=1)
+
+
 @dataclasses.dataclass(eq=False)
 class WanI2VPipeline:
     """Holds params/configs; generation is functional underneath. The
@@ -99,22 +132,9 @@ class WanI2VPipeline:
         latents = torch.randn((batch_size, z, t_lat, h_lat, w_lat),
                               generator=generator, dtype=torch.float32,
                               device=dev)
-        video_cond = torch.cat([
-            image[:, :, None].float(),
-            torch.zeros((batch_size, 3, num_frames - 1, height, width),
-                        dtype=torch.float32, device=dev)], dim=2)
-        cond_lat = self._vae_fns()[1](video_cond).float()
-
-        # temporal mask: frame 0 -> 1 repeated vae_scale_t times, rest 0,
-        # folded into 4 channels per latent frame
-        mask = np.zeros((batch_size, 1, num_frames, h_lat, w_lat), np.float32)
-        mask[:, :, 0] = 1.0
-        first = np.repeat(mask[:, :, 0:1], self.vae_scale_t, axis=2)
-        mask = np.concatenate([first, mask[:, :, 1:]], axis=2)
-        mask = mask.reshape(batch_size, t_lat, self.vae_scale_t, h_lat, w_lat)
-        mask = mask.transpose(0, 2, 1, 3, 4)  # [B, 4, T', h, w]
-        condition = torch.cat([torch.from_numpy(mask).to(dev), cond_lat],
-                              dim=1)
+        condition = frame_condition(self._vae_fns()[1], image, None,
+                                    num_frames, h_lat, w_lat,
+                                    self.vae_scale_t)
         return latents, condition
 
     # ------------------------------------------------------------ generate
