@@ -99,6 +99,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    forward) and ``run_avatar --random-init`` with ``--device cuda`` against
    ``--device cpu`` on a synthetic 16-bit WAV.
 
+15. checkpoints -- three parts, each one JSON line with "phase":
+   "checkpoints". After the generate: the flagship Wan set through files
+   (the generate and encoders phases' full-width trees, Wan2.1-I2V-14B
+   bf16, the Wan2.1 VAE, UMT5-XXL and CLIP-H, exported by this script's
+   torch-only inverse writers to the upstream layout: safetensors shards
+   with an index, written one tensor at a time from the card and dropped
+   from the page cache, and the VAE as a ``.pth``), after a check of the
+   free disk; ``load_wan_pipeline(models_dir)`` reads them back onto the
+   card, every leaf must equal its source (rebuilt from its seed) bit for
+   bit, and the guided repaint runs on the loaded pipeline (UMT5 contexts
+   from the loaded weights on fixed ids, the CLIP context from the
+   loader's ``encode_image``); write and load seconds and GB/s, the host
+   peak resident set and the device peak. In the depthcrafter phase: the
+   SVD UNet and VAE exported and converted back bit for bit, the tiny
+   configs' exports equal to the frozen manifests
+   ``tests/fixtures/svd_*_manifest.json``. After the LongCat guided i2v: a
+   synthetic rank-128 distill LoRA in the upstream naming on every target
+   of the 48 blocks, ``convert_longcat_lora`` + ``merge_lora_stacked``
+   into the 13.6B DiT on the card (timed), one block held against an fp32
+   CPU recompute to 1 bf16 ulp.
+
 The line before the last holds the kernel table; the last line is the device
 summary.
 """
@@ -2032,7 +2053,9 @@ def phase_depthcrafter(work_dir):
                      "dc_profile", "one SVD UNet forward (fp32) on a "
                      "24-frame 512x832 window under torch.profiler",
                      {"latents": list(x.shape)})
-    del up, vp, cp, proj, x, ctx
+    del x, ctx
+    _svd_checkpoint_check(up, ucfg, vp, vcfg)
+    del up, vp, cp, proj
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -2240,30 +2263,14 @@ def _small_generate_check():
                          "CPU run of the plain versions")
 
 
-def phase_generate(warp_dir, ctx):
-    """The guided repaint at full width through the user's entry points,
-    fed by the warp phase's frames and masks (at 480 x 832) and the
-    encoders phase's text and image contexts."""
-    import dataclasses
-
+def _guided_generate(pipe, warp_dir, ctx):
+    """The generate phase's guided repaint (GEN_FRAMES at 480 x 832,
+    GEN_STEPS steps, CFG 5.0, IRR, FLF) on ``pipe``, fed by the warp's
+    frames and masks and the contexts ``ctx`` (pe, ne, ie); the kernels'
+    counters are set to 0 just before it and read just after."""
     import numpy as np
-    from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
-    from worldforge_tpu_torch.models.wan.dit import WanDiTConfig
-    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
     from worldforge_tpu_torch.sampling import guidance
     from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
-
-    _small_generate_check()
-
-    dit_cfg = dataclasses.replace(WanDiTConfig.wan_14b_i2v(),
-                                  num_layers=GEN_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    pipe, _, _ = load_wan_pipeline(
-        random_init=True, device="cuda", dit_cfg=dit_cfg,
-        vae_cfg=WanVAEConfig.wan_2_1())
-    torch.cuda.synchronize()
-    init_s = time.time() - t0
 
     f, h, w = GEN_FRAMES, HEIGHT, WIDTH
     frames, mask = _frames_480p(warp_dir)     # [1,3,F,H,W], [1,1,F,H,W]
@@ -2290,8 +2297,41 @@ def phase_generate(warp_dir, ctx):
                             guidance=guide, callback=on_step)
     torch.cuda.synchronize()
     total_s = time.time() - t0
-    launches = _read_counters()
-    step_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    return {"out": out, "guide": guide, "flf": flf,
+            "launches": _read_counters(), "total_s": total_s,
+            "step_s": [b - a for a, b in zip([t0] + marks[:-1], marks)],
+            "final_decode_s": total_s - (marks[-1] - t0),
+            "mask_coverage": float(mask.mean())}
+
+
+def phase_generate(warp_dir, ctx):
+    """The guided repaint at full width through the user's entry points,
+    fed by the warp phase's frames and masks (at 480 x 832) and the
+    encoders phase's text and image contexts."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
+    from worldforge_tpu_torch.models.wan.dit import WanDiTConfig
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
+
+    _small_generate_check()
+
+    dit_cfg = dataclasses.replace(WanDiTConfig.wan_14b_i2v(),
+                                  num_layers=GEN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe, _, _ = load_wan_pipeline(
+        random_init=True, device="cuda", dit_cfg=dit_cfg,
+        vae_cfg=WanVAEConfig.wan_2_1())
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+
+    run = _guided_generate(pipe, warp_dir, ctx)
+    out, guide, flf, launches = (run["out"], run["guide"], run["flf"],
+                                 run["launches"])
+    f, h, w = GEN_FRAMES, HEIGHT, WIDTH
+    total_s, step_s = run["total_s"], run["step_s"]
     ok_shape = out.shape == (1, 3, f, h, w)
     finite = bool(np.isfinite(out).all())
     emit({"phase": "generate", "config": "wan_14b_i2v + wan_2_1 vae",
@@ -2299,7 +2339,7 @@ def phase_generate(warp_dir, ctx):
                    f"{GEN_FRAMES} of 49", "steps": f"{GEN_STEPS} of 50"},
           "inputs": "the warp phase's frames and masks (LANCZOS / nearest "
                     "to 480x832), the encoders phase's UMT5-XXL and CLIP-H "
-                    "contexts", "mask_coverage": float(mask.mean()),
+                    "contexts", "mask_coverage": run["mask_coverage"],
           "height": h, "width": w, "frames": f, "steps": GEN_STEPS,
           "resample_steps": 2, "guide_steps": GEN_STEPS,
           "guidance_scale": 5.0, "omega": 1.8, "use_flf": guide.use_flf,
@@ -2309,7 +2349,7 @@ def phase_generate(warp_dir, ctx):
                       "the Wan schedule hands none back before step 6",
           "init_s": init_s,
           "total_s": total_s, "step_s": step_s,
-          "final_decode_s": total_s - (marks[-1] - t0),
+          "final_decode_s": run["final_decode_s"],
           "launches": launches,
           "launches_per_step": {k: v / GEN_STEPS for k, v in
                                 launches.items()},
@@ -3449,6 +3489,759 @@ def phase_avatar(frames, ctx, work_dir, decode93):
     return {"avatar": launches, "avatar93": launches93}
 
 
+# --------------------------------------------------------- checkpoints
+# The checkpoints phase: torch-only inverse writers (a port tree -> the
+# upstream state dict, names -> views of the tree's tensors as upstream lays
+# them out) and a safetensors writer that streams one tensor at a time from
+# the card; then the port's loaders read the files back.
+
+CKPT_SHARD_BYTES = 5 * 10 ** 9          # upstream shards are about 5 GB
+CKPT_DISK_MARGIN = 2 * 10 ** 9
+LORA_RANK = 128
+SAFETENSORS_CODES = {torch.bfloat16: "BF16", torch.float16: "F16",
+                     torch.float32: "F32", torch.float64: "F64",
+                     torch.int64: "I64", torch.int32: "I32",
+                     torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
+                     torch.bool: "BOOL"}
+
+
+def _w_lin(sd, name, p):
+    sd[f"{name}.weight"] = p["w"].t()
+    if "b" in p:
+        sd[f"{name}.bias"] = p["b"]
+
+
+def _w_norm(sd, name, p):
+    sd[f"{name}.weight"] = p["scale"]
+    if "bias" in p:
+        sd[f"{name}.bias"] = p["bias"]
+
+
+def _w_conv(sd, name, p):
+    w = p["w"]                                   # [*k, in, out]
+    nd = w.dim() - 2
+    sd[f"{name}.weight"] = w.permute(nd + 1, nd, *range(nd))
+    if "b" in p:
+        sd[f"{name}.bias"] = p["b"]
+
+
+def _w_patch3d(w, patch, cin):
+    """dense [(pt ph pw c), out] -> Conv3d [out, c, pt, ph, pw]."""
+    return w.reshape(*patch, cin, -1).permute(4, 3, 0, 1, 2)
+
+
+def wan_dit_state_dict(params, cfg) -> dict:
+    """A port Wan DiT tree -> the vendored WanModel state dict."""
+    sd = {"patch_embedding.weight": _w_patch3d(
+        params["patch_embedding"]["w"], cfg.patch_size, cfg.in_dim),
+        "patch_embedding.bias": params["patch_embedding"]["b"]}
+    _w_lin(sd, "text_embedding.0", params["text_embedding"]["fc1"])
+    _w_lin(sd, "text_embedding.2", params["text_embedding"]["fc2"])
+    _w_lin(sd, "time_embedding.0", params["time_embedding"]["fc1"])
+    _w_lin(sd, "time_embedding.2", params["time_embedding"]["fc2"])
+    _w_lin(sd, "time_projection.1", params["time_projection"])
+    for i, blk in enumerate(params["blocks"]):
+        b = f"blocks.{i}"
+        for a in ("self_attn", "cross_attn"):
+            for k, p in blk[a].items():
+                (_w_norm if k.startswith("norm") else _w_lin)(
+                    sd, f"{b}.{a}.{k}", p)
+        if blk["norm3"]:
+            _w_norm(sd, f"{b}.norm3", blk["norm3"])
+        _w_lin(sd, f"{b}.ffn.0", blk["ffn"]["fc1"])
+        _w_lin(sd, f"{b}.ffn.2", blk["ffn"]["fc2"])
+        sd[f"{b}.modulation"] = blk["modulation"]
+    _w_lin(sd, "head.head", params["head"]["head"])
+    sd["head.modulation"] = params["head"]["modulation"]
+    if "img_emb" in params:
+        e = params["img_emb"]
+        _w_norm(sd, "img_emb.proj.0", e["norm_in"])
+        _w_lin(sd, "img_emb.proj.1", e["fc1"])
+        _w_lin(sd, "img_emb.proj.3", e["fc2"])
+        _w_norm(sd, "img_emb.proj.4", e["norm_out"])
+        if "emb_pos" in e:
+            sd["img_emb.emb_pos"] = e["emb_pos"]
+    return sd
+
+
+def wan_vae_state_dict(params) -> dict:
+    """A port Wan VAE tree -> the ``WanVAE_`` state dict: its
+    ``nn.Sequential`` indices, the RMS gammas as [C, 1, 1, 1]."""
+    sd = {}
+
+    def rms(name, p):
+        sd[f"{name}.gamma"] = p["gamma"].reshape(-1, 1, 1, 1)
+
+    def res(pre, p):
+        rms(f"{pre}.residual.0", p["norm1"])
+        _w_conv(sd, f"{pre}.residual.2", p["conv1"])
+        rms(f"{pre}.residual.3", p["norm2"])
+        _w_conv(sd, f"{pre}.residual.6", p["conv2"])
+        if "shortcut" in p:
+            _w_conv(sd, f"{pre}.shortcut", p["shortcut"])
+
+    def mid(pre, p):
+        res(f"{pre}.0", p["res1"])
+        rms(f"{pre}.1.norm", p["attn"]["norm"])
+        _w_conv(sd, f"{pre}.1.to_qkv", p["attn"]["qkv"])
+        _w_conv(sd, f"{pre}.1.proj", p["attn"]["proj"])
+        res(f"{pre}.2", p["res2"])
+
+    def stages(pre, sts, key):
+        seq = 0
+        for st in sts:
+            for blk in st["blocks"]:
+                res(f"{pre}.{seq}", blk)
+                seq += 1
+            if key in st:
+                _w_conv(sd, f"{pre}.{seq}.resample.1", st[key]["conv"])
+                if "time_conv" in st[key]:
+                    _w_conv(sd, f"{pre}.{seq}.time_conv",
+                            st[key]["time_conv"])
+                seq += 1
+
+    enc, dec = params["encoder"], params["decoder"]
+    _w_conv(sd, "encoder.conv1", enc["conv_in"])
+    stages("encoder.downsamples", enc["stages"], "down")
+    mid("encoder.middle", enc["mid"])
+    rms("encoder.head.0", enc["norm_out"])
+    _w_conv(sd, "encoder.head.2", enc["conv_out"])
+    _w_conv(sd, "conv1", params["conv1"])
+    _w_conv(sd, "conv2", params["conv2"])
+    _w_conv(sd, "decoder.conv1", dec["conv_in"])
+    mid("decoder.middle", dec["mid"])
+    stages("decoder.upsamples", dec["stages"], "up")
+    rms("decoder.head.0", dec["norm_out"])
+    _w_conv(sd, "decoder.head.2", dec["conv_out"])
+    return sd
+
+
+def umt5_state_dict(params) -> dict:
+    """A port UMT5 tree -> transformers UMT5EncoderModel names."""
+    sd = {"shared.weight": params["embed"],
+          "encoder.final_layer_norm.weight": params["ln_f"]["scale"]}
+    for i, p in enumerate(params["blocks"]):
+        b = f"encoder.block.{i}.layer"
+        sd[f"{b}.0.layer_norm.weight"] = p["ln1"]["scale"]
+        for k in "qkvo":
+            _w_lin(sd, f"{b}.0.SelfAttention.{k}", p[k])
+        sd[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = \
+            p["rel_bias"]
+        sd[f"{b}.1.layer_norm.weight"] = p["ln2"]["scale"]
+        for k in ("wi_0", "wi_1", "wo"):
+            _w_lin(sd, f"{b}.1.DenseReluDense.{k}", p[k])
+    return sd
+
+
+def clip_state_dict(params, cfg) -> dict:
+    """A port CLIP vision tree -> transformers CLIPVisionModel names (the
+    ``pre_layrnorm`` spelling)."""
+    pre = "vision_model"
+    ps = cfg.patch_size
+    sd = {f"{pre}.embeddings.patch_embedding.weight":
+          params["patch"]["w"].reshape(ps, ps, 3, -1).permute(3, 2, 0, 1),
+          f"{pre}.embeddings.class_embedding": params["cls"].reshape(-1),
+          f"{pre}.embeddings.position_embedding.weight": params["pos"][0]}
+    _w_norm(sd, f"{pre}.pre_layrnorm", params["ln_pre"])
+    for i, p in enumerate(params["blocks"]):
+        b = f"{pre}.encoder.layers.{i}"
+        _w_norm(sd, f"{b}.layer_norm1", p["ln1"])
+        for k, n in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                     ("o", "out_proj")):
+            _w_lin(sd, f"{b}.self_attn.{n}", p[k])
+        _w_norm(sd, f"{b}.layer_norm2", p["ln2"])
+        _w_lin(sd, f"{b}.mlp.fc1", p["fc1"])
+        _w_lin(sd, f"{b}.mlp.fc2", p["fc2"])
+    _w_norm(sd, f"{pre}.post_layernorm", params["ln_post"])
+    return sd
+
+
+def _w_svd_res2d(sd, pre, p):
+    _w_norm(sd, f"{pre}.norm1", p["norm1"])
+    _w_conv(sd, f"{pre}.conv1", p["conv1"])
+    _w_norm(sd, f"{pre}.norm2", p["norm2"])
+    _w_conv(sd, f"{pre}.conv2", p["conv2"])
+    if "time_emb_proj" in p:
+        _w_lin(sd, f"{pre}.time_emb_proj", p["time_emb_proj"])
+    if "conv_shortcut" in p:
+        _w_conv(sd, f"{pre}.conv_shortcut", p["conv_shortcut"])
+
+
+def _w_svd_st_res(sd, pre, p):
+    _w_svd_res2d(sd, f"{pre}.spatial_res_block", p["spatial_res_block"])
+    _w_svd_res2d(sd, f"{pre}.temporal_res_block", p["temporal_res_block"])
+    sd[f"{pre}.time_mixer.mix_factor"] = p["time_mixer"]["mix_factor"]
+
+
+def _w_svd_attn(sd, pre, p):
+    for k in ("to_q", "to_k", "to_v"):
+        _w_lin(sd, f"{pre}.{k}", p[k])
+    _w_lin(sd, f"{pre}.to_out.0", p["to_out"])
+
+
+def _w_svd_basic(sd, pre, p):
+    for i in (1, 2):
+        _w_norm(sd, f"{pre}.norm{i}", p[f"norm{i}"])
+        _w_svd_attn(sd, f"{pre}.attn{i}", p[f"attn{i}"])
+    _w_norm(sd, f"{pre}.norm3", p["norm3"])
+    for key, name in (("ff", "ff"), ("ff_in", "ff_in")):
+        if key in p:
+            _w_lin(sd, f"{pre}.{name}.net.0.proj", p[key]["proj"])
+            _w_lin(sd, f"{pre}.{name}.net.2", p[key]["out"])
+    if "norm_in" in p:
+        _w_norm(sd, f"{pre}.norm_in", p["norm_in"])
+
+
+def _w_svd_transformer(sd, pre, p):
+    _w_norm(sd, f"{pre}.norm", p["norm"])
+    _w_lin(sd, f"{pre}.proj_in", p["proj_in"])
+    for i, b in enumerate(p["blocks"]):
+        _w_svd_basic(sd, f"{pre}.transformer_blocks.{i}", b)
+    for i, b in enumerate(p["temporal_blocks"]):
+        _w_svd_basic(sd, f"{pre}.temporal_transformer_blocks.{i}", b)
+    _w_lin(sd, f"{pre}.time_pos_embed.linear_1", p["time_pos_embed"]["fc1"])
+    _w_lin(sd, f"{pre}.time_pos_embed.linear_2", p["time_pos_embed"]["fc2"])
+    sd[f"{pre}.time_mixer.mix_factor"] = p["time_mixer"]["mix_factor"]
+    _w_lin(sd, f"{pre}.proj_out", p["proj_out"])
+
+
+def svd_unet_state_dict(params) -> dict:
+    """A port SVD UNet tree -> the diffusers
+    UNetSpatioTemporalConditionModel names."""
+    sd = {}
+    _w_conv(sd, "conv_in", params["conv_in"])
+    for k in ("time_embedding", "add_embedding"):
+        _w_lin(sd, f"{k}.linear_1", params[k]["fc1"])
+        _w_lin(sd, f"{k}.linear_2", params[k]["fc2"])
+
+    def block(pre, blk, sampler, key):
+        for j, r in enumerate(blk["resnets"]):
+            _w_svd_st_res(sd, f"{pre}.resnets.{j}", r)
+        for j, a in enumerate(blk["attentions"]):
+            _w_svd_transformer(sd, f"{pre}.attentions.{j}", a)
+        if key in blk:
+            _w_conv(sd, f"{pre}.{sampler}.0.conv", blk[key])
+
+    for i, blk in enumerate(params["down_blocks"]):
+        block(f"down_blocks.{i}", blk, "downsamplers", "downsampler")
+    block("mid_block", params["mid_block"], None, None)
+    for i, blk in enumerate(params["up_blocks"]):
+        block(f"up_blocks.{i}", blk, "upsamplers", "upsampler")
+    _w_norm(sd, "conv_norm_out", params["conv_norm_out"])
+    _w_conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
+def svd_vae_state_dict(params) -> dict:
+    """A port SVD VAE tree -> the diffusers AutoencoderKLTemporalDecoder
+    names."""
+    sd = {}
+    enc, dec = params["encoder"], params["decoder"]
+
+    def mid(pre, p, res):
+        res(sd, f"{pre}.resnets.0", p["res1"])
+        _w_norm(sd, f"{pre}.attentions.0.group_norm", p["attn_norm"])
+        _w_svd_attn(sd, f"{pre}.attentions.0", p["attn"])
+        res(sd, f"{pre}.resnets.1", p["res2"])
+
+    _w_conv(sd, "encoder.conv_in", enc["conv_in"])
+    for i, blk in enumerate(enc["down"]):
+        pre = f"encoder.down_blocks.{i}"
+        for j, r in enumerate(blk["resnets"]):
+            _w_svd_res2d(sd, f"{pre}.resnets.{j}", r)
+        if "down" in blk:
+            _w_conv(sd, f"{pre}.downsamplers.0.conv", blk["down"])
+    mid("encoder.mid_block", enc["mid"], _w_svd_res2d)
+    _w_norm(sd, "encoder.conv_norm_out", enc["norm_out"])
+    _w_conv(sd, "encoder.conv_out", enc["conv_out"])
+    _w_conv(sd, "quant_conv", enc["quant_conv"])
+    _w_conv(sd, "decoder.conv_in", dec["conv_in"])
+    mid("decoder.mid_block", dec["mid"], _w_svd_st_res)
+    for i, blk in enumerate(dec["up"]):
+        pre = f"decoder.up_blocks.{i}"
+        for j, r in enumerate(blk["resnets"]):
+            _w_svd_st_res(sd, f"{pre}.resnets.{j}", r)
+        if "up" in blk:
+            _w_conv(sd, f"{pre}.upsamplers.0.conv", blk["up"])
+    _w_norm(sd, "decoder.conv_norm_out", dec["norm_out"])
+    _w_conv(sd, "decoder.conv_out", dec["conv_out"])
+    _w_conv(sd, "decoder.time_conv_out", dec["time_conv_out"])
+    return sd
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nbytes_of(sd) -> int:
+    return sum(t.numel() * t.element_size() for t in sd.values())
+
+
+def write_safetensors(path, tensors) -> int:
+    """``tensors`` (name -> tensor on any device, any layout) as one
+    .safetensors file: the header from the shapes and dtypes, then each
+    tensor made contiguous where it lives, copied to the host and written,
+    one at a time; then fsync and drop the file from the page cache (so a
+    later read comes from the disk). Returns the file's bytes."""
+    import struct
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_CODES[t.dtype],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu().reshape(-1)
+            if host.numel():
+                f.write(memoryview(host.view(torch.uint8).numpy()))
+            del host
+        f.flush()
+        os.fsync(f.fileno())
+        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+    return 8 + len(raw) + off
+
+
+def write_sharded(dirpath, sd, prefix="model") -> int:
+    """``sd`` as ~CKPT_SHARD_BYTES safetensors shards in name order with a
+    ``model.safetensors.index.json``, as upstream shards a checkpoint.
+    Returns the bytes written."""
+    os.makedirs(dirpath, exist_ok=True)
+    groups, cur, size = [], {}, 0
+    for name, t in sd.items():
+        n = t.numel() * t.element_size()
+        if cur and size + n > CKPT_SHARD_BYTES:
+            groups.append(cur)
+            cur, size = {}, 0
+        cur[name] = t
+        size += n
+    groups.append(cur)
+    weight_map, total = {}, 0
+    for i, g in enumerate(groups):
+        fname = f"{prefix}-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        total += write_safetensors(os.path.join(dirpath, fname), g)
+        weight_map.update({k: fname for k in g})
+    with open(os.path.join(dirpath, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": _nbytes_of(sd)},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def _tree_mismatches(got, want, path="") -> list:
+    """The paths where two trees differ in structure, dtype, shape or any
+    bit."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path or "/"]
+        return [m for k in want
+                for m in _tree_mismatches(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [path]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in _tree_mismatches(g, w, f"{path}[{i}]")]
+    if (got.dtype != want.dtype or got.shape != want.shape
+            or got.device != want.device
+            or not torch.equal(got.reshape(-1).view(torch.uint8),
+                               want.reshape(-1).view(torch.uint8))):
+        return [path]
+    return []
+
+
+def _rss_gib() -> float:
+    """This process's resident set now (``/proc/self/statm``), GiB."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+def _maxrss_gib() -> float:
+    """``resource.getrusage``'s peak resident set of the process, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+@contextlib.contextmanager
+def _host_peak(rec, key):
+    """rec[key] = the peak resident set while the block runs (sampled every
+    10 ms), and rec[key + "_maxrss"] = getrusage's lifetime peak after it,
+    GiB."""
+    import threading
+    peak = [_rss_gib()]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.01):
+            peak[0] = max(peak[0], _rss_gib())
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        th.join()
+        rec[key] = max(peak[0], _rss_gib())
+        rec[key + "_maxrss"] = _maxrss_gib()
+
+
+UMT5_SEED, CLIP_SEED = 13, 14          # the encoders phase's
+
+
+def _wan_source_pipe():
+    """The generate phase's full-width Wan pipeline (Wan2.1-I2V-14B DiT +
+    Wan2.1 VAE) from its seeds: a second call gives the same bits."""
+    import dataclasses
+
+    from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
+    from worldforge_tpu_torch.models.wan.dit import WanDiTConfig
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
+    pipe, _, _ = load_wan_pipeline(
+        random_init=True, device="cuda",
+        dit_cfg=dataclasses.replace(WanDiTConfig.wan_14b_i2v(),
+                                    num_layers=GEN_LAYERS),
+        vae_cfg=WanVAEConfig.wan_2_1())
+    return pipe
+
+
+def phase_checkpoints(warp_dir, first_frame):
+    """The flagship Wan set through files and the port's loader: the
+    generate and encoders phases' full-width trees (Wan2.1-I2V-14B bf16,
+    the Wan2.1 VAE fp32, UMT5-XXL bf16, CLIP-H fp32) exported to the
+    upstream layout by this script's writers into ``build/chip_smoke/
+    wan_models`` (``transformer/`` and ``text_encoder/`` as ~5 GB
+    safetensors shards with an index, ``vae/`` a ``.pth``,
+    ``image_encoder/`` one safetensors file), written one tensor at a time
+    from the card and dropped from the page cache; ``load_wan_pipeline``
+    reads them back onto the card (cold); every leaf must equal its source
+    (rebuilt from its seed) bit for bit; then the generate phase's guided
+    repaint runs on the loaded pipeline with UMT5 contexts from the loaded
+    weights on fixed ids and the CLIP context from the loader's
+    ``encode_image``. The directory is deleted afterwards."""
+    import shutil
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.checkpoints import load_wan_pipeline
+    from worldforge_tpu_torch.models.encoders import clip_vision, umt5
+
+    root = os.path.join(HERE, "build", "chip_smoke", "wan_models")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rec = {"phase": "checkpoints", "part": "wan_i2v_14b_set",
+           "models": "wan_14b_i2v (bf16) + wan_2_1 vae (fp32) + UMT5-XXL "
+                     "(bf16) + CLIP-H (fp32), random weights from the "
+                     "generate / encoders phases' seeds",
+           "layout": {"transformer": "safetensors shards + index",
+                      "vae": ".pth (torch.save)",
+                      "text_encoder": "safetensors shards + index",
+                      "image_encoder": "model.safetensors"}}
+    try:
+        t0 = time.time()
+        ucfg = umt5.UMT5Config.xxl()
+        ccfg = clip_vision.CLIPVisionConfig.vit_h_14()
+        pipe = _wan_source_pipe()
+        up = umt5.init_umt5(P.make_generator(UMT5_SEED, "cuda"), ucfg)
+        cp = clip_vision.init_clip_vision(P.make_generator(CLIP_SEED, "cuda"),
+                                          ccfg)
+        torch.cuda.synchronize()
+        rec["source_init_s"] = time.time() - t0
+        parts = {"transformer": wan_dit_state_dict(pipe.dit_params,
+                                                   pipe.dit_cfg),
+                 "vae": wan_vae_state_dict(pipe.vae_params),
+                 "text_encoder": umt5_state_dict(up),
+                 "image_encoder": clip_state_dict(cp, ccfg)}
+        rec["tensors"] = {k: len(v) for k, v in parts.items()}
+        rec["bytes"] = {k: _nbytes_of(v) for k, v in parts.items()}
+        need = sum(rec["bytes"].values())
+        free = shutil.disk_usage(root).free
+        rec.update({"disk_free_gb": free / 1e9, "disk_needed_gb": need / 1e9})
+        if free < need + CKPT_DISK_MARGIN:
+            emit(rec)
+            raise SystemExit(
+                f"chip_smoke: {free / 1e9:.1f} GB free under {root}, the "
+                f"checkpoints phase writes {need / 1e9:.1f} GB (+ "
+                f"{CKPT_DISK_MARGIN / 1e9:.0f} GB margin)")
+
+        with _host_peak(rec, "write_host_peak_rss_gib"):
+            t0 = time.time()
+            written = write_sharded(os.path.join(root, "transformer"),
+                                    parts["transformer"],
+                                    "diffusion_pytorch_model")
+            os.makedirs(os.path.join(root, "vae"))
+            vae_path = os.path.join(root, "vae", "Wan2.1_VAE.pth")
+            torch.save({k: v.contiguous().cpu()
+                        for k, v in parts["vae"].items()}, vae_path)
+            written += os.path.getsize(vae_path)
+            written += write_sharded(os.path.join(root, "text_encoder"),
+                                     parts["text_encoder"])
+            os.makedirs(os.path.join(root, "image_encoder"))
+            written += write_safetensors(
+                os.path.join(root, "image_encoder", "model.safetensors"),
+                parts["image_encoder"])
+            with open(vae_path, "rb") as f:
+                os.fsync(f.fileno())
+                os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+            rec["write_s"] = time.time() - t0
+        rec["written_gb"] = written / 1e9
+        rec["write_gb_per_s"] = written / 1e9 / rec["write_s"]
+        rec["files"] = sorted(os.path.relpath(os.path.join(d, f), root)
+                              for d, _, fs in os.walk(root) for f in fs)
+        del parts, pipe, up, cp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _host_peak(rec, "load_host_peak_rss_gib"):
+            rec["load_host_rss_before_gib"] = _rss_gib()
+            t0 = time.time()
+            pipe, enc_t, enc_i = load_wan_pipeline(root, device="cuda")
+            torch.cuda.synchronize()
+            rec["load_s"] = time.time() - t0
+        gc.collect()
+        # what the load left on the host: a view of a mapped file or of a
+        # read buffer would keep its pages resident after the load
+        rec["load_host_rss_after_gib"] = _rss_gib()
+        loaded = list(_leaves((pipe.dit_params, pipe.vae_params,
+                               enc_t.params, enc_i.params)))
+        rec["leaves_loaded"] = len(loaded)
+        rec["loaded_leaves_off_the_card"] = sum(
+            t.device.type != "cuda" for t in loaded)
+        del loaded
+        rec["load_gb_per_s"] = written / 1e9 / rec["load_s"]
+        rec["load_device_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       - base) / 2 ** 30
+        rec["loaded_device_gib"] = (torch.cuda.memory_allocated()
+                                    - base) / 2 ** 30
+
+        # every leaf against its source, rebuilt from its seed one model at
+        # a time beside the loaded set
+        t0 = time.time()
+        mism = _tree_mismatches(enc_t.params, umt5.init_umt5(
+            P.make_generator(UMT5_SEED, "cuda"), ucfg), "/umt5")
+        mism += _tree_mismatches(enc_i.params, clip_vision.init_clip_vision(
+            P.make_generator(CLIP_SEED, "cuda"), ccfg), "/clip")
+        ids = torch.as_tensor(np.random.default_rng(3).integers(
+            0, enc_t.cfg.vocab_size, (2, TEXT_LEN)), device="cuda")
+        mask = torch.zeros((2, TEXT_LEN), dtype=torch.int32, device="cuda")
+        mask[0, :PROMPT_TOKENS] = 1
+        mask[1, :NEGATIVE_TOKENS] = 1
+        text = umt5.umt5_encode(enc_t.params, enc_t.cfg, ids, mask)
+        ctx = {"pe": text[:1], "ne": text[1:], "ie": enc_i(first_frame)}
+        del enc_t, enc_i, text
+        gc.collect()
+        torch.cuda.empty_cache()
+        src = _wan_source_pipe()
+        mism += _tree_mismatches(pipe.dit_params, src.dit_params, "/dit")
+        mism += _tree_mismatches(pipe.vae_params, src.vae_params, "/vae")
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        rec["rebuild_encode_compare_s"] = time.time() - t0
+        rec["leaves_differing"] = mism[:20]
+        rec["bit_equal"] = not mism
+        if mism or rec["loaded_leaves_off_the_card"]:
+            emit(rec)
+            raise SystemExit(
+                f"chip_smoke: {len(mism)} loaded leaves differ from their "
+                f"sources ({mism[:5]}), "
+                f"{rec['loaded_leaves_off_the_card']} are off the card")
+
+        torch.cuda.reset_peak_memory_stats()
+        run = _guided_generate(pipe, warp_dir, ctx)
+        out = run["out"]
+        ok = (out.shape == (1, 3, GEN_FRAMES, HEIGHT, WIDTH)
+              and bool(np.isfinite(out).all()))
+        rec.update({"generate": {
+            "frames": GEN_FRAMES, "steps": GEN_STEPS, "height": HEIGHT,
+            "width": WIDTH, "total_s": run["total_s"],
+            "step_s": run["step_s"], "final_decode_s": run["final_decode_s"],
+            "out_shape": list(out.shape), "finite": ok,
+            "out_range": [float(out.min()), float(out.max())],
+            "max_memory_allocated_gb":
+            torch.cuda.max_memory_allocated() / 2 ** 30},
+            "launches": run["launches"], "ok": ok})
+        emit(rec)
+        if not ok:
+            raise SystemExit("chip_smoke: the generate on the loaded Wan set "
+                             "gave a wrong output")
+        _require_launches(run["launches"], WAN_PATH_KERNELS, "checkpoints")
+        del pipe, out, run
+        return rec["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _bf16_ulps(got, want) -> torch.Tensor:
+    """|got - want| in bf16 ulps of ``want``, elementwise, fp32."""
+    g, w = got.float(), want.float()
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    return (g - w).abs() / torch.exp2(e - 7)
+
+
+def phase_checkpoints_lora(pipe):
+    """The distill LoRA merged into the refine / guided phases' 13.6B
+    LongCat DiT, in memory: a synthetic rank-128 LoRA in the upstream
+    naming (``lora___lorahyphen___`` names, the ``alpha_scale`` buffer) on
+    every ``_TORCH_TO_TREE`` target of all 48 blocks, ``attn.qkv`` and
+    ``cross_attn.kv_linear`` as ``lora_up.blocks.N``; then
+    ``convert_longcat_lora`` + ``merge_lora_stacked`` on the card (timed)
+    and one block's merged leaves against an fp32 CPU recompute, to 1 bf16
+    ulp."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.convert_longcat import (
+        _TORCH_TO_TREE, convert_longcat_lora, merge_lora_stacked)
+
+    blocks = pipe.dit_params["blocks"]
+    dev = blocks[0]["qkv"]["w"].device
+    gen = P.make_generator(47, dev)
+    hy = "___lorahyphen___"
+    sd = {}
+    for i, blk in enumerate(blocks):
+        for sub, key in _TORCH_TO_TREE.items():
+            din, dout = blk[key]["w"].shape
+            n = {"attn.qkv": 3, "cross_attn.kv_linear": 2}.get(sub, 1)
+            nm = "lora" + hy + f"blocks.{i}.{sub}".replace(".", hy)
+            sd[f"{nm}.lora_down.weight"] = (P.normal(
+                gen, (n * LORA_RANK, din)) / math.sqrt(din)).bfloat16()
+            if n == 1:
+                sd[f"{nm}.lora_up.weight"] = (0.02 * P.normal(
+                    gen, (dout, LORA_RANK))).bfloat16()
+            for j in range(n if n > 1 else 0):
+                sd[f"{nm}.lora_up.blocks.{j}.weight"] = (0.02 * P.normal(
+                    gen, (dout // n, LORA_RANK))).bfloat16()
+            sd[f"{nm}.alpha_scale"] = torch.tensor(64.0 / LORA_RANK,
+                                                   device=dev)
+    rec = {"phase": "checkpoints", "part": "longcat_distill_lora",
+           "config": f"longcat_13b (bf16; adaLN fp32), rank {LORA_RANK} on "
+                     f"{len(_TORCH_TO_TREE)} targets x {len(blocks)} blocks",
+           "lora_tensors": len(sd), "lora_gb": _nbytes_of(sd) / 1e9}
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    lora = convert_longcat_lora(sd)
+    _sync(dev)
+    rec["convert_s"] = time.time() - t0
+    t0 = time.time()
+    merged = merge_lora_stacked(pipe.dit_params, lora)
+    _sync(dev)
+    rec["merge_s"] = time.time() - t0
+    rec["device_peak_above_model_gib"] = (torch.cuda.max_memory_allocated()
+                                          - base) / 2 ** 30
+    changed = sum(merged["blocks"][i][k]["w"] is not blocks[i][k]["w"]
+                  for i in range(len(blocks)) for k in _TORCH_TO_TREE.values())
+    b = len(blocks) - 1
+    check, worst, off, total = {}, 0.0, 0, 0
+    for sub, key in _TORCH_TO_TREE.items():
+        ad = lora[f"blocks.{b}.{sub}"]
+        w0 = blocks[b][key]["w"].cpu()
+        down, up = ad["down"].cpu(), ad["up"].cpu()
+        want = (w0.float() + down @ up * ad["multiplier"]
+                * (ad["alpha"] / down.shape[1])).to(w0.dtype)
+        d = _bf16_ulps(merged["blocks"][b][key]["w"].cpu(), want)
+        check[key] = {"dtype": str(w0.dtype).split(".")[-1],
+                      "max_bf16_ulps": float(d.max()),
+                      "share_at_1_ulp": float((d > 0).float().mean())}
+        worst = max(worst, float(d.max()))
+        off += int((d > 0).sum())
+        total += d.numel()
+    ok = worst <= 1.0 and changed == len(lora) == len(blocks) * len(
+        _TORCH_TO_TREE)
+    rec.update({"adapters": len(lora), "leaves_changed": changed,
+                "checked_block": b, "vs_cpu_fp32": check,
+                "max_bf16_ulps": worst, "share_at_1_ulp": off / total,
+                "ok": ok})
+    emit(rec)
+    del merged, lora, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("chip_smoke: the merged LoRA disagrees with the CPU "
+                         "recompute or missed a target")
+
+
+def _fold_indices(name: str) -> str:
+    import re
+    return re.sub(r"(?<=\.)\d+(?=\.)", "N", name)
+
+
+def _svd_checkpoint_check(up, ucfg, vp, vcfg):
+    """The SVD UNet and VAE through the upstream layout: the tiny configs'
+    exports (their inits on the card) must equal the frozen manifests
+    ``tests/fixtures/svd_{unet,vae}_manifest.json`` name for name and shape
+    for shape (the manifests were frozen at the tiny configs); the full-width
+    exports of the depthcrafter phase's trees must have the manifests' names
+    with the block and layer indices folded, the same ranks and kernel
+    sizes; ``convert_svd_unet`` / ``convert_svd_vae`` on the card must give
+    the trees back bit for bit."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.convert_depthcrafter import (
+        convert_svd_unet, convert_svd_vae)
+    from worldforge_tpu_torch.models.depthcrafter.unet import (SVDUNetConfig,
+                                                               init_svd_unet)
+    from worldforge_tpu_torch.models.depthcrafter.vae import (SVDVAEConfig,
+                                                              init_svd_vae)
+    rec = {"phase": "checkpoints", "part": "svd_unet_vae"}
+    dev = up["conv_in"]["w"].device
+    ok = True
+    for which, tree, cfg, write, convert, tiny in (
+            ("unet", up, ucfg, svd_unet_state_dict, convert_svd_unet,
+             lambda: init_svd_unet(P.make_generator(48, dev),
+                                   SVDUNetConfig.tiny())),
+            ("vae", vp, vcfg, svd_vae_state_dict, convert_svd_vae,
+             lambda: init_svd_vae(P.make_generator(49, dev),
+                                  SVDVAEConfig.tiny()))):
+        with open(os.path.join(HERE, "tests", "fixtures",
+                               f"svd_{which}_manifest.json")) as f:
+            manifest = json.load(f)
+        tiny_sd = {k: list(v.shape) for k, v in write(tiny()).items()}
+        tiny_equal = tiny_sd == manifest
+        sd = write(tree)
+        patterns = {}
+        for k, s in manifest.items():
+            patterns.setdefault(_fold_indices(k), s)
+
+        def agrees(k, t):
+            s = patterns.get(_fold_indices(k))
+            return (s is not None and len(s) == t.dim()
+                    and (t.dim() < 3 or list(t.shape[2:]) == s[2:]))
+        names_ok = {_fold_indices(k) for k in sd} == set(patterns)
+        shapes_ok = all(agrees(k, t) for k, t in sd.items())
+        _sync(dev)
+        t0 = time.time()
+        back = convert(sd, cfg, device=dev)
+        _sync(dev)
+        convert_s = time.time() - t0
+        mism = _tree_mismatches(back, tree)
+        rec[which] = {"tiny_export_equals_manifest": tiny_equal,
+                      "manifest_keys": len(manifest),
+                      "full_width_keys": len(sd),
+                      "names_fold_to_manifest": names_ok,
+                      "ranks_and_kernels_agree": shapes_ok,
+                      "gb": _nbytes_of(sd) / 1e9, "convert_s": convert_s,
+                      "leaves_differing": mism[:10], "bit_equal": not mism}
+        ok = ok and tiny_equal and names_ok and shapes_ok and not mism
+        del sd, back
+    rec["ok"] = ok
+    emit(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("chip_smoke: the SVD export / conversion check "
+                         "failed")
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     for group, keys in KERNEL_GROUPS:
@@ -3545,11 +4338,14 @@ def main() -> int:
     by_path["generate"] = phase_generate(warp_dir, ctx)
     gc.collect()
     torch.cuda.empty_cache()
+    by_path["checkpoints"] = phase_checkpoints(
+        warp_dir, frames[0, :, 0].transpose(1, 2, 0))
     by_path.update(phase_wan_facades(warp_dir, ctx))
     by_path["refine"], longcat_pipe = phase_refine()
     gc.collect()
     torch.cuda.empty_cache()
     by_path["longcat_guided"] = phase_longcat_guided(*longcat_pipe)
+    phase_checkpoints_lora(longcat_pipe[0])
     del longcat_pipe
     gc.collect()
     torch.cuda.empty_cache()

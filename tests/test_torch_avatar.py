@@ -350,7 +350,11 @@ def test_load_avatar_pipeline_random_init_matches_jax(monkeypatch):
     from worldforge_tpu_torch.io.checkpoints import DEFAULT_RANDOM_WAV2VEC2
     assert dataclasses.asdict(DEFAULT_RANDOM_WAV2VEC2) == \
         dataclasses.asdict(w2v_cfg)
-    with pytest.raises(NotImplementedError):
+    # the converted branch on a missing directory fails as the JAX
+    # loader's does (its reader cannot open <dir>/dit)
+    with pytest.raises(FileNotFoundError):
+        jck.load_avatar_pipeline("/nonexistent")
+    with pytest.raises(FileNotFoundError):
         load_avatar_pipeline("/nonexistent", device="cpu")
 
 

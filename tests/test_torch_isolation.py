@@ -26,8 +26,8 @@ def _imported_roots(path):
 
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
-    LongCat guided, warp, encoder, DepthCrafter, Wan facade and avatar
-    modules among them."""
+    LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar and
+    checkpoint modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -50,7 +50,10 @@ def test_isolation_covers_the_port_modules():
                 "pipelines/wan_vace.py", "io/vace_processor.py",
                 "models/encoders/wav2vec2.py", "models/longcat/avatar.py",
                 "pipelines/avatar.py", "io/checkpoints.py",
-                "cli/run_avatar.py"):
+                "cli/run_avatar.py", "io/torch_load.py",
+                "io/convert_wan.py", "io/convert_encoders.py",
+                "io/convert_longcat.py", "io/convert_wav2vec2.py",
+                "io/convert_vggt.py", "io/convert_depthcrafter.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 
@@ -58,6 +61,66 @@ def test_isolation_covers_the_port_modules():
 def test_no_jax_imports(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "flax", "worldforge_tpu"}, roots
+
+
+def test_no_safetensors_and_no_module_level_transformers():
+    """The port reads safetensors itself: no module imports
+    ``safetensors``; ``transformers`` (the UMT5 tokenizer) is imported only
+    inside the call that first encodes a prompt."""
+    for path in PORT_FILES:
+        assert "safetensors" not in set(_imported_roots(path)), path
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = {n.split(".")[0] for node in tree.body
+               if isinstance(node, (ast.Import, ast.ImportFrom))
+               for n in ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])}
+        assert "transformers" not in top, path
+
+
+def test_checkpoint_layer_imports_and_loads_without_them(tmp_path):
+    """In a fresh interpreter: importing every checkpoint module, reading a
+    safetensors file and assembling a UMT5 text encoder from one (the
+    loaders' path) import neither ``safetensors`` nor ``transformers``."""
+    import subprocess
+    import sys
+    from safetensors.torch import save_file
+    from worldforge_tpu_torch.models.encoders.umt5 import (UMT5Config,
+                                                           init_umt5)
+    cfg = UMT5Config.tiny()
+    p = init_umt5(torch.Generator().manual_seed(0), cfg)
+    sd = {"shared.weight": p["embed"],
+          "encoder.final_layer_norm.weight": p["ln_f"]["scale"]}
+    for i, blk in enumerate(p["blocks"]):
+        b = f"encoder.block.{i}.layer"
+        sd[f"{b}.0.layer_norm.weight"] = blk["ln1"]["scale"]
+        for k in "qkvo":
+            sd[f"{b}.0.SelfAttention.{k}.weight"] = blk[k]["w"].t()
+        sd[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = \
+            blk["rel_bias"]
+        sd[f"{b}.1.layer_norm.weight"] = blk["ln2"]["scale"]
+        for k in ("wi_0", "wi_1", "wo"):
+            sd[f"{b}.1.DenseReluDense.{k}.weight"] = blk[k]["w"].t()
+    save_file({k: v.contiguous() for k, v in sd.items()},
+              str(tmp_path / "umt5.safetensors"))
+    code = (
+        "import sys, torch\n"
+        "import worldforge_tpu_torch.io.checkpoints\n"
+        "from worldforge_tpu_torch.io import (convert_depthcrafter, "
+        "convert_encoders, convert_longcat, convert_vggt, convert_wan, "
+        "convert_wav2vec2, torch_load)\n"
+        "from worldforge_tpu_torch.models.encoders.umt5 import UMT5Config\n"
+        f"enc = convert_encoders.load_umt5_encoder({str(tmp_path)!r}, "
+        "'no-tokenizer', cfg=UMT5Config.tiny(), device='cpu')\n"
+        "out = enc.encode_ids(torch.zeros((1, 4), dtype=torch.long), "
+        "torch.ones((1, 4), dtype=torch.int32))\n"
+        "assert out.shape == (1, 4, 32), out.shape\n"
+        "bad = {'safetensors', 'transformers'} & set(sys.modules)\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
 
 
 def test_port_has_kernels_and_plain_versions():
@@ -121,5 +184,7 @@ def test_random_init_pipeline_on_cpu():
     import numpy as np
     assert enc_i(np.zeros((4, 4, 3), np.uint8)).shape == (1, 257, 1280)
     assert pipe.dit_params["head"]["head"]["w"].abs().sum() > 0
-    with pytest.raises(NotImplementedError):
+    # a models directory takes the converted branch; a missing one fails
+    # as the JAX loader's does (its reader cannot open <dir>/transformer)
+    with pytest.raises(FileNotFoundError):
         load_wan_pipeline("/nonexistent", device="cpu")

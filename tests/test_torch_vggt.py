@@ -158,14 +158,39 @@ def test_pose_encoding_and_depth_and_camera(vggt):
     _close(k, intr[0, 1])
 
 
-def test_vggt_estimate_needs_weights(tmp_path):
+def test_vggt_estimate_needs_weights(vggt, tmp_path, monkeypatch):
+    """Without a checkpoint ``vggt_estimate`` stops with the JAX message;
+    with a converted one (the fixture's tree written in the upstream
+    layout, the config patched to the tiny one) it runs, and its depth,
+    confidence and cameras equal JAX's forward on the JAX converter's tree
+    to 1e-4."""
     from PIL import Image
+    from safetensors.numpy import save_file
+
+    from tests.test_torch_convert import vggt_sd
+    from worldforge_tpu.io.convert_vggt import load_converted_vggt
+    cfg, p, _, _ = vggt
     path = tmp_path / "img.png"
-    Image.fromarray(np.zeros((20, 30, 3), np.uint8)).save(path)
+    Image.fromarray(np.random.default_rng(6).integers(
+        0, 256, (20, 30, 3), np.uint8)).save(path)
     with pytest.raises(SystemExit, match="VGGT weights required"):
         tinf.vggt_estimate(str(path))
-    with pytest.raises(NotImplementedError, match="converters"):
-        tinf.vggt_estimate(str(path), checkpoint="weights.npz")
+    images = tutils.load_and_preprocess_images([str(path)])
     np.testing.assert_array_equal(
-        tutils.load_and_preprocess_images([str(path)]),
-        jutils.load_and_preprocess_images([str(path)]))
+        images, jutils.load_and_preprocess_images([str(path)]))
+    ckpt = str(tmp_path / "vggt.safetensors")
+    save_file(vggt_sd(jax.tree_util.tree_map(np.asarray, p), cfg), ckpt)
+    monkeypatch.setattr(tmodel.VGGTConfig, "vggt_1b",
+                        classmethod(lambda c: c.tiny()))
+    depth, conf, e44, k = tinf.vggt_estimate(str(path), checkpoint=ckpt,
+                                             device="cpu")
+    jp = load_converted_vggt(ckpt, cfg)
+    out = jax.jit(lambda q, im: jinf.vggt_forward(q, cfg, im))(
+        jp, jnp.asarray(images)[None])
+    extr, intr = jutils.pose_encoding_to_extri_intri(
+        np.asarray(out["pose_enc"]), images.shape[-2:])
+    assert depth.shape == images.shape[-2:]
+    _close(depth, np.asarray(out["depth"])[0, 0, :, :, 0])
+    _close(conf, np.asarray(out["depth_conf"])[0, 0])
+    _close(e44[:3], extr[0, 0])
+    _close(k, intr[0, 0])

@@ -9,9 +9,11 @@ mp4 (and optional PNGs)::
         --video-ref warp_dir --random-init --guided --output out.mp4
 
 ``--device`` defaults to the card and fails when there is none; pass
-``--device cpu`` to run the plain PyTorch path on the CPU. ``--random-init``
-runs the full pipeline with random weights at a reduced size (converted
-checkpoints are a later slice). ``--use-pca-channel-selection`` turns on
+``--device cpu`` to run the plain PyTorch path on the CPU. ``--models-dir``
+loads the converted checkpoints there (``transformer/``, ``vae/``,
+``text_encoder/``, ``tokenizer/``, ``image_encoder/``;
+``io/convert_wan.py``); ``--random-init`` runs the full pipeline with random
+weights at a reduced size. ``--use-pca-channel-selection`` turns on
 FLF channel selection; ``--streaming-vae`` runs the streaming VAE;
 ``--fused`` (the TPU scan runner) raises.
 """

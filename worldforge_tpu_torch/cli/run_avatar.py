@@ -10,8 +10,9 @@ windows -> ``AvatarPipeline.generate_i2v_audio`` -> mp4::
 Audio: a mono 16 kHz ``.npy`` waveform, or a PCM ``.wav`` (8, 16, 24 or 32
 bit; downmixed and linearly resampled to 16 kHz). ``--device`` defaults to
 the card and fails when there is none; pass ``--device cpu`` to run the
-plain PyTorch path on the CPU. ``--random-init`` runs random weights at a
-reduced size (converted checkpoints wait for the weights).
+plain PyTorch path on the CPU. ``--checkpoint_dir`` loads the converted
+checkpoints there (``dit/``, ``vae/``, ``wav2vec2/``, ``text_encoder/``,
+``tokenizer/``); ``--random-init`` runs random weights at a reduced size.
 """
 
 from __future__ import annotations

@@ -10,10 +10,13 @@ exports an mp4 (and optional PNGs)::
         --random-init --guided --use_distill --output out.mp4
 
 ``--device`` defaults to the card and fails when there is none; pass
-``--device cpu`` to run the plain PyTorch path on the CPU. ``--random-init``
-runs random weights at a reduced size (converted checkpoints, the distill
-and refinement LoRAs wait for the weights; ``--use_distill`` selects the
-16-step distill schedule without CFG). ``--enable-upscale`` chains the
+``--device cpu`` to run the plain PyTorch path on the CPU.
+``--checkpoint_dir`` loads the converted checkpoints there (``dit/``,
+``vae/``, ``text_encoder/``, ``tokenizer/``; ``io/convert_longcat.py``), and
+with ``--use_distill`` merges the distill LoRA
+``lora/cfg_step_lora.safetensors``; ``--random-init`` runs random weights at
+a reduced size. ``--use_distill`` also selects the 16-step distill schedule
+without CFG. ``--enable-upscale`` chains the
 result into ``generate_refine`` at twice the size. ``--context_parallel_size``
 > 1 needs the parallel layer, a later slice of the port, and raises.
 """

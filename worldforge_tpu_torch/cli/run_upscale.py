@@ -8,10 +8,11 @@ The flag surface of ``worldforge_tpu/cli/run_upscale.py``, plus
         --random-init --spatial-refine-only --output out_720p.mp4
 
 ``--device`` defaults to the card and fails when there is none; pass
-``--device cpu`` to run the plain PyTorch path on the CPU. ``--random-init``
-runs random weights at a reduced size (converted checkpoints and the
-refinement LoRA wait for the weights). ``--context_parallel_size`` > 1 is
-the parallel layer, a later slice of the port, and raises.
+``--device cpu`` to run the plain PyTorch path on the CPU.
+``--checkpoint_dir`` loads the converted LongCat checkpoints there
+(``io/convert_longcat.py``); ``--random-init`` runs random weights at a
+reduced size. ``--context_parallel_size`` > 1 is the parallel layer, a
+later slice of the port, and raises.
 """
 
 from __future__ import annotations

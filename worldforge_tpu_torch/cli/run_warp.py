@@ -1,9 +1,10 @@
 """Single-image 3D warp CLI (the VGGT stage), PyTorch port.
 
 The flag surface of ``worldforge_tpu/cli/run_warp.py``, plus ``--device``.
-Depth and camera come from VGGT when a checkpoint is given (loading one
-waits for the checkpoint converters); ``--depth_npz`` runs the warp from
-precomputed depth, conf, extrinsic and intrinsic::
+Depth and camera come from VGGT when a checkpoint is given
+(``--vggt_checkpoint``: a VGGT-1B state dict file or directory, converted by
+``io/convert_vggt.py``); ``--depth_npz`` runs the warp from precomputed
+depth, conf, extrinsic and intrinsic::
 
     python -m worldforge_tpu_torch.cli.run_warp --image_path img.png \
         --depth_npz depth.npz --output_path out --device cpu

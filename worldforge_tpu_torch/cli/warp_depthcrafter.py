@@ -3,8 +3,9 @@
 The flag surface of ``worldforge_tpu/cli/warp_depthcrafter.py``, plus
 ``--device``. Two stages: (1) depth estimation -> ``depth.npz`` in the
 output directory (skipped when that cache or ``--depth_npz`` exists; the
-depth model needs converted weights, which wait for the checkpoint
-converters); (2) per-frame point clouds splatted along the trajectory::
+depth model loads the DepthCrafter checkpoint directory
+``--checkpoint_dir``, ``io/convert_depthcrafter.py``); (2) per-frame point
+clouds splatted along the trajectory::
 
     python -m worldforge_tpu_torch.cli.warp_depthcrafter \
         --video_path frames_dir --depth_npz depth.npz --output_path out \

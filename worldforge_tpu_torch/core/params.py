@@ -180,6 +180,18 @@ def no_tf32():
     return tf32(False)
 
 
+@contextlib.contextmanager
+def no_tf32_matmul():
+    """Run fp32 cuBLAS matmuls in full fp32 for the block (PyTorch's
+    default, which a caller may have changed)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def conv(p: dict, x: torch.Tensor, *, stride=1, padding=0,
          bf16_operands: bool = False) -> torch.Tensor:
     """Channels-last ND convolution (N, *spatial, C) with a spatial-first

@@ -1,21 +1,24 @@
-"""Pipeline assembly (the random-init branch).
+"""Pipeline assembly: converted checkpoints, or random weights.
 
 Counterpart of ``worldforge_tpu/io/checkpoints.py::load_wan_pipeline``,
-``load_longcat_pipeline`` and ``load_avatar_pipeline``. ``random_init=True``
-(or no checkpoint directory) builds a random-weight pipeline on the device:
-by default the JAX package's reduced random-init sizes, or the configs the
+``load_longcat_pipeline`` and ``load_avatar_pipeline`` (:30-178). Given a
+directory in the upstream layout, each loader converts the real weights
+onto the device (``io/convert_wan.py``, ``io/convert_longcat.py`` with the
+distill LoRA under ``use_distill``, ``io/convert_wav2vec2.py``,
+``io/convert_encoders.py`` for UMT5 and CLIP), with the JAX package's full
+configs unless the caller passes others. ``random_init=True`` (or no
+directory) builds a random-weight pipeline on the device instead: by
+default the JAX package's reduced random-init sizes, or the configs the
 caller passes (``chip_smoke.py`` passes the full-width Wan2.1-I2V-14B and
 LongCat-Video-13.6B DiTs, the LongCat-Video-Avatar DiT with the
-wav2vec2-base encoder, and the Wan2.1 VAE). Converting real checkpoints
-(``io/convert_wan.py``, ``io/convert_longcat.py``) and the LongCat
-refinement LoRA wait until the weights are in the repository, and so do the
-text and image encoders: at random init, hash embeddings stand in for them,
-as in the JAX package.
+wav2vec2-base encoder, and the Wan2.1 VAE); hash embeddings stand in for
+the text and image encoders there, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -24,6 +27,15 @@ import torch
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import (DEFAULT_POLICY, Policy,
                                               resolve_device)
+from worldforge_tpu_torch.io.convert_longcat import (convert_avatar_dit,
+                                                    load_converted_longcat,
+                                                    longcat_text_encoder)
+from worldforge_tpu_torch.io.convert_wan import (convert_wan_vae,
+                                                 load_converted_wan)
+from worldforge_tpu_torch.io.convert_wav2vec2 import convert_wav2vec2
+from worldforge_tpu_torch.io.torch_load import load_state_dict
+from worldforge_tpu_torch.models.encoders.clip_vision import CLIPVisionConfig
+from worldforge_tpu_torch.models.encoders.umt5 import UMT5Config
 from worldforge_tpu_torch.models.encoders.wav2vec2 import (Wav2Vec2Config,
                                                            init_wav2vec2)
 from worldforge_tpu_torch.models.longcat.avatar import (AvatarConfig,
@@ -71,6 +83,8 @@ def load_wan_pipeline(models_dir: Optional[str] = None,
                       device: Optional[Union[str, torch.device]] = None,
                       dit_cfg: Optional[WanDiTConfig] = None,
                       vae_cfg: Optional[WanVAEConfig] = None,
+                      umt5_cfg: Optional[UMT5Config] = None,
+                      clip_cfg: Optional[CLIPVisionConfig] = None,
                       policy: Policy = DEFAULT_POLICY,
                       seed: int = 0,
                       ) -> Tuple[WanI2VPipeline, Callable, Callable]:
@@ -78,14 +92,19 @@ def load_wan_pipeline(models_dir: Optional[str] = None,
     encode_image(img)->[1,257,1280]).
 
     device: None means the card (raises when there is none); the CPU only
-    when asked for by name. The DiT is built in bf16 (fp32 under an fp32
-    policy), the VAE in fp32, from generators seeded ``seed``, ``seed + 1``
-    and ``seed + 99`` (the randomized head)."""
+    when asked for by name. With ``models_dir`` (and not ``random_init``)
+    the converted checkpoints there (``io/convert_wan.py::
+    load_converted_wan``: Wan2.1-I2V-14B, the Wan2.1 VAE, UMT5-XXL and
+    CLIP-H unless ``dit_cfg`` / ``vae_cfg`` / ``umt5_cfg`` / ``clip_cfg``
+    say otherwise). Else random weights: the DiT in bf16 (fp32 under an
+    fp32 policy), the VAE in fp32, from generators seeded ``seed``,
+    ``seed + 1`` and ``seed + 99`` (the randomized head)."""
     dev = resolve_device(device)
     if not (random_init or models_dir is None):
-        raise NotImplementedError(
-            "loading converted Wan checkpoints (io/convert_wan.py) waits "
-            "until the weights are in the repository; use random_init=True")
+        return load_converted_wan(models_dir, variant, device=dev,
+                                  dit_cfg=dit_cfg, vae_cfg=vae_cfg,
+                                  umt5_cfg=umt5_cfg, clip_cfg=clip_cfg,
+                                  policy=policy)
     dit_cfg = dit_cfg or DEFAULT_RANDOM_DIT
     vae_cfg = vae_cfg or DEFAULT_RANDOM_VAE
     dit_params = init_wan_dit(P.make_generator(seed, dev), dit_cfg,
@@ -116,6 +135,7 @@ def load_longcat_pipeline(checkpoint_dir: Optional[str] = None,
                           dit_cfg: Optional[LongCatDiTConfig] = None,
                           vae_cfg: Optional[WanVAEConfig] = None,
                           use_distill: bool = False,
+                          umt5_cfg: Optional[UMT5Config] = None,
                           policy: Policy = DEFAULT_POLICY,
                           seed: int = 0,
                           ) -> Tuple[LongCatPipeline, Callable]:
@@ -123,19 +143,23 @@ def load_longcat_pipeline(checkpoint_dir: Optional[str] = None,
     mask [1, L] int32)).
 
     device: None means the card (raises when there is none); the CPU only
-    when asked for by name. The DiT is built in bf16 (fp32 under an fp32
-    policy) one layer at a time on the device, the VAE in fp32, from
-    generators seeded ``seed`` and ``seed + 1``. ``use_distill`` is the
-    JAX loader's flag: with a converted checkpoint it would merge the
-    distill LoRA, which comes with checkpoint conversion; at random init it
-    has no effect, as in the JAX loader (the distill sigma table and the
-    CFG switch-off are ``generate_i2v(use_distill=True)``'s)."""
+    when asked for by name. With ``checkpoint_dir`` (and not
+    ``random_init``) the converted checkpoints there
+    (``io/convert_longcat.py::load_converted_longcat``: LongCat-Video
+    13.6B, the Wan2.1 VAE, UMT5-XXL unless the configs say otherwise), and
+    with ``use_distill`` the distill LoRA ``lora/cfg_step_lora.safetensors``
+    merged into the DiT when it is there. Else random weights: the DiT in
+    bf16 (fp32 under an fp32 policy) one layer at a time on the device,
+    the VAE in fp32, from generators seeded ``seed`` and ``seed + 1``;
+    ``use_distill`` then has no effect, as in the JAX loader (the distill
+    sigma table and the CFG switch-off are
+    ``generate_i2v(use_distill=True)``'s)."""
     dev = resolve_device(device)
     if not (random_init or checkpoint_dir is None):
-        raise NotImplementedError(
-            "loading converted LongCat checkpoints (io/convert_longcat.py) "
-            "and the refinement LoRA wait until the weights are in the "
-            "repository; use random_init=True")
+        return load_converted_longcat(checkpoint_dir, use_distill,
+                                      device=dev, dit_cfg=dit_cfg,
+                                      vae_cfg=vae_cfg, umt5_cfg=umt5_cfg,
+                                      policy=policy)
     dit_cfg = dit_cfg or DEFAULT_RANDOM_LONGCAT
     vae_cfg = vae_cfg or DEFAULT_RANDOM_VAE
     dit_params = init_longcat_dit(P.make_generator(seed, dev), dit_cfg,
@@ -168,32 +192,50 @@ def load_avatar_pipeline(checkpoint_dir: Optional[str] = None,
                          dit_cfg: Optional[AvatarConfig] = None,
                          vae_cfg: Optional[WanVAEConfig] = None,
                          w2v_cfg: Optional[Wav2Vec2Config] = None,
+                         umt5_cfg: Optional[UMT5Config] = None,
                          seed: int = 0,
                          ) -> Tuple[AvatarPipeline, Callable, Callable]:
     """Returns (AvatarPipeline, encode_text(str) -> (embeds, mask),
     encode_audio(wav [1, L], num_frames) -> per-frame audio windows).
 
-    At random init the JAX loader's reduced sizes by default: the loaders'
+    device: None means the card (raises when there is none). With
+    ``checkpoint_dir`` (and not ``random_init``) the converted checkpoints
+    in ``<dir>/dit`` (``io/convert_longcat.py::convert_avatar_dit``),
+    ``<dir>/vae``, ``<dir>/wav2vec2`` (``io/convert_wav2vec2.py``),
+    ``<dir>/text_encoder`` and ``<dir>/tokenizer``, as the JAX loader
+    (:121-178): the avatar on the LongCat-Video 13.6B base, wav2vec2-base,
+    the Wan2.1 VAE and UMT5-XXL unless the configs say otherwise. At
+    random init the JAX loader's reduced sizes by default: the loaders'
     small LongCat base with 8 audio context tokens, a wav2vec2 of full
     width (768 x 12 layers) with FFN 1536, the small Wan VAE, and hash
-    embeddings for the text. device: None means the card (raises when there
-    is none). The DiT is built in bf16 one layer at a time on the device,
-    the VAE and wav2vec2 in fp32, from generators seeded ``seed``,
-    ``seed + 1`` and ``seed + 2``.
-    ``use_distill`` has no effect at random init, as in the JAX loader."""
+    embeddings for the text; the DiT built in bf16 one layer at a time on
+    the device, the VAE and wav2vec2 in fp32, from generators seeded
+    ``seed``, ``seed + 1`` and ``seed + 2``. ``use_distill`` has no effect
+    in either branch, as in the JAX loader."""
     del use_distill
     dev = resolve_device(device)
     if not (random_init or checkpoint_dir is None):
-        raise NotImplementedError(
-            "loading converted avatar checkpoints (io/convert_longcat.py, "
-            "io/convert_wav2vec2.py) waits until the weights are in the "
-            "repository; use random_init=True")
-    dit_cfg = dit_cfg or DEFAULT_RANDOM_AVATAR
-    vae_cfg = vae_cfg or DEFAULT_RANDOM_VAE
-    w2v_cfg = w2v_cfg or DEFAULT_RANDOM_WAV2VEC2
-    dit_params = init_avatar_dit(P.make_generator(seed, dev), dit_cfg)
-    vae_params = init_wan_vae(P.make_generator(seed + 1, dev), vae_cfg)
-    w2v_params = init_wav2vec2(P.make_generator(seed + 2, dev), w2v_cfg)
+        dit_cfg = dit_cfg or AvatarConfig(base=LongCatDiTConfig.longcat_13b())
+        vae_cfg = vae_cfg or WanVAEConfig.wan_2_1()
+        w2v_cfg = w2v_cfg or Wav2Vec2Config()
+        dit_params = convert_avatar_dit(
+            load_state_dict(os.path.join(checkpoint_dir, "dit")), dit_cfg,
+            device=dev)
+        vae_params = convert_wan_vae(
+            load_state_dict(os.path.join(checkpoint_dir, "vae")), vae_cfg,
+            device=dev)
+        w2v_params = convert_wav2vec2(
+            load_state_dict(os.path.join(checkpoint_dir, "wav2vec2")),
+            w2v_cfg, device=dev)
+        encode_text = longcat_text_encoder(checkpoint_dir, umt5_cfg, dev)
+    else:
+        dit_cfg = dit_cfg or DEFAULT_RANDOM_AVATAR
+        vae_cfg = vae_cfg or DEFAULT_RANDOM_VAE
+        w2v_cfg = w2v_cfg or DEFAULT_RANDOM_WAV2VEC2
+        dit_params = init_avatar_dit(P.make_generator(seed, dev), dit_cfg)
+        vae_params = init_wan_vae(P.make_generator(seed + 1, dev), vae_cfg)
+        w2v_params = init_wav2vec2(P.make_generator(seed + 2, dev), w2v_cfg)
+        encode_text = _hash_text_encoder(dit_cfg.base.caption_channels, dev)
     pipe = AvatarPipeline(dit_params=dit_params, dit_cfg=dit_cfg,
                           vae_params=vae_params, vae_cfg=vae_cfg)
 
@@ -202,5 +244,4 @@ def load_avatar_pipeline(checkpoint_dir: Optional[str] = None,
         return encode_audio_windows(w2v_params, w2v_cfg, wav, num_frames,
                                     window=window)
 
-    return (pipe, _hash_text_encoder(dit_cfg.base.caption_channels, dev),
-            encode_audio)
+    return pipe, encode_text, encode_audio

@@ -2,9 +2,10 @@
 video 4D warp CLI, ``cli/warp_depthcrafter.py``).
 
 Counterpart of ``worldforge_tpu/models/depthcrafter/inference.py``. The
-frames are resized to multiples of 64 (PIL bicubic) first. Without a
-checkpoint it stops with the JAX package's message; loading one waits for
-the port of the checkpoint converters (``io/convert_depthcrafter.py``).
+frames are resized to multiples of 64 (PIL bicubic) first. The weights
+come from a converted checkpoint directory
+(``io/convert_depthcrafter.py::load_converted_depthcrafter``); without one
+it stops with the JAX package's message.
 """
 
 from __future__ import annotations
@@ -12,12 +13,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-
-CHECKPOINT_NOT_PORTED = (
-    "loading converted DepthCrafter weights waits for the port of the "
-    "checkpoint converters (io/convert_depthcrafter.py); use --depth_npz "
-    "with precomputed depth")
-
 
 def resize_to_64(frames: np.ndarray, max_res: int = 1024) -> np.ndarray:
     """[T, H, W, 3] float [0, 1] -> the same, resized (PIL bicubic on the
@@ -41,12 +36,25 @@ def estimate_depth(frames: np.ndarray, *, num_inference_steps: int = 5,
                    checkpoint: Optional[str] = None, seed: int = 42,
                    device=None) -> np.ndarray:
     """frames [T, H, W, 3] float [0, 1] -> depth [T, H', W'] in [0, 1] at
-    the 64-multiple size. ``device`` defaults to the card."""
+    the 64-multiple size, from the DepthCrafter checkpoint directory
+    ``checkpoint``. ``device`` defaults to the card; the pipeline's noise
+    comes from a generator on it seeded ``seed``."""
     frames = resize_to_64(frames, max_res)
     if checkpoint is None:
         raise SystemExit(
             "DepthCrafter weights required: convert the tencent/DepthCrafter "
-            "checkpoint (see worldforge_tpu_torch.io.convert_depthcrafter, "
-            "a later slice of the port) or pass --depth_npz with "
-            "precomputed depth.")
-    raise NotImplementedError(CHECKPOINT_NOT_PORTED)
+            "checkpoint (see worldforge_tpu_torch.io.convert_depthcrafter) "
+            "or pass --depth_npz with precomputed depth.")
+    import torch
+
+    from worldforge_tpu_torch.core.dtypes import resolve_device
+    from worldforge_tpu_torch.io.convert_depthcrafter import \
+        load_converted_depthcrafter
+    from worldforge_tpu_torch.pipelines.depthcrafter import normalize_depth
+    dev = resolve_device(device)
+    pipe = load_converted_depthcrafter(checkpoint, device=dev)
+    out = pipe(torch.Generator(device=dev).manual_seed(seed), frames,
+               num_inference_steps=num_inference_steps,
+               guidance_scale=guidance_scale, window_size=window_size,
+               overlap=overlap)
+    return normalize_depth(out)

@@ -41,8 +41,11 @@ The per-frame modulation is a plain LayerNorm: its [B, T, C] shift and scale
 are not the per-(batch, channel) modulation of kernel 3, and the JAX package
 never calls that kernel here. Matrix products are ``torch.matmul``.
 
-Left for later slices: LoRA and quantized weights (``core/params.dense``
-raises), meshes and ``token_chunk`` > 1 (``longcat_dit_forward`` raises).
+LoRA adapters are merged into the weights (``merge_lora`` /
+``unmerge_lora`` here, ``io/convert_longcat.py::merge_lora_stacked`` for a
+converted checkpoint's). Left for later slices: runtime LoRA layers and
+quantized weights (``core/params.dense`` raises), meshes and
+``token_chunk`` > 1 (``longcat_dit_forward`` raises).
 """
 
 from __future__ import annotations
@@ -490,3 +493,52 @@ def longcat_dit_forward_with_cache(params, cfg: LongCatDiTConfig,
     out = P.dense(params["final"]["linear"], xN, compute_dtype=torch.float32)
     return unpatchify(out, (nt, nh, nw), cfg.patch_size,
                       cfg.out_channels).float()
+
+
+# ------------------------------------------------------------------ LoRA
+
+
+def lora_merged_weight(w: torch.Tensor, adapter: dict,
+                       scale: float = 1.0) -> torch.Tensor:
+    """``w + multiplier * (alpha / rank) * scale * down @ up``: the product
+    and the sum in fp32 on ``w``'s device (TF32 off), the multiplications
+    in the JAX package's order, rounded once to ``w``'s dtype. ``adapter``
+    holds ``down`` [in, r], ``up`` [r, out] and optionally ``alpha``
+    (default r) and ``multiplier`` (default 1)."""
+    down = adapter["down"].to(w.device, torch.float32)
+    up = adapter["up"].to(w.device, torch.float32)
+    alpha_scale = adapter.get("alpha", down.shape[1]) / down.shape[1]
+    with P.no_tf32_matmul():
+        delta = (down @ up * adapter.get("multiplier", 1.0) * alpha_scale
+                 * scale)
+    return (w.float() + delta).to(w.dtype)
+
+
+def merge_lora(params: dict, lora: dict, scale: float = 1.0) -> dict:
+    """Merge additive low-rank adapters into the weights (JAX
+    ``models/longcat/dit.py:703-727``; the reference toggles LoRA at run
+    time by forward patching, ``longcat_video_dit.py:197-270``, and merging
+    is the inference equivalent). ``lora`` maps a '/'-joined path to a
+    dense param (``final/linear``) to an adapter; a path into the blocks
+    (``blocks/qkv``) merges into every layer, as the JAX delta broadcasts
+    over the stacked leaf. Returns a new tree sharing every leaf it does
+    not change."""
+    def merge(node, keys, adapter):
+        if isinstance(node, list):
+            return [merge(n, keys, adapter) for n in node]
+        if not keys:
+            return dict(node, w=lora_merged_weight(node["w"], adapter,
+                                                   scale))
+        return dict(node, **{keys[0]: merge(node[keys[0]], keys[1:],
+                                            adapter)})
+
+    out = params
+    for path, adapter in lora.items():
+        out = merge(out, path.split("/"), adapter)
+    return out
+
+
+def unmerge_lora(params: dict, lora: dict, scale: float = 1.0) -> dict:
+    """``merge_lora`` with the opposite sign (JAX :729-730); equal to the
+    weights before the merge up to the rounding of the two merges."""
+    return merge_lora(params, lora, scale=-scale)

@@ -3,7 +3,8 @@
 Counterpart of ``worldforge_tpu/models/vggt/inference.py``
 (``init_vggt_full`` :34, ``vggt_forward`` :59, ``vggt_estimate`` :97)
 without the track branch, which comes with ``models/vggt/track.py``, and
-the world-point head, which no path of the warp reads.
+the world-point head, which no path of the warp reads (a converted
+checkpoint's point head is kept in the tree and not run).
 """
 
 from __future__ import annotations
@@ -25,12 +26,6 @@ from worldforge_tpu_torch.models.vggt.model import (VGGTConfig,
                                                     vggt_aggregator_forward)
 from worldforge_tpu_torch.models.vggt.utils import (
     load_and_preprocess_images, pose_encoding_to_extri_intri)
-
-CHECKPOINT_NOT_PORTED = (
-    "loading a converted VGGT checkpoint waits for the port of the "
-    "checkpoint converters (io/convert_vggt.py); use --depth_npz with "
-    "precomputed depth")
-
 
 def init_vggt_full(gen: torch.Generator, cfg: VGGTConfig,
                    dtype=torch.float32) -> dict:
@@ -89,14 +84,20 @@ def vggt_estimate(image_paths: Union[str, List[str]],
                   checkpoint: Optional[str] = None, camera_index: int = 0,
                   device=None
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """The warp's stage 1 from image files: ``depth_and_camera`` at the
-    preprocessed size (518 wide). Without a checkpoint it stops with the
-    JAX package's message; loading one waits for the converters."""
+    """The warp's stage 1 from image files: the converted VGGT-1B
+    checkpoint (``io/convert_vggt.py``) on ``device`` (the card by
+    default), then ``depth_and_camera`` at the preprocessed size (518
+    wide). Without a checkpoint it stops with the JAX package's
+    message."""
     if isinstance(image_paths, str):
         image_paths = [image_paths]
-    load_and_preprocess_images(image_paths)
+    images = load_and_preprocess_images(image_paths)
     if checkpoint is None:
         raise SystemExit(
             "VGGT weights required: pass --vggt_checkpoint (converted from "
             "facebook/VGGT-1B) or use --depth_npz with precomputed depth.")
-    raise NotImplementedError(CHECKPOINT_NOT_PORTED)
+    from worldforge_tpu_torch.io.convert_vggt import load_converted_vggt
+    dev = resolve_device(device)
+    cfg = VGGTConfig.vggt_1b()
+    params = load_converted_vggt(checkpoint, cfg, device=dev)
+    return depth_and_camera(params, cfg, images, camera_index, device=dev)
