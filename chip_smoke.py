@@ -119,6 +119,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    of the 48 blocks, ``convert_longcat_lora`` + ``merge_lora_stacked``
    into the 13.6B DiT on the card (timed), one block held against an fp32
    CPU recompute to 1 bf16 ulp.
+16. quant -- right after the generate: ``dense_q8`` / ``dense_q8_pre`` /
+   ``dense_q4`` / ``dense_q6`` on the card against the CPU (activation
+   codes, int32 sums and requantized weights equal; rows 1 to 300, the Wan
+   fc1's K and N), a small W4A8 guided generate with FLF on the card
+   against the CPU, the int8 GEMM (``torch._int_mm``) at the Wan fc1 / q /
+   text-k shapes beside bf16 ``matmul`` with the unfused quantization,
+   rescale and int4 / int6 requantization timed; then the W8A8, FFN-int4
+   and int6-FFN + int4 Wan2.1-I2V-14B builds, one at a time, each from the
+   generate's seed through the generate's guided repaint (drift from its
+   output, FLF sets, peak; kernels 1-4 must launch) and a forward at
+   20,280 tokens, the W8A8 build's layer 0 bit for bit against
+   ``quantize_tree`` of the bf16 layer and a rank-16 LoRA over it; UMT5-XXL
+   int8 on the encoders' ids; one all-int4 LongCat-13.6B forward.
 
 The line before the last holds the kernel table; the last line is the device
 summary.
@@ -2201,11 +2214,13 @@ def phase_encoders(first_frame, last_frame):
     return ctx, launches
 
 
-def _small_generate_check():
+def _small_generate_check(quant=None):
     """The same small random-init pipeline (the loader's reduced default
     configs, fp32 policy; weights drawn on the CPU and copied to the card)
     generated on the card with the kernels and on the CPU with their plain
-    versions, from the same noise stream."""
+    versions, from the same noise stream. With ``quant`` (``quantize_tree``
+    keywords) the DiT is quantized on the CPU first, and the card runs the
+    int8 products (the line's phase is generate_small_w4a8_vs_cpu)."""
     import dataclasses
 
     import numpy as np
@@ -2227,6 +2242,10 @@ def _small_generate_check():
                            resample_round=steps, omega=1.8)
     pipe, enc_t, enc_i = load_wan_pipeline(random_init=True, device="cpu",
                                            policy=FP32_POLICY)
+    if quant is not None:
+        from worldforge_tpu_torch.ops.quant import quantize_tree
+        pipe = dataclasses.replace(
+            pipe, dit_params=quantize_tree(pipe.dit_params, **quant))
     on_card = dataclasses.replace(
         pipe, dit_params=P.tree_map(lambda t: t.cuda(), pipe.dit_params),
         vae_params=P.tree_map(lambda t: t.cuda(), pipe.vae_params))
@@ -2251,7 +2270,9 @@ def _small_generate_check():
     # (see tests/test_torch_pipeline.py): bf16 noise level
     tol = 2e-2
     ok = bool(torch.isfinite(a).all()) and rel_l2 < tol and len(handed) >= 1
-    emit({"phase": "generate_small_vs_cpu", "shape": list(a.shape),
+    emit({"phase": "generate_small_vs_cpu" if quant is None else
+          "generate_small_w4a8_vs_cpu", "quant": quant,
+          "shape": list(a.shape),
           "steps": steps, "use_flf": guide.use_flf,
           "flf_channels_by_step_card": picked["cuda"],
           "flf_sets_equal_cpu": picked["cuda"] == picked["cpu"],
@@ -2360,8 +2381,405 @@ def phase_generate(warp_dir, ctx):
     if not (ok_shape and finite):
         raise SystemExit("chip_smoke: generate output is wrong")
     _require_launches(launches, WAN_PATH_KERNELS, "generate")
-    del pipe, out
+    del pipe
+    return {"launches": launches, "out": out,
+            "flf": {r["step"]: r["channels"] for r in flf}}
+
+
+# ------------------------------------------------------------------ quant
+
+# H100 SXM data sheet: the dense int8 tensor-core rate
+PEAK_INT8_OPS = 1979e12
+WAN_TOKENS = (DIT_FRAMES // 4 + 1) * (HEIGHT // 16) * (WIDTH // 16)  # 20,280
+# the small card-against-CPU checks of the quantized products: rows, and
+# (K, N) of a tiny layer and of the Wan FFN's fc1
+QUANT_ROWS = (1, 7, 16, 17, 300)
+QUANT_KN = ((64, 64), (5120, 13824))
+# the int8 GEMM at the Wan2.1-14B shapes: (what, M, K, N)
+INT8_GEMMS = (("ffn fc1", WAN_TOKENS, 5120, 13824),
+              ("self-attn q", WAN_TOKENS, 5120, 5120),
+              ("cross-attn k (text)", TEXT_LEN, 5120, 5120))
+# the full-width builds of the generate: (name, builder keywords); W8A8 is
+# init_wan_dit_int8, the others init_wan_dit_w4 (FFN-int4 is the build the
+# JAX package's bench.py measures)
+QUANT_BUILDS = (("w8a8", None),
+                ("ffn_int4", {}),
+                ("int6_ffn_int4", {"int6_keys": ("fc1", "fc2"),
+                                   "int4_keys": ("*",)}))
+LORA_SMOKE_RANK = 16
+LORA_SMOKE_TARGETS = ("q", "k", "v", "o", "fc1", "fc2")
+
+
+def _quant_kernel_checks():
+    """``dense_q8`` / ``dense_q8_pre`` / ``dense_q4`` / ``dense_q6`` on the
+    card against the CPU, from one set of CPU-made weights and inputs:
+    the activation codes, the int32 sums and the requantized int4 / int6
+    weights exactly equal; the outputs to 1e-6 relative in fp32 and 1 ulp
+    in bf16 (the rescale is the same elementwise arithmetic on both)."""
+    from worldforge_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(5)
+    card = lambda p: {k: v.cuda() for k, v in p.items()}
+    worst = {"fp32_rel": 0.0, "bf16_ulps": 0.0}
+    equal = {"activation_codes": True, "int32_sums": True,
+             "requantized_weights": True}
+    for k, n in QUANT_KN:
+        w = torch.randn((k, n), generator=gen) / math.sqrt(k)
+        b = torch.randn((n,), generator=gen)
+        leaves = {"w8": Q.quantize_dense({"w": w, "b": b}),
+                  "w4": Q.quantize_dense_int4({"w": w, "b": b}),
+                  "w6": Q.quantize_dense_int6({"w": w, "b": b})}
+        on_card = {key: card(p) for key, p in leaves.items()}
+        for key, fn in (("w4", Q._requantize_int4_to_int8),
+                        ("w6", Q._requantize_int6_to_int8)):
+            equal["requantized_weights"] &= torch.equal(
+                fn(on_card[key]).cpu(), fn(leaves[key]))
+        for m in QUANT_ROWS:
+            x = torch.randn((m, k), generator=gen)
+            x8, sx = Q.quantize_activations(x)
+            x8c, sxc = Q.quantize_activations(x.cuda())
+            equal["activation_codes"] &= (torch.equal(x8c.cpu(), x8)
+                                          and torch.equal(sxc.cpu(), sx))
+            equal["int32_sums"] &= torch.equal(
+                Q.int8_matmul(x8c, on_card["w8"]["w8"]).cpu(),
+                Q.int8_matmul(x8, leaves["w8"]["w8"]))
+            pairs = [(Q.dense_q8_pre(on_card["w8"], x8c, sxc),
+                      Q.dense_q8_pre(leaves["w8"], x8, sx))]
+            for key, fn in (("w8", Q.dense_q8), ("w4", Q.dense_q4),
+                            ("w6", Q.dense_q6)):
+                for dt in (torch.float32, torch.bfloat16):
+                    pairs.append((fn(on_card[key], x.cuda().to(dt)),
+                                  fn(leaves[key], x.to(dt))))
+            for got, want in pairs:
+                got = got.cpu()
+                if want.dtype == torch.float32:
+                    worst["fp32_rel"] = max(worst["fp32_rel"], float(
+                        (got - want).abs().max() / want.abs().max()))
+                else:
+                    worst["bf16_ulps"] = max(worst["bf16_ulps"],
+                                             bf16_ulps(got, want))
+    ok = (all(equal.values()) and worst["fp32_rel"] <= 1e-6
+          and worst["bf16_ulps"] <= 1.0)
+    emit({"phase": "quant", "part": "kernel_checks_vs_cpu",
+          "rows": list(QUANT_ROWS), "k_n": [list(kn) for kn in QUANT_KN],
+          "equal_to_cpu": {k: bool(v) for k, v in equal.items()},
+          **worst, "tol": {"fp32_rel": 1e-6, "bf16_ulps": 1.0},
+          "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("chip_smoke: the quantized products on the card "
+                         "disagree with the CPU")
+
+
+def _int8_gemm_line():
+    """The int8 product (``torch._int_mm``, cuBLASLt) at the Wan2.1-14B
+    shapes beside the bf16 ``torch.matmul``, and the unfused work around it:
+    the activation quantization, the rescale to bf16, the int4 and int6
+    requantization of the weight, and each ``dense_q*`` whole."""
+    from worldforge_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+    rows = []
+    for what, m, k, n in INT8_GEMMS:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).to(bf16)
+        p8 = Q.quantize_dense({"w": w})
+        p4 = Q.quantize_dense_int4({"w": w})
+        p6 = Q.quantize_dense_int6({"w": w})
+        x8, sx = Q.quantize_activations(x)
+        acc = Q.int8_matmul(x8, p8["w8"])
+        it = 10 if m > 1000 else 50
+        t_b, by = bound(2.0 * m * k * n, m * k + k * n + 4 * m * n,
+                        PEAK_INT8_OPS)
+        rows.append({
+            "what": what, "m_k_n": [m, k, n],
+            "int8_ms": cuda_ms(lambda: Q.int8_matmul(x8, p8["w8"]), it),
+            "bf16_matmul_ms": cuda_ms(lambda: x @ w, it),
+            "quantize_activations_ms": cuda_ms(
+                lambda: Q.quantize_activations(x), it),
+            "rescale_ms": cuda_ms(
+                lambda: Q._rescale(acc, sx, p8["scale"], None, bf16), it),
+            "requant_int4_ms": cuda_ms(
+                lambda: Q._requantize_int4_to_int8(p4), it),
+            "requant_int6_ms": cuda_ms(
+                lambda: Q._requantize_int6_to_int8(p6), it),
+            "dense_q8_ms": cuda_ms(lambda: Q.dense_q8(p8, x), it),
+            "dense_q4_ms": cuda_ms(lambda: Q.dense_q4(p4, x), it),
+            "dense_q6_ms": cuda_ms(lambda: Q.dense_q6(p6, x), it),
+            "int8_bound_ms": t_b, "int8_bound_by": by})
+        del x, w, p8, p4, p6, x8, sx, acc
+    torch.cuda.empty_cache()
+    emit({"phase": "quant", "part": "int8_gemm", "rows": rows,
+          "bound": "int8 GEMM: operations over 1,979 TOPS or bytes (int8 "
+                   "in, int32 out) over 3.35 TB/s, the larger"})
+
+
+def _quant_forward_s(params, cfg):
+    """Two forwards at the dit phase's 20,280-token inputs (seed 1): the
+    seconds of each, and the output."""
+    from worldforge_tpu_torch.models.wan.dit import wan_dit_forward
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lat = (DIT_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8)
+    x = torch.randn((1, cfg.out_dim) + lat, generator=gen, device="cuda")
+    y = torch.randn((1, cfg.in_dim - cfg.out_dim) + lat, generator=gen,
+                    device="cuda")
+    ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                      device="cuda")
+    clip = torch.randn((1, 257, cfg.clip_dim), generator=gen, device="cuda")
+    t = torch.tensor([999.0], device="cuda")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = wan_dit_forward(params, cfg, x, t, ctx, clip_fea=clip, y=y)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return times, out
+
+
+def _lora_over_w8a8(params, cfg):
+    """Rank-16 adapters on q k v o fc1 fc2 of every block (``init_lora``,
+    ``up`` randomised), attached unmerged by ``apply_lora``: the forward at
+    20,280 tokens; one layer's LoRA term on the card against an fp64 CPU
+    recompute of ``((x @ down) @ up) * scale`` and its whole output against
+    the CPU's ``dense`` of the same leaf."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.training.lora import apply_lora, init_lora
+    gen = P.make_generator(17, "cuda")
+    t0 = time.time()
+    lora = init_lora(gen, params, rank=LORA_SMOKE_RANK,
+                     targets=LORA_SMOKE_TARGETS)
+    for a in lora.values():
+        a["up"] = 0.02 * P.normal(gen, tuple(a["up"].shape))
+    lp = apply_lora(params, lora, scale=0.5)
+    torch.cuda.synchronize()
+    attach_s = time.time() - t0
+    fwd_s, out = _quant_forward_s(lp, cfg)
+    leaf = lp["blocks"][0]["self_attn"]["q"]
+    xs = torch.randn((64, cfg.dim), generator=gen, device="cuda")
+    term = P.dense({"w": torch.zeros((cfg.dim, cfg.dim), device="cuda"),
+                    **{k: v for k, v in leaf.items()
+                       if k.startswith("lora_")}}, xs).cpu()
+    down, up = leaf["lora_down"].cpu().double(), leaf["lora_up"].cpu().double()
+    want = ((xs.cpu().double() @ down) @ up * 0.5).float()
+    term_rel = float((term - want).abs().max() / want.abs().max())
+    cpu_leaf = {k: v.cpu() for k, v in leaf.items()}
+    whole = P.dense(leaf, xs).cpu()
+    whole_rel = float((whole - P.dense(cpu_leaf, xs.cpu())).abs().max()
+                      / whole.abs().max())
+    rec = {"adapters": len(lora), "rank": LORA_SMOKE_RANK,
+           "targets": list(LORA_SMOKE_TARGETS), "attach_s": attach_s,
+           "adapter_bytes": nbytes(*_leaves(lora)),
+           "forward_s": fwd_s, "finite": bool(torch.isfinite(out).all()),
+           "layer0_q_term_rel_vs_cpu_fp64": term_rel,
+           "layer0_q_output_rel_vs_cpu": whole_rel,
+           "term_over_output": float(term.abs().max() / whole.abs().max())}
+    return rec, rec["finite"] and term_rel <= 1e-5 and whole_rel <= 1e-5
+
+
+def _quant_generate(name, kw, warp_dir, ctx, bf16_run, vae):
+    """One full-width quantized Wan2.1-I2V-14B: built on the card layer by
+    layer from the generate phase's seed (its head randomised as that
+    phase's is), then the generate phase's guided repaint on it, its DiT
+    forwards timed, then two forwards at 20,280 tokens; W8A8 also the
+    forward with adapters, and its layer 0 against ``quantize_tree`` of the
+    bf16 layer from the same seed. Returns (launches, ok)."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan import dit
+    from worldforge_tpu_torch.ops.quant import quantize_tree
+    from worldforge_tpu_torch.pipelines import wan_i2v
+    cfg = dit.WanDiTConfig.wan_14b_i2v()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gen = P.make_generator(0, "cuda")
+    params = (dit.init_wan_dit_int8(gen, cfg) if kw is None
+              else dit.init_wan_dit_w4(gen, cfg, **kw))
+    head = params["head"]["head"]
+    head["w"] = (0.02 * P.normal(P.make_generator(99, "cuda"),
+                                 tuple(head["w"].shape))).to(head["w"].dtype)
+    torch.cuda.synchronize()
+    rec = {"phase": "quant", "part": "wan_generate", "build": name,
+           "builder": "init_wan_dit_int8" if kw is None else
+           f"init_wan_dit_w4({kw or ''})", "build_s": time.time() - t0,
+           "build_peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "dit_bytes": nbytes(*_leaves(params)),
+           "cuts": {"frames": f"{GEN_FRAMES} of 49",
+                    "steps": f"{GEN_STEPS} of 50"}}
+    ok = True
+    if kw is None:
+        one = dit.init_wan_dit_layerwise(P.make_generator(0, "cuda"),
+                                         dataclasses.replace(cfg,
+                                                             num_layers=1))
+        bad = _tree_mismatches(params["blocks"][0],
+                               quantize_tree(one)["blocks"][0])
+        rec["layer0_equal_quantize_tree"] = not bad
+        ok &= not bad
+        del one
+    pipe = wan_i2v.WanI2VPipeline(dit_params=params, dit_cfg=cfg,
+                                  vae_params=vae[0], vae_cfg=vae[1])
+    fwd = []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(wan_i2v, "wan_dit_forward", fwd):
+        run = _guided_generate(pipe, warp_dir, ctx)
+    out, fp = run["out"], bf16_run["out"]
+    picked = {r["step"]: r["channels"] for r in run["flf"]}
+    finite = bool(np.isfinite(out).all())
+    rec.update({
+        "total_s": run["total_s"], "step_s": run["step_s"],
+        "dit_forward_s": [r["s"] for r in fwd],
+        "final_decode_s": run["final_decode_s"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "drift_vs_bf16": float(np.abs(fp - out).max() / np.abs(fp).max()),
+        "drift_metric": "max|bf16 - q| / max|bf16| over the decoded "
+                        "frames (tests/test_int4_quality.py's metric)",
+        "flf_channels_by_step": picked,
+        "flf_sets_equal_bf16": picked == bf16_run["flf"],
+        "launches": run["launches"], "finite": finite,
+        "out_shape": list(out.shape)})
+    ok &= finite and out.shape == fp.shape
+    launches = run["launches"]
+    del pipe, run, out
+    gc.collect()
+    rec["forward_20280_s"], f_out = _quant_forward_s(params, cfg)
+    rec["forward_20280_finite"] = bool(torch.isfinite(f_out).all())
+    ok &= rec["forward_20280_finite"]
+    del f_out
+    if kw is None:
+        rec["lora"], lora_ok = _lora_over_w8a8(params, cfg)
+        ok &= lora_ok
+    rec["ok"] = bool(ok)
+    emit(rec)
+    return launches, ok
+
+
+def _quant_umt5(ctx):
+    """UMT5-XXL W8A8 (``init_umt5_int8`` from the encoders phase's seed) on
+    that phase's 512 ids and masks: s, bytes, and the drift from the bf16
+    encoder's output (``tests/test_umt5_int8.py``'s metric)."""
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.encoders import umt5
+    ucfg = umt5.UMT5Config.xxl()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    up = umt5.init_umt5_int8(P.make_generator(13, "cuda"), ucfg)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, ucfg.vocab_size, (2, TEXT_LEN)), device="cuda")
+    mask = torch.zeros((2, TEXT_LEN), dtype=torch.int32, device="cuda")
+    mask[0, :PROMPT_TOKENS] = 1
+    mask[1, :NEGATIVE_TOKENS] = 1
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        text = umt5.umt5_encode(up, ucfg, ids, mask)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    q_bytes, q_embed = nbytes(*_leaves(up)), nbytes(up["embed"])
+    q_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del up
+    fp = torch.cat([ctx["pe"], ctx["ne"]])
+    drift = lambda a: float((a - fp).abs().max() / fp.abs().max())
+    # the yardstick: the same bf16 weights with fp32 activations
+    bf = umt5.init_umt5(P.make_generator(13, "cuda"), ucfg)
+    text32 = umt5.umt5_encode(bf, ucfg, ids, mask,
+                              compute_dtype=torch.float32)
+    del bf
+    ok = (bool(torch.isfinite(text).all())
+          and not bool(text[0, PROMPT_TOKENS:].any()))
+    emit({"phase": "quant", "part": "umt5_int8", "build_s": build_s,
+          "bytes": q_bytes, "embed_bytes": q_embed, "encode_s": times,
+          "peak_gb": q_peak, "drift_vs_bf16": drift(text),
+          "drift_fp32_compute_vs_bf16": drift(text32),
+          "drift_metric": "max|bf16 - q| / max|bf16| over both rows "
+                          "(tests/test_umt5_int8.py's metric)", "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: the int8 UMT5 output is wrong")
+
+
+def _quant_longcat():
+    """LongCat-Video-13.6B all-int4 W4A8 (``init_longcat_dit_w4``): built
+    on the card, one forward at 20,280 tokens (the guided i2v's shape, a
+    cond frame, the hash prompt's mask). Returns the forward's launches."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.longcat import dit
+    cfg = dit.LongCatDiTConfig.longcat_13b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = dit.init_longcat_dit_w4(P.make_generator(7, "cuda"), cfg)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    t_lat = DIT_FRAMES // 4 + 1
+    x = torch.randn((1, cfg.in_channels, t_lat, HEIGHT // 8, WIDTH // 8),
+                    generator=gen, device="cuda")
+    ctx = torch.randn((1, TEXT_LEN, cfg.caption_channels), generator=gen,
+                      device="cuda")
+    mask = torch.zeros((1, TEXT_LEN), dtype=torch.int32, device="cuda")
+    mask[:, :LC_KV_LEN] = 1
+    t = torch.full((1, t_lat), 700.0, device="cuda")
+    t[:, 0] = 0.0
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = dit.longcat_dit_forward(params, cfg, x, t, ctx,
+                                  encoder_attention_mask=mask,
+                                  num_cond_latents=1)
+    torch.cuda.synchronize()
+    fwd_s = time.time() - t0
+    launches = _read_counters()
+    ok = (bool(torch.isfinite(out).all())
+          and tuple(out.shape) == tuple(x.shape))
+    emit({"phase": "quant", "part": "longcat_all_int4", "build_s": build_s,
+          "dit_bytes": nbytes(*_leaves(params)), "tokens": LC_TOKENS,
+          "forward_s": fwd_s,
+          "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches, "ok": ok})
+    del params, out
+    if not ok:
+        raise SystemExit("chip_smoke: the all-int4 LongCat forward is wrong")
+    _require_launches(launches, ("flash_attention", "rope_qk"),
+                      "quant LongCat")
     return launches
+
+
+def phase_quant(warp_dir, ctx, bf16_run):
+    """Quantized serving (W8A8 / W4A8 / W6A8, ``ops/quant.py``): the
+    products on the card against the CPU (and a small W4A8 generate), the
+    int8 GEMM at the Wan shapes, the three full-width Wan builds through
+    the generate phase's guided repaint (each freed before the next), a
+    LoRA over the W8A8 build, UMT5-XXL int8 and the all-int4 LongCat
+    forward. Returns the launches of each path."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig, init_wan_vae
+    _quant_kernel_checks()
+    _small_generate_check(quant={"int4_keys": ("fc1", "fc2")})
+    _int8_gemm_line()
+    vcfg = WanVAEConfig.wan_2_1()
+    vae = (init_wan_vae(P.make_generator(1, "cuda"), vcfg), vcfg)
+    by_path = {}
+    for name, kw in QUANT_BUILDS:
+        launches, ok = _quant_generate(name, kw, warp_dir, ctx, bf16_run,
+                                       vae)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SystemExit(f"chip_smoke: the {name} generate is wrong")
+        _require_launches(launches, WAN_PATH_KERNELS, f"quant {name}")
+        by_path[f"quant_{name}"] = launches
+    del vae
+    _quant_umt5(ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["quant_longcat_all_int4"] = _quant_longcat()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def _stage1_video(t, h, w, seed=0):
@@ -3498,11 +3916,6 @@ def phase_avatar(frames, ctx, work_dir, decode93):
 CKPT_SHARD_BYTES = 5 * 10 ** 9          # upstream shards are about 5 GB
 CKPT_DISK_MARGIN = 2 * 10 ** 9
 LORA_RANK = 128
-SAFETENSORS_CODES = {torch.bfloat16: "BF16", torch.float16: "F16",
-                     torch.float32: "F32", torch.float64: "F64",
-                     torch.int64: "I64", torch.int32: "I32",
-                     torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
-                     torch.bool: "BOOL"}
 
 
 def _w_lin(sd, name, p):
@@ -3780,31 +4193,20 @@ def _nbytes_of(sd) -> int:
 
 def write_safetensors(path, tensors) -> int:
     """``tensors`` (name -> tensor on any device, any layout) as one
-    .safetensors file: the header from the shapes and dtypes, then each
-    tensor made contiguous where it lives, copied to the host and written,
-    one at a time; then fsync and drop the file from the page cache (so a
-    later read comes from the disk). Returns the file's bytes."""
-    import struct
-    header, off = {}, 0
-    for name, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[name] = {"dtype": SAFETENSORS_CODES[t.dtype],
-                        "shape": list(t.shape), "data_offsets": [off, off + n]}
-        off += n
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for t in tensors.values():
-            host = t.detach().contiguous().cpu().reshape(-1)
-            if host.numel():
-                f.write(memoryview(host.view(torch.uint8).numpy()))
-            del host
-        f.flush()
-        os.fsync(f.fileno())
-        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
-    return 8 + len(raw) + off
+    .safetensors file through the port's writer
+    (``io/torch_load.py::save_safetensors``: each tensor made contiguous
+    where it lives and copied to the host one at a time); then fsync and
+    drop the file from the page cache (so a later read comes from the
+    disk). Returns the file's bytes."""
+    from worldforge_tpu_torch.io.torch_load import save_safetensors
+    n = save_safetensors(path, tensors)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return n
 
 
 def write_sharded(dirpath, sd, prefix="model") -> int:
@@ -4335,7 +4737,12 @@ def main() -> int:
     ctx, by_path["encoders"] = phase_encoders(
         frames[0, :, 0].transpose(1, 2, 0),
         frames[0, :, -1].transpose(1, 2, 0))
-    by_path["generate"] = phase_generate(warp_dir, ctx)
+    bf16_run = phase_generate(warp_dir, ctx)
+    by_path["generate"] = bf16_run["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(phase_quant(warp_dir, ctx, bf16_run))
+    del bf16_run
     gc.collect()
     torch.cuda.empty_cache()
     by_path["checkpoints"] = phase_checkpoints(

@@ -26,8 +26,8 @@ def _imported_roots(path):
 
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
-    LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar and
-    checkpoint modules among them."""
+    LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar,
+    checkpoint, quantization and LoRA modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -53,7 +53,8 @@ def test_isolation_covers_the_port_modules():
                 "cli/run_avatar.py", "io/torch_load.py",
                 "io/convert_wan.py", "io/convert_encoders.py",
                 "io/convert_longcat.py", "io/convert_wav2vec2.py",
-                "io/convert_vggt.py", "io/convert_depthcrafter.py"):
+                "io/convert_vggt.py", "io/convert_depthcrafter.py",
+                "ops/quant.py", "training/lora.py", "training/__init__.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 
@@ -188,3 +189,39 @@ def test_random_init_pipeline_on_cpu():
     # as the JAX loader's does (its reader cannot open <dir>/transformer)
     with pytest.raises(FileNotFoundError):
         load_wan_pipeline("/nonexistent", device="cpu")
+
+
+def test_builders_put_leaves_on_the_generators_device(monkeypatch):
+    """The quantized builders make every leaf on ``gen.device``: the card
+    for a card generator, the CPU only for a CPU one. A stand-in generator
+    on the meta device (``P.uniform`` / ``P.normal`` replaced for the call)
+    shows that no leaf falls back to the CPU."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.encoders import umt5
+    from worldforge_tpu_torch.models.longcat import dit as ldit
+    from worldforge_tpu_torch.models.wan import dit as wdit
+    builds = (
+        lambda g: wdit.init_wan_dit_int8(g, wdit.WanDiTConfig.tiny("i2v")),
+        lambda g: wdit.init_wan_dit_w4(g, wdit.WanDiTConfig.tiny("i2v"),
+                                       int6_keys=("fc1",)),
+        lambda g: ldit.init_longcat_dit_w4(g, ldit.LongCatDiTConfig.tiny()),
+        lambda g: ldit.init_longcat_dit_int8(g, ldit.LongCatDiTConfig.tiny()),
+        lambda g: umt5.init_umt5_int8(g, umt5.UMT5Config.tiny()))
+
+    def devices(tree):
+        out = set()
+        P.tree_map(lambda t: out.add(t.device.type), tree)
+        return out
+
+    for build in builds:
+        assert devices(build(torch.Generator().manual_seed(0))) == {"cpu"}
+
+    class MetaGen:
+        device = torch.device("meta")
+
+    monkeypatch.setattr(P, "uniform", lambda gen, shape, limit: torch.empty(
+        shape, device=gen.device))
+    monkeypatch.setattr(P, "normal", lambda gen, shape, std=1.0: torch.empty(
+        shape, device=gen.device))
+    for build in builds:
+        assert devices(build(MetaGen())) == {"meta"}

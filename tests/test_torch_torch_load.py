@@ -82,6 +82,24 @@ def test_reader_matches_safetensors_every_dtype(tmp_path):
     assert "missing" not in sd
 
 
+def test_writer_output_reads_in_safetensors(tmp_path):
+    """``save_safetensors`` (LoRA files, ``chip_smoke.py``'s checkpoint
+    export): every dtype, scalars, empty tensors and non-contiguous views,
+    read back by ``safetensors`` itself and by the port's reader, bit for
+    bit and in the stored dtype; the returned size is the file's."""
+    ts = _tensors(1)
+    ts["int8.col_major"] = _sample(torch.int8, (6, 4),
+                                   torch.Generator().manual_seed(2)).t()
+    path = str(tmp_path / "written.safetensors")
+    assert tload.save_safetensors(path, ts) == os.path.getsize(path)
+    sd = tload.load_state_dict(path)
+    with safe_open(path, framework="pt") as ref:
+        assert list(ref.keys()) == sorted(ts)
+        for name, t in ts.items():
+            assert _same(ref.get_tensor(name), t.contiguous()), name
+            assert _same(sd[name], t.contiguous()), name
+
+
 def test_reader_reads_each_tensor_on_access(tmp_path):
     """A lookup reads the file: nothing is kept, each read is a tensor of
     its own, and a tensor written after the header was parsed is read as it

@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from worldforge_tpu_torch.ops import quant
+
 
 # ---------------------------------------------------------------- init
 
@@ -80,33 +82,47 @@ def dense(p: dict, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """``x @ w + b`` with the JAX package's dtype rules
     (``worldforge_tpu/core/params.py:42-99``).
 
+    Quantized leaves (``w8`` / ``w4`` / ``w6``) take ``ops/quant.py``'s
+    int8 products, with the output in ``compute_dtype or x.dtype``.
+
     bf16-stored weights under an fp32 compute request keep the fp32
     activation precision with a two-term bf16 split ``x = hi + lo``:
     ``y = hi @ w + lo @ w`` with exact bf16 products accumulated in fp32 (the
     JAX ``preferred_element_type=float32`` dot). PyTorch has no bf16 matmul
     with an fp32 result, so both terms run as fp32 products of the
-    bf16-valued operands, which is the same arithmetic."""
-    for key in ("w8", "w4", "w6", "lora_down"):
-        if key in p:
-            raise NotImplementedError(
-                f"dense param '{key}': quantized and LoRA weights are not "
-                f"ported yet (a later slice of the port)")
-    w = p["w"]
-    if compute_dtype == torch.float32 and w.dtype == torch.bfloat16:
-        wf = w.float()
-        if x.dtype == torch.float32:
-            hi = x.to(torch.bfloat16)
-            lo = (x - hi.float()).to(torch.bfloat16)
-            y = hi.float() @ wf + lo.float() @ wf
-        else:
-            y = x.to(torch.bfloat16).float() @ wf
+    bf16-valued operands, which is the same arithmetic. With no compute
+    dtype, x and w of two dtypes are both cast to their promoted dtype
+    first, as JAX's ``x @ w`` promotes (bf16 weights under fp32
+    activations become exact fp32 values).
+
+    An unmerged LoRA (``lora_down`` / ``lora_up`` / ``lora_scale``, which
+    ``training/lora.py::apply_lora`` attaches to quantized leaves) adds
+    ``((x @ down) @ up) * scale`` in fp32."""
+    if quant.is_quantized(p):
+        fn = (quant.dense_q8 if "w8" in p else
+              quant.dense_q4 if "w4" in p else quant.dense_q6)
+        y = fn(p, x, out_dtype=compute_dtype or x.dtype)
     else:
-        if compute_dtype is not None:
-            w = w.to(compute_dtype)
-            x = x.to(compute_dtype)
-        y = x @ w
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        w = p["w"]
+        if compute_dtype == torch.float32 and w.dtype == torch.bfloat16:
+            wf = w.float()
+            if x.dtype == torch.float32:
+                hi = x.to(torch.bfloat16)
+                lo = (x - hi.float()).to(torch.bfloat16)
+                y = hi.float() @ wf + lo.float() @ wf
+            else:
+                y = x.to(torch.bfloat16).float() @ wf
+        else:
+            dt = compute_dtype or torch.promote_types(x.dtype, w.dtype)
+            y = x.to(dt) @ w.to(dt)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+    if "lora_down" in p:
+        delta = (x.float() @ p["lora_down"].float()) @ p["lora_up"].float()
+        scale = p.get("lora_scale", 1.0)
+        if isinstance(scale, torch.Tensor):
+            scale = scale.float()
+        y = (y.float() + delta * scale).to(y.dtype)
     return y
 
 

@@ -9,7 +9,9 @@ change is the unstacking. Leaves arrive as numpy arrays (``np.asarray`` of
 each JAX leaf); bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) are carried
 over bit for bit. A Wan VAE tree needs no unstacking: ``tree_from_numpy``
 carries it over as it is, as it does the SVD UNet and VAE trees, whose
-blocks are lists in JAX too.
+blocks are lists in JAX too. Quantized trees (``ops/quant.py``) and trees
+with unmerged LoRA terms come across with their dtypes kept, the stacked
+leaves split per layer.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from worldforge_tpu_torch.ops.quant import is_quantized
 
 
 def tensor_from_numpy(a, device: Optional[Union[str, torch.device]] = None,
@@ -34,8 +38,13 @@ def tensor_from_numpy(a, device: Optional[Union[str, torch.device]] = None,
 
 
 def tree_from_numpy(tree, device=None, dtype=None):
-    """Map ``tensor_from_numpy`` over a nested dict/list tree."""
+    """Map ``tensor_from_numpy`` over a nested dict/list tree. ``dtype``
+    casts every leaf except those of a quantized dense or one with an
+    attached LoRA: the integer codes, the fp32 scales and bias and the
+    ``lora_*`` terms keep the dtypes they arrive in."""
     if isinstance(tree, dict):
+        if is_quantized(tree) or "lora_down" in tree:
+            dtype = None
         return {k: tree_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_from_numpy(v, device, dtype) for v in tree]
@@ -43,7 +52,9 @@ def tree_from_numpy(tree, device=None, dtype=None):
 
 
 def unstack_layers(stacked: dict) -> list:
-    """``{name: [L, ...]}`` (nested) -> ``[{name: [...]}] * L``."""
+    """``{name: [L, ...]}`` (nested) -> ``[{name: [...]}] * L``. A 0-d leaf
+    (the ``lora_scale`` that JAX's ``apply_lora`` attaches to a stacked
+    quantized leaf) holds for every layer and is given to each."""
     leaves = []
 
     def walk(t):
@@ -54,12 +65,12 @@ def unstack_layers(stacked: dict) -> list:
             leaves.append(t)
 
     walk(stacked)
-    n = leaves[0].shape[0]
+    n = next(t.shape[0] for t in leaves if np.ndim(t))
 
     def take(t, i):
         if isinstance(t, dict):
             return {k: take(v, i) for k, v in t.items()}
-        return t[i]
+        return t[i] if np.ndim(t) else t
 
     return [take(stacked, i) for i in range(n)]
 
@@ -138,6 +149,13 @@ def avatar_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     port's (``models/longcat/avatar.py``): the stacked blocks (the LongCat
     block with the audio extras) unstacked; ``audio_proj`` as it is."""
     return _unstack_keys(tree, ("blocks",), device, dtype)
+
+
+def lora_from_jax(lora: dict, device=None) -> dict:
+    """JAX adapters (``training/lora.py``: path -> {down, up}, stacked
+    ``[L, ...]`` for the blocks) -> the same layout as torch tensors, which
+    the port's ``training/lora.py`` reads."""
+    return {path: tree_from_numpy(a, device) for path, a in lora.items()}
 
 
 def wav2vec2_params_from_jax(tree: dict, device=None, dtype=None) -> dict:

@@ -1,4 +1,5 @@
-"""Checkpoint reading: state dicts as torch tensors in their stored dtype.
+"""Checkpoint reading (and one writer): state dicts as torch tensors in
+their stored dtype.
 
 Counterpart of ``worldforge_tpu/io/torch_load.py``. ``load_state_dict``
 takes what the JAX reader takes (a ``.safetensors`` file, a ``.pth`` /
@@ -15,7 +16,9 @@ two differences:
 ``.safetensors`` files are parsed here (an 8-byte little-endian header
 length, a JSON header of ``dtype`` / ``shape`` / ``data_offsets`` relative
 to the end of the header and an optional ``__metadata__``, then the raw
-little-endian bytes), without the ``safetensors`` package. ``.pth`` files go
+little-endian bytes), without the ``safetensors`` package;
+``save_safetensors`` writes that layout (LoRA adapters,
+``training/lora.py::save_lora``). ``.pth`` files go
 through ``torch.load(mmap=True, weights_only=True)``.
 
 The layout helpers (``linear_w``, ``conv3d_to_patch_dense``,
@@ -152,6 +155,32 @@ def load_state_dict(path: str) -> LazyStateDict:
     else:
         sd.add_file(path)
     return sd
+
+
+def save_safetensors(path: str, tensors: Mapping) -> int:
+    """Write ``tensors`` (name -> tensor on any device) as one
+    ``.safetensors`` file in the layout ``SafetensorsFile`` reads: the
+    header from the shapes and dtypes (padded with spaces to 8 bytes),
+    then each tensor's bytes, copied to the host one at a time. Returns the
+    file's size in bytes."""
+    codes = {dt: code for code, dt in SAFETENSORS_DTYPES.items()}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu().reshape(-1)
+            if host.numel():
+                f.write(memoryview(host.view(torch.uint8).numpy()))
+            del host
+    return 8 + len(raw) + off
 
 
 # ------------------------------------------------------------ layouts

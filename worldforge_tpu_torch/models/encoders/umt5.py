@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from worldforge_tpu_torch.core import params as P
+from worldforge_tpu_torch.ops.quant import quantize_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +92,17 @@ def init_umt5(gen: torch.Generator, cfg: UMT5Config,
     """Random init on ``gen.device``, one layer at a time (each drawn in
     fp32 and cast, so the peak is the model plus one fp32 layer); the
     blocks as a list."""
+    return init_umt5_layerwise(gen, cfg, dtype)
+
+
+def init_umt5_layerwise(gen: torch.Generator, cfg: UMT5Config,
+                        dtype=torch.bfloat16, layer_transform=None) -> dict:
+    """``init_umt5`` with each layer passed through ``layer_transform(tree)
+    -> tree`` as it is made; the draws run in the same order either way
+    (the embedding, then the blocks), so a transformed build equals the
+    transform of ``init_umt5``'s layers from a generator in the same
+    state. The embedding and the final norm are not transformed."""
+    tf = layer_transform or (lambda t: t)
     embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
                         device=gen.device)
     for r0 in range(0, cfg.vocab_size, 16384):      # fp32 draws in slices
@@ -98,10 +110,24 @@ def init_umt5(gen: torch.Generator, cfg: UMT5Config,
         embed[r0:r0 + rows] = P.normal(gen, (rows, cfg.d_model)).to(dtype)
     return {
         "embed": embed,
-        "blocks": [init_umt5_layer(gen, cfg, dtype)
+        "blocks": [tf(init_umt5_layer(gen, cfg, dtype))
                    for _ in range(cfg.num_layers)],
         "ln_f": P.rms_norm_init(cfg.d_model, dtype=dtype, device=gen.device),
     }
+
+
+# UMT5's T5 leaf names (wi_0 / wi_1 / wo) are not in quant.DEFAULT_KEYS
+UMT5_INT8_KEYS = ("q", "k", "v", "o", "wi_0", "wi_1", "wo")
+
+
+def init_umt5_int8(gen: torch.Generator, cfg: UMT5Config,
+                   dtype=torch.bfloat16) -> dict:
+    """W8A8 build of the encoder, layer by layer: the attention and FFN
+    products of every block in int8, the embedding (a gather) in
+    ``dtype``."""
+    return init_umt5_layerwise(
+        gen, cfg, dtype, layer_transform=lambda t: quantize_tree(
+            t, predicate=lambda path: path.split("/")[-1] in UMT5_INT8_KEYS))
 
 
 @torch.inference_mode()

@@ -43,14 +43,17 @@ never calls that kernel here. Matrix products are ``torch.matmul``.
 
 LoRA adapters are merged into the weights (``merge_lora`` /
 ``unmerge_lora`` here, ``io/convert_longcat.py::merge_lora_stacked`` for a
-converted checkpoint's). Left for later slices: runtime LoRA layers and
-quantized weights (``core/params.dense`` raises), meshes and
-``token_chunk`` > 1 (``longcat_dit_forward`` raises).
+converted checkpoint's). Quantized trees (``init_longcat_dit_int8`` /
+``init_longcat_dit_w4``) and unmerged adapters over them
+(``training/lora.py::apply_lora``) run through ``core/params.dense``.
+Left for later slices: meshes and ``token_chunk`` > 1
+(``longcat_dit_forward`` raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -62,6 +65,7 @@ from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from worldforge_tpu_torch.models.wan.dit import patchify, unpatchify
 from worldforge_tpu_torch.ops.attention import attention
 from worldforge_tpu_torch.ops.bsa import bsa_attention_3d
+from worldforge_tpu_torch.ops.quant import quantize_tree
 from worldforge_tpu_torch.ops.rope import (apply_rope, apply_rope_qk,
                                            rope_cos_sin)
 
@@ -131,10 +135,25 @@ def init_longcat_dit(gen: torch.Generator, cfg: LongCatDiTConfig,
     """Random init on ``gen.device``, one layer at a time (the JAX init's
     shapes, dtypes and distributions; a torch.Generator draws other numbers
     than a JAX key)."""
+    return init_longcat_dit_layerwise(gen, cfg, dtype)
+
+
+def init_longcat_dit_layerwise(gen: torch.Generator, cfg: LongCatDiTConfig,
+                               dtype=torch.bfloat16,
+                               layer_transform=None) -> dict:
+    """The DiT built one layer at a time on ``gen.device``, each layer
+    passed through ``layer_transform(tree) -> tree`` as it is made (the
+    peak is the transformed model plus one untransformed layer), then the
+    embedders and the final layer, transformed once. The draws run in the
+    same order with or without a transform (the blocks, then the
+    embedders and the final layer), so a transformed build equals the
+    transform of ``init_longcat_dit`` from a generator in the same
+    state."""
+    tf = layer_transform or (lambda t: t)
     c = cfg.hidden_size
     pin = cfg.in_channels * math.prod(cfg.patch_size)
-    return {
-        "blocks": [init_longcat_layer(gen, cfg, dtype)
+    p = {
+        "blocks": [tf(init_longcat_layer(gen, cfg, dtype))
                    for _ in range(cfg.depth)],
         "x_embedder": P.dense_init(gen, pin, c, dtype=dtype),
         "t_embedder": {
@@ -154,6 +173,28 @@ def init_longcat_dit(gen: torch.Generator, cfg: LongCatDiTConfig,
                                    * cfg.out_channels, dtype=dtype),
         },
     }
+    if layer_transform is None:
+        return p
+    return dict(tf(dict(p, blocks=[])), blocks=p["blocks"])
+
+
+def init_longcat_dit_int8(gen: torch.Generator, cfg: LongCatDiTConfig,
+                          dtype=torch.bfloat16) -> dict:
+    """W8A8 build, layer by layer (per-block adaLN weights in bf16)."""
+    return init_longcat_dit_layerwise(gen, cfg, dtype,
+                                      layer_transform=quantize_tree)
+
+
+def init_longcat_dit_w4(gen: torch.Generator, cfg: LongCatDiTConfig,
+                        dtype=torch.bfloat16, int4_keys=("*",),
+                        int4_group: int = 128, int6_keys=(),
+                        int6_group: int = 128) -> dict:
+    """int4 (W4A8) build, all-int4 by default; ``int6_keys`` takes the
+    6-bit rung first (see ``wan.dit.init_wan_dit_w4``)."""
+    return init_longcat_dit_layerwise(
+        gen, cfg, dtype, layer_transform=functools.partial(
+            quantize_tree, int4_keys=int4_keys, int4_group=int4_group,
+            int6_keys=int6_keys, int6_group=int6_group))
 
 
 # ------------------------------------------------------------------ pieces

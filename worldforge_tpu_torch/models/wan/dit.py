@@ -14,15 +14,19 @@ kernel's plain version):
   - q/k RoPE -> ``ops/rope.apply_rope_qk`` (kernel 2),
   - self- and cross-attention -> ``ops/attention`` -> flash attention
     (kernel 1).
-Matrix products are ``torch.matmul``, as the JAX package leaves them to XLA.
+Matrix products are ``torch.matmul``, as the JAX package leaves them to XLA;
+on a quantized tree (``init_wan_dit_int8`` / ``init_wan_dit_w4``) they are
+``ops/quant.py``'s int8 products, and the W8A8 self-attention quantizes its
+input once for q, k and v.
 
-Left for later slices: quantized weights and LoRA (``core/params.dense``
-raises), meshes and ``token_chunk`` > 1 (``wan_dit_forward`` raises).
+Left for later slices: meshes and ``token_chunk`` > 1 (``wan_dit_forward``
+raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -33,6 +37,9 @@ from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from worldforge_tpu_torch.ops.attention import attention
 from worldforge_tpu_torch.ops.fused_norm import modulated_layer_norm
+from worldforge_tpu_torch.ops.quant import (dense_q8_pre,
+                                            quantize_activations,
+                                            quantize_tree)
 from worldforge_tpu_torch.ops.rope import apply_rope_qk, rope_cos_sin
 
 CLIP_TOKENS = 257  # i2v CLIP image context tokens
@@ -117,6 +124,22 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
                  dtype=torch.bfloat16) -> dict:
     """Random init on ``gen.device`` (the JAX init's shapes, dtypes and
     distributions; a torch.Generator draws other numbers than a JAX key)."""
+    return init_wan_dit_layerwise(gen, cfg, dtype)
+
+
+def init_wan_dit_layerwise(gen: torch.Generator, cfg: WanDiTConfig,
+                           dtype=torch.bfloat16,
+                           layer_transform=None) -> dict:
+    """The DiT built one layer at a time on ``gen.device``, each layer
+    passed through ``layer_transform(tree) -> tree`` (e.g.
+    ``ops/quant.py::quantize_tree``) as it is made, so the peak is the
+    transformed model plus one untransformed layer; the blocks outside the
+    list are transformed once at the end. The generator draws in the order
+    of the dict below (patch, text embedding, time, projection, the blocks
+    in order, the head, ``img_emb``) with or without a transform, so a
+    transformed build equals the transform of ``init_wan_dit`` from a
+    generator in the same state."""
+    tf = layer_transform or (lambda t: t)
     d = cfg.dim
     dev = gen.device
     pin = cfg.in_dim * math.prod(cfg.patch_size)
@@ -133,7 +156,7 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
             "fc2": P.dense_init(gen, d, d, init="normal", dtype=torch.float32),
         },
         "time_projection": P.dense_init(gen, d, d * 6, dtype=torch.float32),
-        "blocks": [init_wan_dit_layer(gen, cfg, dtype=dtype)
+        "blocks": [tf(init_wan_dit_layer(gen, cfg, dtype=dtype))
                    for _ in range(cfg.num_layers)],
         "head": {
             "head": P.dense_init(gen, d, cfg.out_dim * math.prod(
@@ -152,7 +175,32 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
         if cfg.model_type == "flf2v":
             p["img_emb"]["emb_pos"] = torch.zeros(
                 (1, 2 * CLIP_TOKENS, c), dtype=dtype, device=dev)
-    return p
+    if layer_transform is None:
+        return p
+    return dict(tf(dict(p, blocks=[])), blocks=p["blocks"])
+
+
+def init_wan_dit_int8(gen: torch.Generator, cfg: WanDiTConfig,
+                      dtype=torch.bfloat16) -> dict:
+    """W8A8 build, layer by layer: equal to
+    ``quantize_tree(init_wan_dit(gen, cfg, dtype))`` bit for bit."""
+    return init_wan_dit_layerwise(gen, cfg, dtype,
+                                  layer_transform=quantize_tree)
+
+
+def init_wan_dit_w4(gen: torch.Generator, cfg: WanDiTConfig,
+                    dtype=torch.bfloat16, int4_keys=("fc1", "fc2"),
+                    int4_group: int = 128, int6_keys=(),
+                    int6_group: int = 128) -> dict:
+    """Mixed-precision build: int4 (W4A8) on ``int4_keys`` (the FFN by
+    default), W8A8 on the other large products; ``int4_keys=("*",)`` is
+    all-int4, and ``int6_keys`` takes the 6-bit rung first
+    (``int6_keys=("fc1", "fc2"), int4_keys=("*",)``: int6 FFN + int4
+    attention)."""
+    return init_wan_dit_layerwise(
+        gen, cfg, dtype, layer_transform=functools.partial(
+            quantize_tree, int4_keys=int4_keys, int4_group=int4_group,
+            int6_keys=int6_keys, int6_group=int6_group))
 
 
 # ------------------------------------------------------------------ pieces
@@ -173,10 +221,22 @@ def _heads(x, h):
 
 
 def _self_attention(p, cfg: WanDiTConfig, x, cos, sin, policy: Policy):
-    xq = x.to(policy.compute_dtype)
-    q = P.rms_norm(p["norm_q"], P.dense(p["q"], xq), eps=cfg.eps)
-    k = P.rms_norm(p["norm_k"], P.dense(p["k"], xq), eps=cfg.eps)
-    v = P.dense(p["v"], xq)
+    cdt = policy.compute_dtype
+    xq = x.to(cdt)
+    if "w8" in p["q"] and not any(
+            "lora_down" in p[k] for k in ("q", "k", "v")):
+        # W8A8: q / k / v share one activation quantization; leaves with
+        # an unmerged LoRA take the generic dense
+        x8, sx = quantize_activations(xq)
+        q = P.rms_norm(p["norm_q"], dense_q8_pre(p["q"], x8, sx, cdt),
+                       eps=cfg.eps)
+        k = P.rms_norm(p["norm_k"], dense_q8_pre(p["k"], x8, sx, cdt),
+                       eps=cfg.eps)
+        v = dense_q8_pre(p["v"], x8, sx, cdt)
+    else:
+        q = P.rms_norm(p["norm_q"], P.dense(p["q"], xq), eps=cfg.eps)
+        k = P.rms_norm(p["norm_k"], P.dense(p["k"], xq), eps=cfg.eps)
+        v = P.dense(p["v"], xq)
     h = cfg.num_heads
     q, k = apply_rope_qk(_heads(q, h), _heads(k, h), cos, sin)
     o = attention(q, k, _heads(v, h))
