@@ -133,6 +133,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``quantize_tree`` of the bf16 layer and a rank-16 LoRA over it; UMT5-XXL
    int8 on the encoders' ids; one all-int4 LongCat-13.6B forward.
 
+17. train -- right after the quant phase (the kernels phase holds the
+   backward kernels of kernels 1-3 against autograd of their plain versions
+   at the DiTs' shapes, kernel 1's at small ragged shapes with ``kv_lens``
+   and d 64 too, and shows that a gradient through kernel 1 with no
+   backward instantiation raises): a widened tiny Wan2.1 i2v takes one
+   ``make_lora_train_step`` step on the card and on the CPU, which must
+   agree; then the Wan2.1-I2V-14B with rank-16 adapters on every
+   LORA_TARGETS leaf of its 40 blocks (3 steps at 20,280 tokens with ``y``
+   and CLIP tokens), the Wan2.1-T2V-1.3B fully fine-tuned (fp32 weights,
+   bf16 compute, 3 steps at 32,760 tokens) and the LongCat-13.6B with
+   rank-16 adapters through ``longcat_forward`` (2 steps at 20,280
+   tokens), all at full width and depth with remat and AdamW, each freed
+   before the next: losses finite, seconds per step, peaks, adapters moved,
+   the base bit-unchanged, and launches per step of kernels 1-3 forward and
+   backward (1-2 on LongCat), every one of which must launch.
+
 The line before the last holds the kernel table; the last line is the device
 summary.
 """
@@ -943,6 +959,7 @@ def phase_kernels():
     _check_flash_masked(gen, records, 64, torch.float32, b=2, sq=100, sk=8,
                         kv_lens=(8, 5))
     main.update(_dc_kernel_checks(gen, records))
+    main.update(_backward_kernel_checks(gen, records))
     for rec in records:
         emit({"phase": "kernels", **rec})
     bad = [r["check"] for r in records if not r["ok"]]
@@ -1040,6 +1057,285 @@ def _dc_kernel_checks(gen, records):
     return rows
 
 
+# ------------------------------------------------------------ backward kernels
+
+
+def _check_flash_bwd(gen, records, b, sq, sk, h, d, label, kv_lens=None,
+                     iters=0):
+    """Kernel 1's backward (``flash_attention_backward``, through autograd
+    of ``flash_attention``) against autograd of ``flash_attention_plain``
+    on the same bf16 inputs and output gradient: dq, dk and dv each within
+    1e-2 relative L2 (both sides round P and dS to bf16 in other places),
+    keys past ``kv_lens`` and a ``kv_len = 0`` row exactly zero; the max
+    bf16 ulps reported. ``iters``: also time it beside its bound (five
+    products of 2 Sq Sk D H; the design computes seven), the plain
+    backward (run one head at a time, which is the same function on the
+    same inputs: all 40 heads' autograd graph at 20,280 tokens holds 98.7
+    GB) and SDPA's backward at the same shapes."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        _launch, flash_attention, flash_attention_backward,
+        flash_attention_plain)
+    mk = lambda s: torch.randn(s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = mk((b, sq, h, d)), mk((b, sk, h, d)), mk((b, sk, h, d))
+    do = mk((b, sq, h, d))
+    kl = None if kv_lens is None else torch.tensor(
+        kv_lens, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(d)
+    rec = {"check": label, "shape": [b, sq, sk, h, d], "kv_lens": kv_lens}
+    if not iters:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash_attention(*leaves, kv_lens=kl).backward(do)
+        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash_attention_plain(*plain, kv_lens=kl).backward(do)
+        torch.cuda.synchronize()
+        grads = [t.grad for t in leaves]
+        refs = [t.grad for t in plain]
+        del leaves, plain
+    else:
+        # the plain version one head at a time, its backward timed alone
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        flash_attention(*leaves, kv_lens=kl).backward(do)
+        grads = [t.grad for t in leaves]
+        del leaves
+        refs = [torch.empty_like(t) for t in (q, k, v)]
+        plain_ms = 0.0
+        for hh in range(-1, h):            # head -1: a warm-up of head 0
+            sl = slice(max(hh, 0), max(hh, 0) + 1)
+            part = [t[:, :, sl].detach().requires_grad_(True)
+                    for t in (q, k, v)]
+            o = flash_attention_plain(*part, kv_lens=kl)
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            g = torch.autograd.grad(o, part, do[:, :, sl])
+            t1.record()
+            torch.cuda.synchronize()
+            if hh >= 0:
+                plain_ms += t0.elapsed_time(t1)
+                for r, gg in zip(refs, g):
+                    r[:, :, sl] = gg
+            del o, part, g
+    ok = True
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        rel = float((g.float() - r.float()).norm() /
+                    r.float().norm().clamp_min(1e-30))
+        rec[f"{name}_rel_l2_err"] = rel
+        rec[f"{name}_max_ulps_bf16"] = bf16_ulps(g, r)
+        rec[f"{name}_max_abs_err"] = float((g.float() - r.float()).abs().max())
+        ok = ok and rel <= 1e-2 and bool(torch.isfinite(g).all())
+    if kv_lens is not None:
+        for i, n in enumerate(kv_lens):
+            ok = ok and not grads[1][i, n:].any() and not grads[2][i, n:].any()
+            if n == 0:
+                ok = ok and not grads[0][i].any()
+    rec.update({"max_abs_err": max(rec[f"{n}_max_abs_err"]
+                                    for n in ("dq", "dk", "dv")),
+                "tol_rel_l2": 1e-2, "ok": ok})
+    if iters:
+        o, m, l = _launch(q, k, v, kl, scale, True)
+        ms = cuda_ms(lambda: flash_attention_backward(
+            q, k, v, o, do, m, l, kl, scale), iters)
+        keys = sk if kv_lens is None else sum(kv_lens) / b
+        flops = 5 * 2.0 * b * h * sq * keys * d
+        io = nbytes(q, o, do, q, m, l) + 4 * nbytes(k) * keys / sk
+        bms, by = bound(flops, io, PEAK_BF16_FLOPS)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), iters)
+        rec.update({"ms": ms, "plain_ms": plain_ms,
+                    "plain": "autograd of flash_attention_plain, one head "
+                             "at a time", "bound_ms": bms, "bound_by": by,
+                    "design_products": 7, "design_bound_ms":
+                    bms * 7 / 5 if by == "operations" else bms,
+                    "library_ms": lib_ms,
+                    "library": "backward of F.scaled_dot_product_attention"})
+        del o, m, l, ot, qt, kt, vt
+    records.append(rec)
+    return rec
+
+
+def _check_rope_bwd(gen, records, grid, h, d, iters, in_dtype, label, b=1):
+    """Kernel 2's backward (the Triton kernel at -theta) against autograd of
+    ``apply_rope_qk_plain``: bf16 out, the gradient bf16 in, out in the
+    inputs' dtype (bf16 for the Wan DiT: within 1 bf16 ulp; fp32 for the
+    LongCat DiT: within 1e-6 of the largest gradient)."""
+    from worldforge_tpu_torch.ops.rope import (apply_rope_qk,
+                                               apply_rope_qk_backward,
+                                               apply_rope_qk_plain,
+                                               rope_cos_sin)
+    s = math.prod(grid)
+    mk = lambda dt: torch.randn((b, s, h, d), generator=gen,
+                                device="cuda").to(dt)
+    q, k = mk(in_dtype), mk(in_dtype)
+    gq, gk = mk(torch.bfloat16), mk(torch.bfloat16)
+    cos, sin = rope_cos_sin(*grid, d, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k)]
+    torch.autograd.backward(list(apply_rope_qk(
+        *leaves, cos, sin, out_dtype=torch.bfloat16)), [gq, gk])
+    plain = [t.clone().requires_grad_(True) for t in (q, k)]
+    outs = apply_rope_qk_plain(*plain, cos, sin, out_dtype=torch.bfloat16)
+    torch.autograd.backward(list(outs), [gq, gk], retain_graph=bool(iters))
+    torch.cuda.synchronize()
+    err = max(float((a.grad.float() - p.grad.float()).abs().max())
+              for a, p in zip(leaves, plain))
+    rec = {"check": label, "shape": [b, s, h, d], "dtype_in": str(in_dtype),
+           "max_abs_err": err,
+           "grad_dtype_ok": all(a.grad.dtype == in_dtype for a in leaves)}
+    if in_dtype == torch.bfloat16:
+        ulps = max(bf16_ulps(a.grad, p.grad) for a, p in zip(leaves, plain))
+        rec.update({"max_ulps_bf16": ulps, "tol_ulps": 1,
+                    "ok": ulps <= 1 and rec["grad_dtype_ok"]})
+    else:
+        rel = err / max(float(p.grad.abs().max()) for p in plain)
+        rec.update({"max_rel_err": rel, "tol_rel": 1e-6,
+                    "ok": rel <= 1e-6 and rec["grad_dtype_ok"]})
+    if iters:
+        ms = cuda_ms(lambda: apply_rope_qk_backward(gq, gk, cos, sin,
+                                                    in_dtype), iters)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            outs, plain, (gq, gk), retain_graph=True), 3)
+        bms, by = bound(6.0 * q.numel(), nbytes(gq, gk) + 2 * nbytes(q)
+                        + nbytes(cos, sin), PEAK_FP32_FLOPS)
+        rec.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None, "library":
+                    "none: no PyTorch call rotates interleaved pairs"})
+    records.append(rec)
+    return rec
+
+
+def _check_mod_ln_bwd(gen, records, s, d, iters):
+    """Kernel 3's backward (two Triton passes) against autograd of
+    ``modulated_layer_norm_ref``: dx, dsc and dsh each within 1e-5 relative
+    L2 (fp32 sums over 5,120 channels and 20,280 tokens in another
+    order); timed beside the autograd of ``F.layer_norm`` with weight
+    1 + scale and bias shift and the bf16 cast (the same function at
+    B = 1)."""
+    from worldforge_tpu_torch.ops.fused_norm import (
+        modulated_layer_norm, modulated_layer_norm_backward,
+        modulated_layer_norm_ref)
+    x = torch.randn((1, s, d), generator=gen, device="cuda") * 3.0 + 0.5
+    sc = torch.randn((1, 1, d), generator=gen, device="cuda") * 0.1
+    sh = torch.randn((1, 1, d), generator=gen, device="cuda") * 0.1
+    dy = torch.randn((1, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (x, sc, sh)]
+    modulated_layer_norm(*leaves).backward(dy)
+    plain = [t.clone().requires_grad_(True) for t in (x, sc, sh)]
+    ref = modulated_layer_norm_ref(*plain)
+    ref.backward(dy, retain_graph=True)
+    torch.cuda.synchronize()
+    rels = {n: float((a.grad - p.grad).norm() / p.grad.norm())
+            for n, a, p in zip(("dx", "dsc", "dsh"), leaves, plain)}
+    err = max(float((a.grad - p.grad).abs().max())
+              for a, p in zip(leaves, plain))
+    ms = cuda_ms(lambda: modulated_layer_norm_backward(x, sc, dy), iters)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        ref, plain, dy, retain_graph=True), 3)
+    bms, by = bound(12.0 * x.numel(), 2 * nbytes(x) + nbytes(dy)
+                    + 3 * nbytes(sc), PEAK_FP32_FLOPS)
+    w = (1.0 + sc[0, 0]).detach().requires_grad_(True)
+    bias = sh[0, 0].detach().requires_grad_(True)
+    xl = x.detach().requires_grad_(True)
+    y = torch.nn.functional.layer_norm(xl, (d,), weight=w,
+                                       bias=bias).to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        y, (xl, w, bias), dy, retain_graph=True), iters)
+    rec = {"check": "modulated_layer_norm backward", "shape": list(x.shape),
+           **{f"{n}_rel_l2_err": r for n, r in rels.items()},
+           "max_abs_err": err, "tol_rel_l2": 1e-5,
+           "ok": max(rels.values()) <= 1e-5, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "library": "backward of F.layer_norm(weight=1+scale, "
+                      "bias=shift) + bf16 cast"}
+    records.append(rec)
+    return rec
+
+
+def _check_bsa_sparse_bwd(gen, records, bh=4, s=1024, d=128):
+    """``bsa_sparse`` on the card (kernel 5 forward, the backward the
+    autograd of ``bsa_plain`` one head at a time) against autograd of
+    ``bsa_plain`` over all heads on the same selection, bf16, sparsity 0.5
+    on 8 chunks: dq, dk, dv within 1e-2 relative L2."""
+    from worldforge_tpu_torch.ops.bsa import (bsa_plain, bsa_sparse,
+                                              select_blocks)
+    mk = lambda: torch.randn((bh, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v, g = mk(), mk(), mk(), mk()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    bsa_sparse(*leaves, sparsity=0.5).backward(g)
+    idx, cnt = select_blocks(q, k, sparsity=0.5)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    bsa_plain(*plain, idx, cnt).backward(g)
+    torch.cuda.synchronize()
+    rels = {n: _rel_l2(a.grad, p.grad)
+            for n, a, p in zip(("dq", "dk", "dv"), leaves, plain)}
+    records.append({"check": "bsa_sparse backward (plain recompute)",
+                    "shape": [bh, s, d], **{f"{n}_rel_l2_err": r
+                                            for n, r in rels.items()},
+                    "tol_rel_l2": 1e-2, "ok": max(rels.values()) <= 1e-2})
+
+
+def _check_no_backward_fallback(records):
+    """On CUDA tensors a gradient through kernel 1 with no backward
+    instantiation (fp32, or bf16 with head dim 80) raises before anything
+    launches; no plain version stands in."""
+    from worldforge_tpu_torch.ops.flash_attention import flash_attention
+    raised = []
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 80)):
+        q = torch.zeros((1, 16, 2, d), dtype=dtype, device="cuda",
+                        requires_grad=True)
+        try:
+            flash_attention(q, q, q)
+        except ValueError as e:
+            raised.append("no instantiation" in str(e))
+        else:
+            raised.append(False)
+    records.append({"check": "flash_attention backward: no fallback",
+                    "raised": raised, "ok": all(raised)})
+
+
+def _backward_kernel_checks(gen, records):
+    """The backward kernels of kernels 1-3 against autograd of their plain
+    versions; returns the table rows' main records."""
+    s = (DIT_FRAMES // 4 + 1) * (HEIGHT // 16) * (WIDTH // 16)   # 20,280
+    main = {}
+    for b, sq, sk, h, d, kv in ((1, 4096, 4096, 8, 128, None),
+                                (2, 1560, 512, 4, 128, (512, 77)),
+                                (2, 1560, 257, 4, 128, (257, 100)),
+                                (3, 200, 300, 2, 64, (300, 0, 129)),
+                                (1, 1000, 1000, 4, 64, None)):
+        _check_flash_bwd(gen, records, b, sq, sk, h, d,
+                         f"flash_attention backward bf16 d{d} "
+                         f"[{b},{sq}->{sk},{h}]", kv_lens=kv)
+    main["flash_attention_backward"] = _check_flash_bwd(
+        gen, records, 1, s, s, 40, 128,
+        "flash_attention backward self-attn", iters=3)
+    _check_flash_bwd(gen, records, 1, s, TEXT_LEN, 40, 128,
+                     "flash_attention backward text cross-attn", iters=5)
+    _check_flash_bwd(gen, records, 1, s, 257, 40, 128,
+                     "flash_attention backward clip cross-attn", iters=5)
+    _check_flash_bwd(gen, records, 1, 4096, 4096, 16, 64,
+                     "flash_attention backward bf16 d64", iters=5)
+    _check_no_backward_fallback(records)
+    _check_bsa_sparse_bwd(gen, records)
+    main["rope_qk_backward"] = _check_rope_bwd(
+        gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16, WIDTH // 16), 40,
+        128, 20, torch.bfloat16, "rope_qk backward")
+    _check_rope_bwd(gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16,
+                                   WIDTH // 16), LC_HEADS, 128, 0,
+                    torch.float32, "rope_qk backward longcat fp32 in")
+    _check_rope_bwd(gen, records, (3, 3, 37), 12, 64, 0, torch.bfloat16,
+                    "rope_qk backward ragged", b=2)
+    main["modulated_layer_norm_backward"] = _check_mod_ln_bwd(
+        gen, records, s, 5120, 20)
+    return main
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1065,19 +1361,42 @@ KERNEL_META = {
     "bsa": {
         "route": "cuda", "source": "worldforge_tpu_torch/csrc/bsa.cu",
         "replaces": "worldforge_tpu/ops/bsa.py:100"},
+    "flash_attention_backward": {
+        "route": "cuda",
+        "source": "worldforge_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "worldforge_tpu/ops/flash_attention.py:34",
+        "note": "the gradient of kernel 1's function, which the JAX "
+                "package's training takes by autodiff of "
+                "ops/attention.py::attention (:40)"},
+    "rope_qk_backward": {
+        "route": "triton",
+        "source": "worldforge_tpu_torch/ops/_triton_kernels.py",
+        "replaces": "worldforge_tpu/ops/rope.py:101",
+        "note": "rope_qk_kernel launched at -theta"},
+    "modulated_layer_norm_backward": {
+        "route": "triton",
+        "source": "worldforge_tpu_torch/ops/_triton_kernels.py",
+        "replaces": "worldforge_tpu/ops/fused_norm.py:24",
+        "note": "mod_ln_bwd_kernel + colsum_kernel"},
 }
 
 
 def kernel_counters():
     from worldforge_tpu_torch.ops.bsa import bsa_bhsd
     from worldforge_tpu_torch.ops.conv3d import conv2d_3x3, conv3d_causal
-    from worldforge_tpu_torch.ops.flash_attention import flash_attention
-    from worldforge_tpu_torch.ops.fused_norm import modulated_layer_norm
-    from worldforge_tpu_torch.ops.rope import apply_rope_qk
+    from worldforge_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward)
+    from worldforge_tpu_torch.ops.fused_norm import (
+        modulated_layer_norm, modulated_layer_norm_backward)
+    from worldforge_tpu_torch.ops.rope import (apply_rope_qk,
+                                               apply_rope_qk_backward)
     return {"flash_attention": flash_attention, "rope_qk": apply_rope_qk,
             "modulated_layer_norm": modulated_layer_norm,
             "conv3d_causal": conv3d_causal, "conv2d_3x3": conv2d_3x3,
-            "bsa": bsa_bhsd}
+            "bsa": bsa_bhsd,
+            "flash_attention_backward": flash_attention_backward,
+            "rope_qk_backward": apply_rope_qk_backward,
+            "modulated_layer_norm_backward": modulated_layer_norm_backward}
 
 
 WAN_PATH_KERNELS = ("flash_attention", "rope_qk", "modulated_layer_norm",
@@ -2779,6 +3098,284 @@ def phase_quant(warp_dir, ctx, bf16_run):
     by_path["quant_longcat_all_int4"] = _quant_longcat()
     gc.collect()
     torch.cuda.empty_cache()
+    return by_path
+
+
+# ------------------------------------------------------------------ train
+
+# The Wan DiT's fp32 islands: the leaves init_wan_dit keeps fp32 in a bf16
+# build (adaLN modulation, time embedding and projection)
+WAN_FP32_ISLANDS = ("modulation", "time_embedding", "time_projection")
+TRAIN_STEPS_WAN14B, TRAIN_STEPS_T2V13B, TRAIN_STEPS_LONGCAT = 3, 3, 2
+TRAIN_RANK = 16
+T2V_TRAIN_TOKENS = (T2V_PUBLISHED_FRAMES // 4 + 1) * (HEIGHT // 16) * (
+    WIDTH // 16)                                                  # 32,760
+WAN_TRAIN_KERNELS = ("flash_attention", "flash_attention_backward",
+                     "rope_qk", "rope_qk_backward", "modulated_layer_norm",
+                     "modulated_layer_norm_backward")
+LONGCAT_TRAIN_KERNELS = ("flash_attention", "flash_attention_backward",
+                         "rope_qk", "rope_qk_backward")
+
+
+def _bf16_layout(params):
+    """An fp32 Wan DiT tree cast (differentiably) to the dtypes of a bf16
+    ``init_wan_dit``: every leaf bf16 but the fp32 islands."""
+    def walk(node, fp32):
+        if isinstance(node, dict):
+            return {k: walk(v, fp32 or k in WAN_FP32_ISLANDS)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, fp32) for v in node]
+        return node if fp32 else node.to(torch.bfloat16)
+    return walk(params, False)
+
+
+def _bf16_compute_forward(params, cfg, x, t, ctx, **kw):
+    """``make_train_step``'s forward for fp32 master weights with bf16
+    compute: the Wan forward on the bf16 layout of the weights (gradients
+    flow back to the fp32 leaves through the casts)."""
+    from worldforge_tpu_torch.training.step import _wan_forward
+    return _wan_forward(_bf16_layout(params), cfg, x, t, ctx, **kw)
+
+
+def _block_lora(gen, params, rank):
+    """Rank-``rank`` adapters on every LORA_TARGETS leaf of the blocks."""
+    from worldforge_tpu_torch.training import init_lora
+    return {p: a for p, a in init_lora(gen, params, rank=rank).items()
+            if p.startswith("blocks/")}
+
+
+def _train_inputs(shape, ctx_dim, gen, y_ch=0, clip_dim=0):
+    x0 = torch.randn(shape, generator=gen, device="cuda")
+    batch = {"x0": x0, "context": torch.randn(
+        (shape[0], TEXT_LEN, ctx_dim), generator=gen, device="cuda")}
+    if y_ch:
+        batch["y"] = torch.randn((shape[0], y_ch) + tuple(shape[2:]),
+                                 generator=gen, device="cuda")
+        batch["clip_fea"] = torch.randn((shape[0], 257, clip_dim),
+                                        generator=gen, device="cuda")
+    return batch
+
+
+def _run_train(name, step, state, batch, steps, kernels, extra):
+    """``steps`` steps of a train step on the card (launch counts from 0
+    just before the first, read after each), one JSON line; returns the
+    run's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    losses, secs, per_step = [], [], []
+    prev = {k: 0 for k in kernel_counters()}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(state, batch, gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        now = _read_counters()
+        per_step.append({k: now[k] - prev[k] for k in kernels})
+        prev = dict(now)
+    launches = _read_counters()
+    ok = all(math.isfinite(v) for v in losses)
+    emit({"phase": "train", "part": name, "steps": steps, "losses": losses,
+          "step_s": secs, "peak_gb": torch.cuda.max_memory_allocated()
+          / 2 ** 30, "launches_per_step": per_step,
+          "launches": {k: launches[k] for k in kernels}, **extra,
+          "ok": ok and extra.get("ok", True)})
+    if not (ok and extra.get("ok", True)):
+        raise SystemExit(f"chip_smoke: the {name} training run is wrong")
+    _require_launches(launches, kernels, f"train {name}")
+    return launches
+
+
+def _small_train_check():
+    """A widened tiny Wan2.1 i2v (2 layers, 2 heads of 128: the kernels'
+    instantiation) takes one ``make_lora_train_step`` step on the card and
+    one on the CPU from one set of bf16 weights (drawn on the CPU, zero
+    leaves randomised), rank-4 adapters (``up`` randomised so both factors
+    get gradients), one sigma and noise: the loss within 1e-2 relative and
+    each adapter gradient within 5e-2 relative L2 (bf16 activations and
+    upstream gradients, rounded in other places on the two sides, through
+    both layers' chains)."""
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, init_wan_dit
+    from worldforge_tpu_torch.training import (make_lora_train_step,
+                                               trainable_leaves)
+    cfg = WanDiTConfig(model_type="i2v", dim=256, ffn_dim=512, num_heads=2,
+                       num_layers=2, text_len=16, text_dim=64, freq_dim=32)
+    gen = P.make_generator(3)
+    base = _randomize_zero_leaves(init_wan_dit(gen, cfg), gen)
+    lora = _randomize_zero_leaves(_block_lora(gen, base, 4), gen, std=0.05)
+    rng = np.random.default_rng(4)
+    grid = (3, 18, 20)                            # 3 x 9 x 10 = 270 tokens
+    arrays = {"x0": (1, cfg.out_dim) + grid, "y": (1, cfg.in_dim -
+                                                  cfg.out_dim) + grid,
+              "context": (1, cfg.text_len, cfg.text_dim),
+              "clip_fea": (1, 257, cfg.clip_dim)}
+    batch = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in arrays.items()}
+    sigma = torch.tensor([0.63])
+    noise = torch.from_numpy(rng.standard_normal(arrays["x0"]).astype(
+        np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mv = lambda t: P.tree_map(lambda a: a.to(dev), t)
+        b_, l_ = mv(base), mv({p: {k: v.clone() for k, v in a.items()}
+                               for p, a in lora.items()})
+        opt = torch.optim.AdamW(trainable_leaves(l_), lr=1e-3,
+                                weight_decay=1e-4)
+        step = make_lora_train_step(cfg, opt, b_)
+        loss = step(l_, mv(batch), sigma=sigma.to(dev), noise=noise.to(dev))
+        out[dev] = (float(loss), {p: {k: v.grad.float().cpu()
+                                      for k, v in a.items()}
+                                  for p, a in l_.items()})
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = max(_rel_l2(out["cuda"][1][p][k], out["cpu"][1][p][k])
+                   for p in lora for k in ("down", "up"))
+    ok = loss_rel <= 1e-2 and grad_rel <= 5e-2
+    emit({"phase": "train", "part": "small_lora_step_vs_cpu",
+          "config": "tiny i2v widened: 2 layers, dim 256, 2 heads of 128",
+          "tokens": math.prod(grid) // 4, "loss_card": out["cuda"][0],
+          "loss_cpu": out["cpu"][0], "loss_rel_err": loss_rel,
+          "tol_loss_rel": 1e-2, "max_grad_rel_l2_err": grad_rel,
+          "tol_grad_rel_l2": 5e-2, "ok": ok})
+    if not ok:
+        raise SystemExit("chip_smoke: the small LoRA step disagrees card "
+                         "against CPU")
+
+
+def _train_wan14b_lora():
+    """Wan2.1-I2V-14B (published widths and depth, random bf16 weights with
+    the zero leaves randomised) with rank-16 adapters on every
+    LORA_TARGETS leaf of the 40 blocks, ``make_lora_train_step`` with
+    remat and AdamW (lr 1e-4, weight decay 1e-4) on 49 x 480 x 832
+    latents [1, 16, 13, 60, 104] (20,280 tokens) with ``y``, a 512-token
+    context and 257 CLIP tokens."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, init_wan_dit
+    from worldforge_tpu_torch.training import (make_lora_train_step,
+                                               trainable_leaves)
+    cfg = WanDiTConfig.wan_14b_i2v()
+    gen = P.make_generator(21, "cuda")
+    base = _randomize_zero_leaves(init_wan_dit(gen, cfg), gen)
+    lora = _block_lora(gen, base, TRAIN_RANK)
+    watch = {"blocks/0/self_attn/q/w": base["blocks"][0]["self_attn"]["q"]["w"],
+             "blocks/39/ffn/fc2/w": base["blocks"][39]["ffn"]["fc2"]["w"],
+             "head/head/w": base["head"]["head"]["w"]}
+    before = {k: v.clone() for k, v in watch.items()}
+    up0 = {p: a["up"].clone() for p, a in lora.items()}
+    opt = torch.optim.AdamW(trainable_leaves(lora), lr=1e-4,
+                            weight_decay=1e-4)
+    step = make_lora_train_step(cfg, opt, base, remat=True)
+    batch = _train_inputs((1, 16, DIT_FRAMES // 4 + 1, HEIGHT // 8,
+                           WIDTH // 8), cfg.text_dim, gen, y_ch=20,
+                          clip_dim=cfg.clip_dim)
+    moved = lambda: sum(int(not torch.equal(a["up"], up0[p]))
+                        for p, a in lora.items())
+    extra = {"model": "Wan2.1-I2V-14B", "mode": "lora", "rank": TRAIN_RANK,
+             "adapters": len(lora), "adapter_params": sum(
+                 t.numel() for a in lora.values() for t in a.values()),
+             "tokens": LC_TOKENS, "remat": True}
+    launches = _run_train("wan_i2v_14b_lora", step, lora, batch,
+                          TRAIN_STEPS_WAN14B, WAN_TRAIN_KERNELS, extra)
+    unchanged = {k: torch.equal(v, before[k]) for k, v in watch.items()}
+    n_moved = moved()
+    emit({"phase": "train", "part": "wan_i2v_14b_lora_state",
+          "adapters_moved": n_moved, "adapters": len(lora),
+          "base_unchanged": unchanged,
+          "ok": n_moved == len(lora) and all(unchanged.values())})
+    if n_moved != len(lora) or not all(unchanged.values()):
+        raise SystemExit("chip_smoke: the 14B LoRA run moved the base or "
+                         "left adapters still")
+    return launches
+
+
+def _train_wan1_3b_full():
+    """Wan2.1-T2V-1.3B (``wan_1_3b_t2v``, the published widths) fully
+    fine-tuned: fp32 parameters, bf16 compute, AdamW (lr 1e-5, weight decay
+    1e-4), remat, on 81 x 480 x 832 latents [1, 16, 21, 60, 104] (32,760
+    tokens) and a 512-token context."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, init_wan_dit
+    from worldforge_tpu_torch.training import (make_train_step,
+                                               trainable_leaves)
+    cfg = WanDiTConfig.wan_1_3b_t2v()
+    gen = P.make_generator(22, "cuda")
+    params = _randomize_zero_leaves(init_wan_dit(gen, cfg,
+                                                 dtype=torch.float32), gen)
+    leaves = trainable_leaves(params)
+    w0 = params["blocks"][0]["self_attn"]["q"]["w"].detach().clone()
+    opt = torch.optim.AdamW(leaves, lr=1e-5, weight_decay=1e-4)
+    step = make_train_step(cfg, opt, remat=True,
+                           forward_fn=_bf16_compute_forward)
+    batch = _train_inputs((1, 16, T2V_PUBLISHED_FRAMES // 4 + 1,
+                           HEIGHT // 8, WIDTH // 8), cfg.text_dim, gen)
+    n = sum(t.numel() for t in leaves)
+    extra = {"model": "Wan2.1-T2V-1.3B", "mode": "full fine-tune",
+             "params": n, "param_dtype": "float32", "compute": "bfloat16",
+             "tokens": T2V_TRAIN_TOKENS, "remat": True,
+             "note": "a 14B full fine-tune needs 16 B a parameter (fp32 "
+                     "weights, gradients and two Adam moments): ~224 GB at "
+                     "14B, more than one card's 80 GB"}
+    launches = _run_train("wan_t2v_1_3b_full", step, params, batch,
+                          TRAIN_STEPS_T2V13B, WAN_TRAIN_KERNELS, extra)
+    moved = not torch.equal(params["blocks"][0]["self_attn"]["q"]["w"], w0)
+    emit({"phase": "train", "part": "wan_t2v_1_3b_full_state",
+          "params_moved": moved, "ok": moved})
+    if not moved:
+        raise SystemExit("chip_smoke: the 1.3B fine-tune left its weights")
+    return launches
+
+
+def _train_longcat_lora():
+    """LongCat-Video-13.6B (published widths and depth, random bf16
+    weights, zero leaves randomised) with rank-16 adapters on every
+    LORA_TARGETS leaf of the 48 blocks, ``make_lora_train_step`` through
+    ``longcat_forward`` (remat, AdamW lr 1e-4) on [1, 16, 13, 60, 104]
+    latents (20,280 tokens) and a 512-token context."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.longcat.dit import (LongCatDiTConfig,
+                                                         init_longcat_dit)
+    from worldforge_tpu_torch.training import (longcat_forward,
+                                               make_lora_train_step,
+                                               trainable_leaves)
+    cfg = LongCatDiTConfig.longcat_13b()
+    gen = P.make_generator(23, "cuda")
+    base = _randomize_zero_leaves(init_longcat_dit(gen, cfg), gen)
+    lora = _block_lora(gen, base, TRAIN_RANK)
+    w0 = base["blocks"][0]["qkv"]["w"].clone()
+    opt = torch.optim.AdamW(trainable_leaves(lora), lr=1e-4,
+                            weight_decay=1e-4)
+    step = make_lora_train_step(cfg, opt, base, remat=True,
+                                forward_fn=longcat_forward)
+    batch = _train_inputs((1, cfg.in_channels, DIT_FRAMES // 4 + 1,
+                           HEIGHT // 8, WIDTH // 8), cfg.caption_channels,
+                          gen)
+    extra = {"model": "LongCat-Video-13.6B", "mode": "lora",
+             "rank": TRAIN_RANK, "adapters": len(lora),
+             "tokens": LC_TOKENS, "remat": True}
+    launches = _run_train("longcat_13b_lora", step, lora, batch,
+                          TRAIN_STEPS_LONGCAT, LONGCAT_TRAIN_KERNELS, extra)
+    if not torch.equal(base["blocks"][0]["qkv"]["w"], w0):
+        raise SystemExit("chip_smoke: the LongCat LoRA run moved the base")
+    return launches
+
+
+def phase_train():
+    """Training (``training/step.py``, ``make_lora_train_step``): the small
+    LoRA step card against CPU, then the Wan2.1-I2V-14B LoRA, the
+    Wan2.1-T2V-1.3B full fine-tune and the LongCat-13.6B LoRA, each freed
+    before the next. Returns each run's launches."""
+    _small_train_check()
+    by_path = {}
+    for name, run in (("train_wan_i2v_14b_lora", _train_wan14b_lora),
+                      ("train_wan_t2v_1_3b_full", _train_wan1_3b_full),
+                      ("train_longcat_13b_lora", _train_longcat_lora)):
+        by_path[name] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
     return by_path
 
 
@@ -4743,6 +5340,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(phase_quant(warp_dir, ctx, bf16_run))
     del bf16_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(phase_train())
     gc.collect()
     torch.cuda.empty_cache()
     by_path["checkpoints"] = phase_checkpoints(

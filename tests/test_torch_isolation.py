@@ -27,7 +27,7 @@ def _imported_roots(path):
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
     LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar,
-    checkpoint, quantization and LoRA modules among them."""
+    checkpoint, quantization, LoRA and training modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -54,7 +54,8 @@ def test_isolation_covers_the_port_modules():
                 "io/convert_wan.py", "io/convert_encoders.py",
                 "io/convert_longcat.py", "io/convert_wav2vec2.py",
                 "io/convert_vggt.py", "io/convert_depthcrafter.py",
-                "ops/quant.py", "training/lora.py", "training/__init__.py"):
+                "ops/quant.py", "training/lora.py", "training/__init__.py",
+                "training/step.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 

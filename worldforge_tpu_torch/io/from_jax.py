@@ -11,7 +11,11 @@ over bit for bit. A Wan VAE tree needs no unstacking: ``tree_from_numpy``
 carries it over as it is, as it does the SVD UNet and VAE trees, whose
 blocks are lists in JAX too. Quantized trees (``ops/quant.py``) and trees
 with unmerged LoRA terms come across with their dtypes kept, the stacked
-leaves split per layer.
+leaves split per layer. A JAX gradient tree has its parameters' structure,
+so the same functions carry it (``dit_params_from_jax``,
+``longcat_dit_params_from_jax``, ``lora_from_jax``): the gradient of a
+stacked ``[L, ...]`` leaf becomes the port's per-layer leaves, and tests
+compare gradients and updated parameters leaf by leaf.
 """
 
 from __future__ import annotations

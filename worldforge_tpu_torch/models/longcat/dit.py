@@ -46,6 +46,12 @@ LoRA adapters are merged into the weights (``merge_lora`` /
 converted checkpoint's). Quantized trees (``init_longcat_dit_int8`` /
 ``init_longcat_dit_w4``) and unmerged adapters over them
 (``training/lora.py::apply_lora``) run through ``core/params.dense``.
+``longcat_dit_forward`` is differentiable (training through
+``training/step.py::longcat_forward``): on CUDA tensors the gradients go
+through the backward kernels of kernels 1 and 2 (and BSA's gathered
+recompute when ``bsa_params`` is set), and ``remat=True`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``, JAX's
+``jax.checkpoint`` around the scan body). The cache pair is inference-only.
 Left for later slices: meshes and ``token_chunk`` > 1
 (``longcat_dit_forward`` raises).
 """
@@ -59,6 +65,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
@@ -352,18 +359,19 @@ def longcat_layer_forward(p, cfg: LongCatDiTConfig, x, t_emb, ctx, kv_lens,
 # ------------------------------------------------------------------ model
 
 
-@torch.inference_mode()
 def longcat_dit_forward(params, cfg: LongCatDiTConfig, hidden_states,
                         timestep, encoder_hidden_states,
                         encoder_attention_mask=None,
                         num_cond_latents: int = 0,
                         policy: Policy = DEFAULT_POLICY, mesh=None,
-                        bsa_params=None, token_chunk: int = 1):
+                        bsa_params=None, remat: bool = False,
+                        token_chunk: int = 1):
     """hidden_states: [B, C_in, T, H, W]; timestep: [B] or [B, T']
     (per-frame); encoder_hidden_states: [B, M, caption];
     encoder_attention_mask: [B, M] (1 = valid). Returns [B, C_out, T, H, W]
-    fp32. ``mesh`` and ``token_chunk`` > 1 belong to later slices and
-    raise."""
+    fp32. ``remat``: recompute each block in the backward pass (the output
+    is the same bit for bit). ``mesh`` and ``token_chunk`` > 1 belong to
+    later slices and raise."""
     if mesh is not None:
         raise NotImplementedError("meshes / context parallelism are not "
                                   "ported yet (a later slice of the port)")
@@ -394,9 +402,13 @@ def longcat_dit_forward(params, cfg: LongCatDiTConfig, hidden_states,
 
     xN = x.float()
     for layer in params["blocks"]:
-        xN = longcat_layer_forward(layer, cfg, xN, t_emb, ctx, kv_lens, cos,
-                                   sin, nt, num_cond_latents, policy,
-                                   (nt, nh, nw), bsa_params)
+        args = (layer, cfg, xN, t_emb, ctx, kv_lens, cos, sin, nt,
+                num_cond_latents, policy, (nt, nh, nw), bsa_params)
+        if remat:
+            xN = torch.utils.checkpoint.checkpoint(
+                longcat_layer_forward, *args, use_reentrant=False)
+        else:
+            xN = longcat_layer_forward(*args)
 
     # final layer; the bf16-stored linear under an fp32 request takes the
     # hi/lo split in P.dense

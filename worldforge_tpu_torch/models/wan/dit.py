@@ -19,6 +19,13 @@ on a quantized tree (``init_wan_dit_int8`` / ``init_wan_dit_w4``) they are
 ``ops/quant.py``'s int8 products, and the W8A8 self-attention quantizes its
 input once for q, k and v.
 
+``wan_dit_forward`` is differentiable (training, ``training/step.py``):
+on CUDA tensors the gradients go through the backward kernels of kernels 1,
+2 and 3, and ``remat=True`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` around
+the scan body), so only the blocks' inputs are kept. The pipelines call it
+under their own ``torch.inference_mode``.
+
 Left for later slices: meshes and ``token_chunk`` > 1 (``wan_dit_forward``
 raises).
 """
@@ -32,6 +39,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
@@ -359,19 +367,20 @@ def dit_head(params, cfg: WanDiTConfig, hN, e, grid):
 # ------------------------------------------------------------------ forward
 
 
-@torch.inference_mode()
 def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
                     clip_fea=None, y=None,
                     policy: Policy = DEFAULT_POLICY,
-                    mesh=None, token_chunk: int = 1):
+                    remat: bool = False, mesh=None, token_chunk: int = 1):
     """Full WanModel forward.
 
     x: [B, 16, F, H, W] noisy latents; y: [B, 20, F, H, W] i2v conditioning
     (mask 4ch + first-frame latents 16ch) concatenated on channels.
     t: [B] timesteps. context: [B, text_len, text_dim] padded text embeds.
     clip_fea: [B, 257, 1280] CLIP image tokens (i2v).
-    Returns [B, out_dim, F, H, W] fp32. ``mesh`` and ``token_chunk`` > 1
-    belong to later slices and raise.
+    Returns [B, out_dim, F, H, W] fp32. ``remat``: recompute each block in
+    the backward pass instead of keeping its activations (the output is the
+    same bit for bit). ``mesh`` and ``token_chunk`` > 1 belong to later
+    slices and raise.
     """
     if mesh is not None:
         raise NotImplementedError("meshes / context parallelism are not "
@@ -407,7 +416,12 @@ def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
 
     hN = h0.float()
     for layer in params["blocks"]:
-        hN = wan_dit_layer_forward(layer, cfg, hN, e0, ctx, cos, sin,
-                                   img_ctx_len, policy)
+        if remat:
+            hN = torch.utils.checkpoint.checkpoint(
+                wan_dit_layer_forward, layer, cfg, hN, e0, ctx, cos, sin,
+                img_ctx_len, policy, use_reentrant=False)
+        else:
+            hN = wan_dit_layer_forward(layer, cfg, hN, e0, ctx, cos, sin,
+                                       img_ctx_len, policy)
 
     return dit_head(params, cfg, hN, e, grid)

@@ -19,8 +19,15 @@ top of that file). CUDA tensors launch the kernel; CPU tensors take
 probabilities cast to v's dtype before the P.V product, and zeros for a
 query chunk with a count of 0.
 
-The backward pass (the JAX package differentiates the gathered form) comes
-with the training slice of the port.
+Gradients: ``bsa_sparse`` is the counterpart of JAX's ``bsa_sparse``
+``custom_vjp`` (:280-348). Its forward selects the chunks (no gradient: the
+selection is hard) and runs ``bsa_bhsd`` (kernel 5 on CUDA tensors); its
+backward recomputes the gathered form ``bsa_plain`` (JAX's
+``_bsa_gathered`` :254, with the kernel's rounding of the probabilities to
+v's dtype, as kernel 1's backward takes the gradient of its plain version)
+in plain PyTorch under autograd and differentiates it, one head at a time,
+as JAX's backward is XLA and not Pallas. A hand-written backward kernel for
+BSA is queued performance work.
 """
 
 from __future__ import annotations
@@ -226,6 +233,53 @@ def bsa_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 bsa_bhsd.launches = 0
 
 
+# ---------------------------------------------------------------- gradient
+
+
+class _BsaSparseFn(torch.autograd.Function):
+    """``bsa_bhsd`` with a fixed selection forward; backward, autograd of
+    the gathered form ``bsa_plain``, one head at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, indices, counts, scale):
+        ctx.save_for_backward(q, k, v, indices, counts)
+        ctx.scale = scale
+        return bsa_bhsd(q, k, v, indices, counts, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, indices, counts = ctx.saved_tensors
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        for i in range(q.shape[0]):
+            sl = slice(i, i + 1)
+            with torch.enable_grad():
+                leaves = [t[sl].detach().requires_grad_(True)
+                          for t in (q, k, v)]
+                o = bsa_plain(*leaves, indices[sl], counts[sl],
+                              scale=ctx.scale)
+                for out, gr in zip(grads, torch.autograd.grad(o, leaves,
+                                                              g[sl])):
+                    out[sl] = gr
+        return (*grads, None, None, None)
+
+
+def bsa_sparse(q, k, v, *, scale: Optional[float] = None,
+               sparsity: Optional[float] = 0.875,
+               cdf_threshold: Optional[float] = None):
+    """Differentiable block-sparse attention over chunk-rearranged [BH, S, D]
+    tensors: the selection (``select_blocks``, no gradient), then
+    ``bsa_bhsd`` forward and the gathered form's gradient backward
+    (JAX's ``bsa_sparse``)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    with torch.no_grad():
+        indices, counts = select_blocks(q, k, sparsity=sparsity,
+                                        cdf_threshold=cdf_threshold,
+                                        head_dim=d)
+    return _BsaSparseFn.apply(q, k, v, indices, counts, scale)
+
+
 # ---------------------------------------------------------------- top level
 
 
@@ -255,7 +309,8 @@ def bsa_attention_3d(q, k, v, latent_shape_q, latent_shape_k, *,
                      chunk_3d_shape_q=(4, 4, 8), chunk_3d_shape_k=(4, 4, 8)
                      ) -> torch.Tensor:
     """Block-sparse 3D attention over [B, S, H, D]; latent shapes are the
-    (T', H', W') token grids. Selection, then ``bsa_bhsd``."""
+    (T', H', W') token grids. Selection, then ``bsa_bhsd``, through
+    ``bsa_sparse`` (differentiable)."""
     b, sq, h, d = q.shape
     qb = rearrange_thw_to_blocks(q, latent_shape_q, chunk_3d_shape_q)
     kb = rearrange_thw_to_blocks(k, latent_shape_k, chunk_3d_shape_k)
@@ -265,8 +320,7 @@ def bsa_attention_3d(q, k, v, latent_shape_q, latent_shape_k, *,
         return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d)
 
     qf, kf, vf = flat(qb), flat(kb), flat(vb)
-    indices, counts = select_blocks(qf, kf, sparsity=sparsity,
-                                    cdf_threshold=cdf_threshold, head_dim=d)
-    of = bsa_bhsd(qf, kf, vf, indices, counts, scale=1.0 / math.sqrt(d))
+    of = bsa_sparse(qf, kf, vf, scale=1.0 / math.sqrt(d), sparsity=sparsity,
+                    cdf_threshold=cdf_threshold)
     ob = of.reshape(b, h, sq, d).permute(0, 2, 1, 3)
     return rearrange_blocks_to_thw(ob, latent_shape_q, chunk_3d_shape_q)

@@ -10,6 +10,15 @@ bounds it on the H100 are at the top of that file).
 kernel's contract, which differs from ``ops/attention.py::sdpa_reference``
 in one place: a row with ``kv_len = 0`` gives zeros (the reference gives the
 mean of V).
+
+Gradients: the JAX package trains through ``ops/attention.py::attention``
+(:40) by autodiff. Here a gradient on CUDA tensors goes through
+``_FlashAttentionFn``: its forward is the kernel with ``return_lse``, and
+its backward is the CUDA C++ kernel in ``csrc/flash_attention_bwd.cu``
+(``flash_attention_backward``; bf16 with head dim 64 or 128, anything else
+raises). On the CPU autograd differentiates ``flash_attention_plain``
+itself. Either way masked keys get zero dK / dV and a ``kv_len = 0`` row,
+whose output is zeros, gets zero dQ.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from worldforge_tpu_torch.ops import _build
 NEG_INF = -1e30  # finite "minus infinity": keeps exp() NaN-free on padding
 _KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 128),
                      torch.float32: (64, 80, 128, 384, 512)}
+_BACKWARD_HEAD_DIMS = {torch.bfloat16: (64, 128)}
 
 
 def flash_attention_plain(q, k, v, *, kv_lens=None, scale=None,
@@ -133,6 +143,90 @@ def _lib():
     })
 
 
+def _bwd_lib():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("flash_attention_bwd", {
+        "wf_flash_attention_bwd": ([p] * 13 + [i, i, i, i, i, ctypes.c_float,
+                                               p], i),
+        "wf_flash_attention_bwd_error_string": ([i], ctypes.c_char_p),
+    })
+
+
+def _check_backward(q):
+    d = q.shape[-1]
+    if d not in _BACKWARD_HEAD_DIMS.get(q.dtype, ()):
+        raise ValueError(f"flash_attention backward kernel: no instantiation "
+                         f"for dtype {q.dtype} and head dim {d} (bf16 with "
+                         f"head dim 64 or 128)")
+
+
+def flash_attention_backward(q, k, v, o, do, m, l, kv_lens, scale):
+    """dq, dk, dv of ``flash_attention`` from what its forward saved (q, k,
+    v, the output o and its m / l [B, H, Sq] fp32) and the output's
+    gradient ``do``: the CUDA kernel, bf16 with head dim 64 or 128. Each
+    call adds one to ``flash_attention_backward.launches``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _check_backward(q)
+    for t in (k, v, o, do):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("flash_attention backward kernel: q, k, v, o "
+                             "and do must share a dtype and a device")
+    if o.shape != q.shape or do.shape != q.shape or v.shape != k.shape or \
+            k.shape != (b, sk, h, d) or m.shape != (b, h, sq) or \
+            l.shape != m.shape:
+        raise ValueError("flash_attention backward kernel: shapes")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention backward kernel: device "
+                         f"{q.device}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention backward kernel: q, k, v, o and do "
+                         "must be 16-byte aligned (16-byte copies)")
+    m, l = m.float().contiguous(), l.float().contiguous()
+    if kv_lens is None:
+        kv_lens = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(delta)
+    lib = _bwd_lib()
+    err = lib.wf_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        m.data_ptr(), l.data_ptr(), kv_lens.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), lse2.data_ptr(), b,
+        sq, sk, h, d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            "flash_attention backward kernel launch failed: "
+            + lib.wf_flash_attention_bwd_error_string(err).decode())
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Kernel 1 with a gradient: the forward kernel saves o, m and l, the
+    backward kernel takes them (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, scale):
+        o, m, l = _launch(q, k, v, kv_lens, scale, True)
+        ctx.save_for_backward(q, k, v, o, m, l, kv_lens)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do.to(o.dtype), m,
+                                              l, kv_lens, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None, return_lse: bool = False):
     """Attention over [B, S, H, D] tensors; returns [B, Sq, H, D].
@@ -144,7 +238,13 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
     64, 80, 128, 384 or 512) and raise on anything else; CPU tensors take
     ``flash_attention_plain``. Each launch adds one to ``launches``, to
     ``launches_by_instantiation["fp32 d512"]`` (its dtype and head dim) and
-    to ``launches_by_shape[("fp32 d512", B * H, Sq, Sk)]``."""
+    to ``launches_by_shape[("fp32 d512", B * H, Sq, Sk)]``.
+
+    Where q, k or v requires a gradient (and autograd records), CUDA
+    tensors go through ``_FlashAttentionFn`` (the backward kernel: bf16 with
+    head dim 64 or 128, anything else raises here, before the forward) and
+    CPU tensors through autograd of ``flash_attention_plain``; m and l then
+    carry no gradient, so ``return_lse`` with a gradient raises on CUDA."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -152,6 +252,15 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if return_lse:
+            raise ValueError("flash_attention: return_lse has no gradient")
+        _check_backward(q)
+        if kv_lens is None:
+            kv_lens = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                                 device=q.device)
+        kv_lens = kv_lens.to(device=q.device, dtype=torch.int32)
+        return _FlashAttentionFn.apply(q, k, v, kv_lens, scale)
     return _launch(q, k, v, kv_lens, scale, return_lse)
 
 

@@ -20,6 +20,14 @@ math. The pass is one fused elementwise sweep bound by bytes, which is
 what Triton is for: CUDA C++ would move the same bytes with the same
 vector width. Unlike the JAX wrapper it takes every shape (no fallback for
 h % 8 != 0).
+
+Gradients (JAX takes them by autodiff of ``apply_rope``): a rotation's
+transpose is the rotation by -theta, so on CUDA tensors ``_RopeQKFn``'s
+backward (``apply_rope_qk_backward``) launches the same Triton kernel with
+sin negated, on the incoming gradients (the forward's output dtype, bf16
+in the DiTs) and writes them in the inputs' dtype (fp32 where the LongCat
+DiT rotates fp32 q / k). On the CPU autograd differentiates
+``apply_rope_qk_plain``.
 """
 
 from __future__ import annotations
@@ -103,6 +111,7 @@ _BLOCK_H = 8      # heads per step of a program's loop over all heads
 
 
 def _launch(q, k, cos, sin, out_dtype):
+    """One launch of the Triton kernel (no count: the callers count)."""
     b, s, h, d = q.shape
     if k.shape != q.shape or d % 2:
         raise ValueError(f"apply_rope_qk kernel: shapes {q.shape} {k.shape}")
@@ -122,20 +131,60 @@ def _launch(q, k, cos, sin, out_dtype):
     rope_qk_kernel[grid](q, k, cos, sin, qo, ko, b * s, s, h, D=d,
                          BLOCK_S=_BLOCK_S, BLOCK_H=_BLOCK_H,
                          BLOCK_D=triton.next_power_of_2(d), num_warps=8)
-    apply_rope_qk.launches += 1
     return qo, ko
+
+
+def apply_rope_qk_backward(gq, gk, cos, sin, out_dtype):
+    """The gradients of q and k from those of ``apply_rope_qk``'s outputs:
+    the Triton kernel at -theta, written in ``out_dtype`` (the inputs'
+    dtype). Each call adds one to ``apply_rope_qk_backward.launches``."""
+    if gq.device.type != "cuda":
+        raise ValueError(f"apply_rope_qk backward kernel: device {gq.device}")
+    out = _launch(gq, gk, cos, -sin.to(torch.float32), out_dtype)
+    apply_rope_qk_backward.launches += 1
+    return out
+
+
+apply_rope_qk_backward.launches = 0
+
+
+class _RopeQKFn(torch.autograd.Function):
+    """Kernel 2 with a gradient (CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, out_dtype):
+        ctx.save_for_backward(cos, sin)
+        ctx.dtypes = (q.dtype, k.dtype)
+        qo, ko = _launch(q, k, cos, sin, out_dtype)
+        apply_rope_qk.launches += 1
+        return qo, ko
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        cos, sin = ctx.saved_tensors
+        qdt, kdt = ctx.dtypes
+        ref = gq if gq is not None else gk
+        gq = torch.zeros_like(ref) if gq is None else gq
+        gk = torch.zeros_like(ref) if gk is None else gk
+        dq, dk = apply_rope_qk_backward(gq, gk.to(gq.dtype), cos, sin, qdt)
+        return dq, dk.to(kdt), None, None, None
 
 
 def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, out_dtype=None):
     """Rotate q and k [B, S, H, D] in one pass. CUDA tensors launch the
-    Triton kernel; CPU tensors take ``apply_rope_qk_plain``."""
+    Triton kernel, through ``_RopeQKFn`` (the backward at -theta) where q
+    or k requires a gradient; CPU tensors take ``apply_rope_qk_plain``."""
     odtype = out_dtype or q.dtype
     if q.device.type == "cpu":
         return apply_rope_qk_plain(q, k, cos, sin, out_dtype=odtype)
     if q.device.type != "cuda":
         raise ValueError(f"apply_rope_qk: unsupported device {q.device}")
-    return _launch(q, k, cos, sin, odtype)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        return _RopeQKFn.apply(q, k, cos, sin, odtype)
+    out = _launch(q, k, cos, sin, odtype)
+    apply_rope_qk.launches += 1
+    return out
 
 
 apply_rope_qk.launches = 0

@@ -12,8 +12,17 @@ lists are left alone, as the JAX walk leaves lists alone.
 ``apply_lora`` merges into dense leaves and attaches unmerged terms
 (``lora_down`` / ``lora_up`` / ``lora_scale``) to quantized ones, which
 ``core/params.py::dense`` adds at product time, so the base stays int8 /
-int4 / int6. Training the adapters (``make_lora_train_step``) belongs to
-the training slice.
+int4 / int6.
+
+``make_lora_train_step`` (JAX's :101) trains the adapters over a frozen
+base. JAX merges them into the weights (``apply_lora``) inside its loss;
+the port's step attaches them unmerged to every targeted leaf instead
+(``x @ w + ((x @ down) @ up) * scale``, the same function up to fp32
+rounding): a merged weight would keep a second copy of every targeted
+weight alive for the backward pass (27 GB at Wan2.1-14B, beside the 33 GB
+base) and would need the full weight gradient dW = x^T dy of each before
+dW @ up^T gives the adapter's. With ``up`` at zero the forward is the
+base forward exactly.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.io.torch_load import load_state_dict, save_safetensors
 from worldforge_tpu_torch.models.longcat.dit import lora_merged_weight
+from worldforge_tpu_torch.training.step import _wan_forward, make_train_step
 
 LORA_TARGETS = ("q", "k", "v", "o", "fc1", "fc2",           # wan
                 "qkv", "attn_proj", "x_q", "x_kv", "x_proj",  # longcat
@@ -83,12 +93,18 @@ def apply_lora(params, lora: Dict[str, dict], scale: float = 1.0):
     """``w' = w + scale * down @ up`` (fp32, rounded once to w's dtype) on
     dense leaves; on quantized leaves the unmerged terms are attached.
     Returns a new tree; leaves it does not change are shared."""
+    return _with_lora(params, lora, scale, merge=True)
+
+
+def _with_lora(params, lora: Dict[str, dict], scale: float, merge: bool):
+    """``apply_lora``'s walk; ``merge=False`` attaches the unmerged terms to
+    dense leaves too (the train step's form)."""
 
     def attach(node, a, layer):
         down, up = a["down"], a["up"]
         if layer is not None and down.ndim == 3:
             down, up = down[layer], up[layer]
-        if "w" not in node:
+        if "w" not in node or not merge:
             return dict(node, lora_down=down, lora_up=up,
                         lora_scale=torch.tensor(scale, dtype=torch.float32,
                                                 device=down.device))
@@ -106,6 +122,23 @@ def apply_lora(params, lora: Dict[str, dict], scale: float = 1.0):
                 for k, sub, layers in _children(node, path)}
 
     return walk(params, "", None)
+
+
+def make_lora_train_step(cfg, optimizer: torch.optim.Optimizer,
+                         base_params, *, mesh=None, remat: bool = True,
+                         scale: float = 1.0, forward_fn=_wan_forward):
+    """Returns ``step(lora, batch, gen, *, sigma=None, noise=None) ->
+    loss``: ``make_train_step``'s step over the adapters, whose forward
+    attaches them (unmerged, as the module note says) to ``base_params``.
+    Only the adapters update (in place, through ``optimizer``, built over
+    ``trainable_leaves(lora)``); the base stays frozen and unchanged."""
+
+    def lora_forward(lora, cfg_, x_sigma, t, context, **kw):
+        model = _with_lora(base_params, lora, scale, merge=False)
+        return forward_fn(model, cfg_, x_sigma, t, context, **kw)
+
+    return make_train_step(cfg, optimizer, mesh=mesh, remat=remat,
+                           forward_fn=lora_forward)
 
 
 # ------------------------------------------------- persistence / interop
