@@ -1061,19 +1061,23 @@ def _dc_kernel_checks(gen, records):
 
 
 def _check_flash_bwd(gen, records, b, sq, sk, h, d, label, kv_lens=None,
-                     iters=0):
+                     iters=0, repeat=False):
     """Kernel 1's backward (``flash_attention_backward``, through autograd
     of ``flash_attention``) against autograd of ``flash_attention_plain``
     on the same bf16 inputs and output gradient: dq, dk and dv each within
-    1e-2 relative L2 (both sides round P and dS to bf16 in other places),
-    keys past ``kv_lens`` and a ``kv_len = 0`` row exactly zero; the max
-    bf16 ulps reported. ``iters``: also time it beside its bound (five
-    products of 2 Sq Sk D H; the design computes seven), the plain
-    backward (run one head at a time, which is the same function on the
-    same inputs: all 40 heads' autograd graph at 20,280 tokens holds 98.7
-    GB) and SDPA's backward at the same shapes."""
+    1e-2 relative L2 (both sides round P and dS to bf16 in other places,
+    and the kernel sums dq in fp32 in an order that changes from run to
+    run), keys past ``kv_lens`` and a ``kv_len = 0`` row exactly zero; the
+    max bf16 ulps and the plan (tiles, query splits) reported. ``iters``:
+    also time it beside its bound (five products of 2 Sq Sk D H, the
+    design's count), the plain backward (run one head at a time, which is
+    the same function on the same inputs: all 40 heads' autograd graph at
+    20,280 tokens holds 98.7 GB) and SDPA's backward at the same shapes.
+    ``repeat``: run the kernel twice more on the same inputs and report the
+    largest difference between the runs (dq's additions come in another
+    order; dk and dv must be bit-equal)."""
     from worldforge_tpu_torch.ops.flash_attention import (
-        _launch, flash_attention, flash_attention_backward,
+        _bwd_plan, _launch, flash_attention, flash_attention_backward,
         flash_attention_plain)
     mk = lambda s: torch.randn(s, generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -1082,7 +1086,10 @@ def _check_flash_bwd(gen, records, b, sq, sk, h, d, label, kv_lens=None,
     kl = None if kv_lens is None else torch.tensor(
         kv_lens, dtype=torch.int32, device="cuda")
     scale = 1.0 / math.sqrt(d)
-    rec = {"check": label, "shape": [b, sq, sk, h, d], "kv_lens": kv_lens}
+    plan = _bwd_plan(b, sq, sk, h, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    rec = {"check": label, "shape": [b, sq, sk, h, d], "kv_lens": kv_lens,
+           "plan": plan._asdict(), "design_products": 5}
     if not iters:
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         flash_attention(*leaves, kv_lens=kl).backward(do)
@@ -1132,9 +1139,20 @@ def _check_flash_bwd(gen, records, b, sq, sk, h, d, label, kv_lens=None,
                 ok = ok and not grads[0][i].any()
     rec.update({"max_abs_err": max(rec[f"{n}_max_abs_err"]
                                     for n in ("dq", "dk", "dv")),
-                "tol_rel_l2": 1e-2, "ok": ok})
-    if iters:
+                "tol_rel_l2": 1e-2})
+    if iters or repeat:
         o, m, l = _launch(q, k, v, kl, scale, True)
+    if repeat:
+        runs = [flash_attention_backward(q, k, v, o, do, m, l, kl, scale)
+                for _ in range(2)]
+        for i, name in enumerate(("dq", "dk", "dv")):
+            rec[f"{name}_run_to_run_max_abs"] = float(
+                (runs[0][i].float() - runs[1][i].float()).abs().max())
+        ok = ok and rec["dk_run_to_run_max_abs"] == 0.0 and \
+            rec["dv_run_to_run_max_abs"] == 0.0
+        del runs
+    rec["ok"] = ok
+    if iters:
         ms = cuda_ms(lambda: flash_attention_backward(
             q, k, v, o, do, m, l, kl, scale), iters)
         keys = sk if kv_lens is None else sum(kv_lens) / b
@@ -1150,11 +1168,11 @@ def _check_flash_bwd(gen, records, b, sq, sk, h, d, label, kv_lens=None,
         rec.update({"ms": ms, "plain_ms": plain_ms,
                     "plain": "autograd of flash_attention_plain, one head "
                              "at a time", "bound_ms": bms, "bound_by": by,
-                    "design_products": 7, "design_bound_ms":
-                    bms * 7 / 5 if by == "operations" else bms,
-                    "library_ms": lib_ms,
+                    "design_bound_ms": bms, "library_ms": lib_ms,
                     "library": "backward of F.scaled_dot_product_attention"})
-        del o, m, l, ot, qt, kt, vt
+        del ot, qt, kt, vt
+    if iters or repeat:
+        del o, m, l
     records.append(rec)
     return rec
 
@@ -1208,15 +1226,16 @@ def _check_rope_bwd(gen, records, grid, h, d, iters, in_dtype, label, b=1):
     return rec
 
 
-def _check_mod_ln_bwd(gen, records, s, d, iters):
-    """Kernel 3's backward (two Triton passes) against autograd of
-    ``modulated_layer_norm_ref``: dx, dsc and dsh each within 1e-5 relative
-    L2 (fp32 sums over 5,120 channels and 20,280 tokens in another
-    order); timed beside the autograd of ``F.layer_norm`` with weight
-    1 + scale and bias shift and the bf16 cast (the same function at
-    B = 1)."""
+def _check_mod_ln_bwd(gen, records, s, d, iters,
+                      label="modulated_layer_norm backward"):
+    """Kernel 3's backward (two Triton launches) against autograd of
+    ``modulated_layer_norm_ref`` at x [1, s, d]: dx, dsc and dsh each
+    within 1e-5 relative L2 (fp32 sums over the channels and tokens in
+    another order); timed beside the autograd of ``F.layer_norm`` with
+    weight 1 + scale and bias shift and the bf16 cast (the same function
+    at B = 1)."""
     from worldforge_tpu_torch.ops.fused_norm import (
-        modulated_layer_norm, modulated_layer_norm_backward,
+        _bwd_launch, modulated_layer_norm, modulated_layer_norm_backward,
         modulated_layer_norm_ref)
     x = torch.randn((1, s, d), generator=gen, device="cuda") * 3.0 + 0.5
     sc = torch.randn((1, 1, d), generator=gen, device="cuda") * 0.1
@@ -1245,7 +1264,8 @@ def _check_mod_ln_bwd(gen, records, s, d, iters):
                                        bias=bias).to(torch.bfloat16)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(
         y, (xl, w, bias), dy, retain_graph=True), iters)
-    rec = {"check": "modulated_layer_norm backward", "shape": list(x.shape),
+    rec = {"check": label, "shape": list(x.shape),
+           "launch": list(_bwd_launch(d)),
            **{f"{n}_rel_l2_err": r for n, r in rels.items()},
            "max_abs_err": err, "tol_rel_l2": 1e-5,
            "ok": max(rels.values()) <= 1e-5, "ms": ms, "plain_ms": plain_ms,
@@ -1308,15 +1328,18 @@ def _backward_kernel_checks(gen, records):
                                 (2, 1560, 512, 4, 128, (512, 77)),
                                 (2, 1560, 257, 4, 128, (257, 100)),
                                 (3, 200, 300, 2, 64, (300, 0, 129)),
-                                (1, 1000, 1000, 4, 64, None)):
+                                (1, 1000, 1000, 4, 64, None),
+                                # 3 key tiles x 24 = 72 blocks: a query split
+                                (3, 4096, 257, 8, 128, (257, 0, 100))):
         _check_flash_bwd(gen, records, b, sq, sk, h, d,
                          f"flash_attention backward bf16 d{d} "
                          f"[{b},{sq}->{sk},{h}]", kv_lens=kv)
     main["flash_attention_backward"] = _check_flash_bwd(
         gen, records, 1, s, s, 40, 128,
-        "flash_attention backward self-attn", iters=3)
+        "flash_attention backward self-attn", iters=3, repeat=True)
     _check_flash_bwd(gen, records, 1, s, TEXT_LEN, 40, 128,
-                     "flash_attention backward text cross-attn", iters=5)
+                     "flash_attention backward text cross-attn", iters=5,
+                     repeat=True)
     _check_flash_bwd(gen, records, 1, s, 257, 40, 128,
                      "flash_attention backward clip cross-attn", iters=5)
     _check_flash_bwd(gen, records, 1, 4096, 4096, 16, 64,
@@ -1333,6 +1356,9 @@ def _backward_kernel_checks(gen, records):
                     "rope_qk backward ragged", b=2)
     main["modulated_layer_norm_backward"] = _check_mod_ln_bwd(
         gen, records, s, 5120, 20)
+    # Wan2.1-1.3B's rows of 1,536 at 81 frames take the launch for D < 4096
+    _check_mod_ln_bwd(gen, records, 21 * (HEIGHT // 16) * (WIDTH // 16), 1536,
+                      20, "modulated_layer_norm backward d1536")
     return main
 
 
@@ -1377,7 +1403,8 @@ KERNEL_META = {
         "route": "triton",
         "source": "worldforge_tpu_torch/ops/_triton_kernels.py",
         "replaces": "worldforge_tpu/ops/fused_norm.py:24",
-        "note": "mod_ln_bwd_kernel + colsum_kernel"},
+        "note": "mod_ln_bwd_kernel + colsum_kernel (both column sums in "
+                "one launch)"},
 }
 
 

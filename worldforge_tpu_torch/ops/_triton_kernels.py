@@ -71,60 +71,96 @@ def mod_ln_kernel(x_ptr, sc_ptr, sh_ptr, o_ptr, S, D, eps,
 
 
 @triton.jit
-def mod_ln_bwd_kernel(x_ptr, sc_ptr, dy_ptr, dx_ptr, pdsc_ptr, pdsh_ptr, S,
-                      D, NBLK, eps, ROWS: tl.constexpr,
-                      BLOCK_D: tl.constexpr):
-    """The backward of ``mod_ln_kernel`` over ROWS rows of one batch row b:
-    each row's dx = rstd * (g - mean(g) - xhat * mean(g * xhat)) with
-    g = dy * (1 + sc), and the block's partial sums of dy * xhat and dy per
-    channel, written to pdsc / pdsh [B, NBLK, D] for the second pass."""
+def _load_row(x_ptr, dy_ptr, base, ch, ct, mt, ok):
+    """x and dy of one row as a HEAD piece and a masked TAIL piece, fp32
+    (all masked off where ``ok`` is false)."""
+    xh = tl.load(x_ptr + base + ch, mask=ok, other=0.0).to(tl.float32)
+    xt = tl.load(x_ptr + base + ct, mask=mt & ok, other=0.0).to(tl.float32)
+    dyh = tl.load(dy_ptr + base + ch, mask=ok, other=0.0).to(tl.float32)
+    dyt = tl.load(dy_ptr + base + ct, mask=mt & ok,
+                  other=0.0).to(tl.float32)
+    return xh, xt, dyh, dyt
+
+
+@triton.jit
+def mod_ln_bwd_kernel(x_ptr, sc_ptr, dy_ptr, dx_ptr, part_ptr, S, ROWS,
+                      NBLK, eps, D: tl.constexpr, HEAD: tl.constexpr,
+                      TAIL: tl.constexpr):
+    """The backward of ``mod_ln_kernel`` over rows [blk ROWS, (blk + 1)
+    ROWS) of batch row b. A row of D channels is held as a HEAD piece (the
+    largest power of two <= D) and a TAIL piece (masked past D), so no lane
+    past D is spent at D = 5120 (4096 + 1024). Each row's dx = rstd * (g -
+    mean(g) - xhat * mean(g * xhat)) with g = dy * (1 + sc); the next row's
+    loads are issued before this row's reductions. The block's per-channel
+    sums of dy * xhat and dy go to part [2, B, NBLK, D] for
+    ``colsum_kernel``."""
     b = tl.program_id(0)
     blk = tl.program_id(1)
-    cols = tl.arange(0, BLOCK_D)
-    mask = cols < D
-    sc1 = 1.0 + tl.load(sc_ptr + b * D + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-    acc_sc = tl.zeros((BLOCK_D,), dtype=tl.float32)
-    acc_sh = tl.zeros((BLOCK_D,), dtype=tl.float32)
-    for i in range(ROWS):
-        s = blk * ROWS + i
-        if s < S:
-            base = (b.to(tl.int64) * S + s) * D
-            x = tl.load(x_ptr + base + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + base + cols, mask=mask,
+    ch = tl.arange(0, HEAD)
+    ct = HEAD + tl.arange(0, TAIL)
+    mt = ct < D
+    sc1h = 1.0 + tl.load(sc_ptr + b * D + ch).to(tl.float32)
+    sc1t = 1.0 + tl.load(sc_ptr + b * D + ct, mask=mt,
                          other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / D
-            xc = tl.where(mask, x - mean, 0.0)
-            rstd = tl.rsqrt(tl.sum(xc * xc, axis=0) / D + eps)
-            xhat = xc * rstd
-            g = dy * sc1
-            mg = tl.sum(g, axis=0) / D
-            mgx = tl.sum(g * xhat, axis=0) / D
-            dx = rstd * (g - mg - xhat * mgx)
-            tl.store(dx_ptr + base + cols, dx.to(dx_ptr.dtype.element_ty),
-                     mask=mask)
-            acc_sc += dy * xhat
-            acc_sh += dy
-    poff = (b.to(tl.int64) * NBLK + blk) * D + cols
-    tl.store(pdsc_ptr + poff, acc_sc, mask=mask)
-    tl.store(pdsh_ptr + poff, acc_sh, mask=mask)
+    acc_sch = tl.zeros((HEAD,), dtype=tl.float32)
+    acc_sct = tl.zeros((TAIL,), dtype=tl.float32)
+    acc_shh = tl.zeros((HEAD,), dtype=tl.float32)
+    acc_sht = tl.zeros((TAIL,), dtype=tl.float32)
+    s0 = blk * ROWS
+    n = tl.minimum(ROWS, S - s0)
+    row0 = b.to(tl.int64) * S + s0
+    nxh, nxt, ndyh, ndyt = _load_row(x_ptr, dy_ptr, row0 * D, ch, ct, mt,
+                                     n > 0)
+    for i in range(0, n):
+        xh, xt, dyh, dyt = nxh, nxt, ndyh, ndyt
+        base = (row0 + i) * D
+        nxh, nxt, ndyh, ndyt = _load_row(x_ptr, dy_ptr, base + D, ch, ct, mt,
+                                         i + 1 < n)
+        mean = (tl.sum(xh, axis=0) + tl.sum(xt, axis=0)) / D
+        xch = xh - mean
+        xct = tl.where(mt, xt - mean, 0.0)
+        gh = dyh * sc1h
+        gt = dyt * sc1t
+        var = (tl.sum(xch * xch, axis=0) + tl.sum(xct * xct, axis=0)) / D
+        mg = (tl.sum(gh, axis=0) + tl.sum(gt, axis=0)) / D
+        mgxc = (tl.sum(gh * xch, axis=0) + tl.sum(gt * xct, axis=0)) / D
+        rstd = tl.rsqrt(var + eps)
+        xhh = xch * rstd
+        xht = xct * rstd
+        mgx = mgxc * rstd
+        dxh = rstd * (gh - mg - xhh * mgx)
+        dxt = rstd * (gt - mg - xht * mgx)
+        tl.store(dx_ptr + base + ch, dxh.to(dx_ptr.dtype.element_ty))
+        tl.store(dx_ptr + base + ct, dxt.to(dx_ptr.dtype.element_ty),
+                 mask=mt)
+        acc_sch += dyh * xhh
+        acc_sct += dyt * xht
+        acc_shh += dyh
+        acc_sht += dyt
+    B = tl.num_programs(0)
+    psc = part_ptr + (b.to(tl.int64) * NBLK + blk) * D
+    psh = psc + B.to(tl.int64) * NBLK * D
+    tl.store(psc + ch, acc_sch)
+    tl.store(psc + ct, acc_sct, mask=mt)
+    tl.store(psh + ch, acc_shh)
+    tl.store(psh + ct, acc_sht, mask=mt)
 
 
 @triton.jit
 def colsum_kernel(p_ptr, o_ptr, NBLK, D, BLOCK_N: tl.constexpr,
                   BLOCK_D: tl.constexpr):
-    """o[b, d] = sum over n of p[b, n, d] (the second pass of the
-    modulation's gradient), BLOCK_D channels of one batch row a program."""
-    b = tl.program_id(0)
+    """o[k, b, d] = sum over n of p[k, b, n, d]: both of the modulation's
+    gradients (k = 0: dsc, 1: dsh) in one launch, BLOCK_D channels of one
+    (k, b) a program."""
+    kb = tl.program_id(0)
     cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
     cmask = cols < D
     acc = tl.zeros((BLOCK_D,), dtype=tl.float32)
     for n0 in range(0, NBLK, BLOCK_N):
         rows = n0 + tl.arange(0, BLOCK_N)
-        off = (b.to(tl.int64) * NBLK + rows[:, None]) * D + cols[None, :]
+        off = (kb.to(tl.int64) * NBLK + rows[:, None]) * D + cols[None, :]
         p = tl.load(p_ptr + off, mask=(rows < NBLK)[:, None] & cmask[None, :],
                     other=0.0)
         acc += tl.sum(p, axis=0)
-    tl.store(o_ptr + b * D + cols, acc.to(o_ptr.dtype.element_ty),
+    tl.store(o_ptr + kb * D + cols, acc.to(o_ptr.dtype.element_ty),
              mask=cmask)

@@ -16,16 +16,18 @@ Gradients: the JAX package trains through ``ops/attention.py::attention``
 ``_FlashAttentionFn``: its forward is the kernel with ``return_lse``, and
 its backward is the CUDA C++ kernel in ``csrc/flash_attention_bwd.cu``
 (``flash_attention_backward``; bf16 with head dim 64 or 128, anything else
-raises). On the CPU autograd differentiates ``flash_attention_plain``
-itself. Either way masked keys get zero dK / dV and a ``kv_len = 0`` row,
-whose output is zeros, gets zero dQ.
+raises), laid out by the host-side ``_bwd_plan`` (tiles and query splits)
+and ``_bwd_scratch`` (its fp32 scratch). On the CPU autograd differentiates
+``flash_attention_plain`` itself. Either way masked keys get zero dK / dV
+and a ``kv_len = 0`` row, whose output is zeros, gets zero dQ.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from fractions import Fraction
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -146,8 +148,9 @@ def _lib():
 def _bwd_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("flash_attention_bwd", {
-        "wf_flash_attention_bwd": ([p] * 13 + [i, i, i, i, i, ctypes.c_float,
-                                               p], i),
+        "wf_flash_attention_bwd": ([p] * 16 + [i] * 7 + [ctypes.c_float, p],
+                                   i),
+        "wf_flash_attention_bwd_tiles": ([ctypes.POINTER(i)] * 2, None),
         "wf_flash_attention_bwd_error_string": ([i], ctypes.c_char_p),
     })
 
@@ -160,11 +163,75 @@ def _check_backward(q):
                          f"head dim 64 or 128)")
 
 
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts one call: ``key_tile`` keys per block,
+    ``q_tile`` queries per step of its walk, the walk cut into ``splits``
+    runs of ``q_tiles_per_split`` query tiles (the last may be shorter).
+    The tiles are the kernel's compile-time ``kKeys`` and ``kQ``
+    (``csrc/flash_attention_bwd.cu``); the wrapper checks that they agree."""
+    key_tile: int
+    q_tile: int
+    splits: int
+    q_tiles_per_split: int
+
+
+_BWD_KEY_TILE, _BWD_Q_TILE = 128, 64
+_H100_SMS = 132
+_BWD_WAVES = 4   # at or above this many key-tile blocks per SM: no split
+
+
+def _bwd_plan(b, sq, sk, h, d, num_sms=_H100_SMS):
+    """The backward kernel's tiles and query split for q [b, sq, h, d] and
+    k [b, sk, h, d] (``d`` names the instantiation; the tiles do not depend
+    on it). One block runs on an SM at a time (its shared memory), so s
+    splits of ``blocks`` key-tile blocks take ceil(blocks s / num_sms)
+    waves of 1 / s of the walk each, and each split adds fp32 dK / dV
+    partials to write and sum. The plan takes the split count with the
+    fewest waves per walk, the fewest splits on a tie, at most about
+    ``_BWD_WAVES * num_sms`` blocks in all; from ``_BWD_WAVES * num_sms``
+    blocks up (159 x 40 at the 14B self-attention) it does not split. On
+    the H100 (``ops/tune_backward.py``, splits 1-12 at the cross-attentions
+    that train) that is the fastest split at Wan-14B's text cross-attention
+    (4 x 40 blocks: split 4, 1.619 ms; unsplit 2.134), its CLIP
+    cross-attention (3 x 40 blocks fit one wave: unsplit, 1.331 ms; every
+    split ties on waves and 2-12 splits take 1.361-1.456) and LongCat's text
+    cross-attention (4 x 32: unsplit), and within 0.3% of the fastest at
+    Wan-1.3B's (4 x 12 blocks: split 11, 0.807 ms; split 8 0.805, unsplit
+    1.535; 0.7% in a second run)."""
+    del d
+    key_tiles = -(-sk // _BWD_KEY_TILE)
+    q_tiles = -(-sq // _BWD_Q_TILE)
+    blocks = key_tiles * b * h
+    splits = 1
+    if 0 < blocks < _BWD_WAVES * num_sms and q_tiles > 1:
+        cap = min(q_tiles, -(-_BWD_WAVES * num_sms // blocks))
+        splits = min(range(1, cap + 1), key=lambda n: (
+            Fraction(-(-blocks * n // num_sms), n), n))
+    per = -(-q_tiles // splits) if q_tiles else 1
+    splits = -(-q_tiles // per) if q_tiles else 1
+    return BwdPlan(_BWD_KEY_TILE, _BWD_Q_TILE, splits, per)
+
+
+def _bwd_scratch(plan, b, sq, sk, h, d):
+    """The fp32 scratch the backward wrapper allocates, name -> shape: D and
+    lse2 per query row padded to the query tile, the dQ accumulator, and
+    with a split the per-split dK / dV partials."""
+    sqp = -(-sq // plan.q_tile) * plan.q_tile
+    shapes = {"delta": (b, h, sqp), "lse2": (b, h, sqp),
+              "dq_acc": (b, sq, h, d)}
+    if plan.splits > 1:
+        shapes["dk_part"] = shapes["dv_part"] = (plan.splits, b, sk, h, d)
+    return shapes
+
+
 def flash_attention_backward(q, k, v, o, do, m, l, kv_lens, scale):
     """dq, dk, dv of ``flash_attention`` from what its forward saved (q, k,
     v, the output o and its m / l [B, H, Sq] fp32) and the output's
-    gradient ``do``: the CUDA kernel, bf16 with head dim 64 or 128. Each
-    call adds one to ``flash_attention_backward.launches``."""
+    gradient ``do``: the CUDA kernel, bf16 with head dim 64 or 128, cut as
+    ``_bwd_plan`` says. dq is summed in fp32 from every key tile in an
+    order that changes from run to run (its last bits may too); dk and dv
+    are deterministic. Each call adds one to
+    ``flash_attention_backward.launches``."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_backward(q)
@@ -176,26 +243,48 @@ def flash_attention_backward(q, k, v, o, do, m, l, kv_lens, scale):
             k.shape != (b, sk, h, d) or m.shape != (b, h, sq) or \
             l.shape != m.shape:
         raise ValueError("flash_attention backward kernel: shapes")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention backward kernel: device "
-                         f"{q.device}")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
         raise ValueError("flash_attention backward kernel: q, k, v, o and do "
-                         "must be 16-byte aligned (16-byte copies)")
+                         "must be 16-byte aligned (TMA and 16-byte copies)")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention backward kernel: device "
+                         f"{q.device}")
     m, l = m.float().contiguous(), l.float().contiguous()
     if kv_lens is None:
         kv_lens = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lse2 = torch.empty_like(delta)
+    plan = _bwd_plan(b, sq, sk, h, d, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    return _launch_backward(q, k, v, o, do, m, l, kv_lens, scale, plan)
+
+
+def _launch_backward(q, k, v, o, do, m, l, kv_lens, scale, plan):
+    """The backward kernel on checked, contiguous CUDA tensors cut as
+    ``plan`` says (``flash_attention_backward`` passes ``_bwd_plan``'s;
+    ``ops/tune_backward.py`` times others)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     lib = _bwd_lib()
+    tiles = (ctypes.c_int(), ctypes.c_int())
+    lib.wf_flash_attention_bwd_tiles(*(ctypes.byref(t) for t in tiles))
+    if (plan.key_tile, plan.q_tile) != tuple(t.value for t in tiles):
+        raise RuntimeError(
+            f"flash_attention backward kernel: plan tiles "
+            f"{(plan.key_tile, plan.q_tile)}, kernel tiles "
+            f"{tuple(t.value for t in tiles)}")
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=q.device)
+               for name, shape in _bwd_scratch(plan, b, sq, sk, h, d).items()}
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = lambda name: (scratch[name].data_ptr() if name in scratch
+                         else None)
     err = lib.wf_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         m.data_ptr(), l.data_ptr(), kv_lens.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), lse2.data_ptr(), b,
-        sq, sk, h, d, float(scale),
+        dk.data_ptr(), dv.data_ptr(), scratch["delta"].data_ptr(),
+        scratch["lse2"].data_ptr(), scratch["dq_acc"].data_ptr(),
+        part("dk_part"), part("dv_part"), b, sq, sk, h, d, plan.splits,
+        plan.q_tiles_per_split, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(

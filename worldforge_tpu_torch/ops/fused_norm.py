@@ -19,15 +19,20 @@ through it.
 
 Gradients (the JAX package's training takes them by autodiff of the same
 function): on CUDA tensors ``_ModLNFn``'s backward is a Triton kernel in
-two passes (``mod_ln_bwd_kernel``, then ``colsum_kernel``): one program
-per ``_BWD_ROWS`` rows of one batch row recomputes mean and rstd, writes
-dx = rstd * (g - mean(g) - xhat * mean(g * xhat)) with g = dy * (1 + sc)
-and its block's per-channel sums of dy * xhat and dy; the second pass adds
-the blocks into dsc and dsh [B, 1, D]. It reads x and dy and writes dx
-once (1.04 GB at the 480p shape: bound by bytes, as the forward), and the
-partial sums are 1/_BWD_ROWS of that. A reduction over channels per row
-plus one over tokens per channel is what Triton does well. On the CPU
-autograd differentiates ``modulated_layer_norm_ref``.
+two launches (``mod_ln_bwd_kernel``, then ``colsum_kernel``). It reads x
+and dy and writes dx once (1.04 GB at the 480p shape: bound by bytes, as
+the forward, 0.310 ms at 3.35 TB/s). The first launch runs one program
+per SM for wide rows and two for narrow ones (``_bwd_launch``,
+``_bwd_grid``), each over a run of rows of one batch row. A row is held in registers as a power-of-two HEAD piece plus a
+masked TAIL piece (4096 + 1024 at D = 5120, so no lane is spent past D),
+and the next row's loads are issued before this row's two rounds of
+reductions (the mean, then the centred variance, mean(g) and mean(g *
+xhat) together). It writes dx = rstd * (g - mean g - xhat * mean(g *
+xhat)) with g = dy * (1 + sc), and the program's per-channel sums of dy *
+xhat and dy to one partial buffer [2, B, programs, D]. The second launch
+adds both sets of partials into dsc and dsh [B, 1, D]. A reduction over
+channels per row plus one over tokens per channel is what Triton does
+well. On the CPU autograd differentiates ``modulated_layer_norm_ref``.
 """
 
 from __future__ import annotations
@@ -47,7 +52,33 @@ def modulated_layer_norm_ref(x, sc, sh, *, eps: float = 1e-6,
     return y.to(out_dtype)
 
 
-_BWD_ROWS = 32   # rows of one backward program
+def _bwd_launch(d):
+    """(num_warps, programs per SM) of the backward's first launch: 8 warps,
+    one program an SM for rows of 4096 channels or more (Wan-14B's 5120,
+    LongCat's 4096), two below (Wan-1.3B's 1536), where one program's row
+    keeps too few bytes in flight. On the H100 (``ops/tune_backward.py``,
+    warps 4 / 8 / 16 by 1 / 2 / 4 / 8 programs an SM) these take 0.4022 /
+    0.3064 / 0.2274 ms, within 0.6% of the fastest at each width (16 warps
+    and one program 0.4012 at 5120, 4 warps and two programs 0.2260 at
+    1536; within 2.2% in a second run); two programs at 5120 take 0.4086,
+    one at 1536 takes 0.3661."""
+    return (8, 1) if d >= 4096 else (8, 2)
+
+
+def _bwd_grid(b, s, num_sms, programs_per_sm):
+    """(programs per batch row, rows per program) of the backward's first
+    launch: about ``programs_per_sm`` programs per SM in all."""
+    want = max(1, -(-programs_per_sm * num_sms // max(b, 1)))
+    rows = max(1, -(-s // want))
+    return -(-s // rows), rows
+
+
+def _bwd_pieces(d):
+    """The HEAD (largest power of two <= d) and TAIL (the rest, rounded
+    up to a power of two, at least 16) pieces a row is held in."""
+    head = 1 << (d.bit_length() - 1)
+    tail = max(16, 1 << max(0, (d - head - 1).bit_length()))
+    return head, tail
 
 
 def _launch(x, sc, sh, eps, out_dtype):
@@ -84,24 +115,32 @@ def modulated_layer_norm_backward(x, sc, dy, *, eps: float = 1e-6):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError("modulated_layer_norm backward kernel: CUDA "
                              "tensors on one device only")
+    return _launch_backward(x.contiguous(), sc.contiguous(), dy.contiguous(),
+                            eps, *_bwd_launch(d))
+
+
+def _launch_backward(x, sc, dy, eps, num_warps, per_sm):
+    """The two launches on checked, contiguous CUDA tensors, the first with
+    ``num_warps`` warps and about ``per_sm`` programs per SM
+    (``modulated_layer_norm_backward`` passes ``_bwd_launch``'s;
+    ``ops/tune_backward.py`` times others)."""
     import triton
     from worldforge_tpu_torch.ops._triton_kernels import (colsum_kernel,
                                                           mod_ln_bwd_kernel)
-    x, sc, dy = x.contiguous(), sc.contiguous(), dy.contiguous()
+    b, s, d = x.shape
     dx = torch.empty_like(x)
-    nblk = triton.cdiv(s, _BWD_ROWS)
-    pdsc = torch.empty((b, nblk, d), dtype=torch.float32, device=x.device)
-    pdsh = torch.empty_like(pdsc)
-    block = triton.next_power_of_2(d)
-    mod_ln_bwd_kernel[(b, nblk)](x, sc, dy, dx, pdsc, pdsh, s, d, nblk,
-                                 float(eps), ROWS=_BWD_ROWS, BLOCK_D=block,
-                                 num_warps=max(1, min(16, block // 512)))
-    dsc = torch.empty((b, 1, d), dtype=sc.dtype, device=x.device)
-    dsh = torch.empty_like(dsc)
-    for part, out in ((pdsc, dsc), (pdsh, dsh)):
-        colsum_kernel[(b, triton.cdiv(d, 128))](part, out, nblk, d,
+    nblk, rows = _bwd_grid(b, s, torch.cuda.get_device_properties(
+        x.device).multi_processor_count, per_sm)
+    part = torch.empty((2, b, nblk, d), dtype=torch.float32, device=x.device)
+    head, tail = _bwd_pieces(d)
+    mod_ln_bwd_kernel[(b, nblk)](x, sc, dy, dx, part, s, rows, nblk,
+                                 float(eps), D=d, HEAD=head, TAIL=tail,
+                                 num_warps=num_warps)
+    dsc_dsh = torch.empty((2, b, 1, d), dtype=sc.dtype, device=x.device)
+    colsum_kernel[(2 * b, triton.cdiv(d, 128))](part, dsc_dsh, nblk, d,
                                                 BLOCK_N=32, BLOCK_D=128,
                                                 num_warps=4)
+    dsc, dsh = dsc_dsh[0], dsc_dsh[1]
     modulated_layer_norm_backward.launches += 1
     return dx, dsc, dsh
 
