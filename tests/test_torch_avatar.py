@@ -184,6 +184,16 @@ def test_avatar_dit_forward_singletalk_matches_jax(avatar):
     assert _rel(got0, want0) < TOL
 
 
+def test_avatar_dit_forward_token_chunk_matches_jax(avatar):
+    """``token_chunk=2``: the FFN over two token chunks, as JAX's
+    ``swiglu_ffn`` runs it (singletalk, a cond frame)."""
+    inp = _inputs(1, 3, 4, 4, 11)
+    t = np.array([[0.0, 600.0, 600.0]], np.float32)
+    got, want = _forward_pair(avatar, inp, t, num_cond_latents=1,
+                              token_chunk=2)
+    assert _rel(got, want) < TOL
+
+
 def test_avatar_dit_forward_multitalk_matches_jax(avatar):
     """Two speakers: the audio batch holds both, [2, H, W] pixel masks
     (nearest to the token grid), the attention map's argmax bands and the

@@ -41,20 +41,21 @@ def _inputs(cfg, rng, t):
     return x, y, np.array([t], np.float32), ctx, clip
 
 
-def _run_both(policy_pair, dtype, t, rng):
+def _run_both(policy_pair, dtype, t, rng, token_chunk=1):
     jpol, tpol = policy_pair
     cfg = jdit.WanDiTConfig.tiny("i2v")
     p = _jax_params(cfg, dtype)
     x, y, tt, ctx, clip = _inputs(cfg, rng, t)
     want = np.asarray(jdit.wan_dit_forward(
         p, cfg, jnp.asarray(x), jnp.asarray(tt), jnp.asarray(ctx),
-        clip_fea=jnp.asarray(clip), y=jnp.asarray(y), policy=jpol))
+        clip_fea=jnp.asarray(clip), y=jnp.asarray(y), policy=jpol,
+        token_chunk=token_chunk))
     tp = dit_params_from_jax(jax.tree_util.tree_map(np.asarray, p))
     got = tdit.wan_dit_forward(
         tp, tdit.WanDiTConfig.tiny("i2v"), torch.from_numpy(x),
         torch.from_numpy(tt), torch.from_numpy(ctx),
         clip_fea=torch.from_numpy(clip), y=torch.from_numpy(y),
-        policy=tpol).numpy()
+        policy=tpol, token_chunk=token_chunk).numpy()
     assert got.shape == want.shape == (1, cfg.out_dim, 3, 8, 8)
     return got, want
 
@@ -64,6 +65,18 @@ def test_dit_fp32_policy_matches_jax(rng, t):
     """FP32_POLICY with fp32 weights: the same fp32 arithmetic, summed in
     another order (measured 4e-7 relative); held below 1e-4 relative."""
     got, want = _run_both((J_FP32, T_FP32), jnp.float32, t, rng)
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("token_chunk", [2, 4, 5])
+def test_dit_token_chunk_matches_jax(rng, token_chunk):
+    """``token_chunk``: the FFN over that many token chunks where it divides
+    the 48 tokens (2, 4), one call where it does not (5), as JAX's
+    ``_ffn_token_chunked``; held below 1e-4 relative of JAX's chunked
+    forward under FP32_POLICY."""
+    got, want = _run_both((J_FP32, T_FP32), jnp.float32, 500.0, rng,
+                          token_chunk)
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 1e-4, rel
 

@@ -30,6 +30,9 @@ VARIANTS = {
     "dense": dict(),
     "bsa": dict(bsa_params={"sparsity": 0.5}),
     "cond_split": dict(num_cond_latents=1),
+    # the QKV prologue and the FFN over token chunks (JAX's lax.map)
+    "token_chunk": dict(token_chunk=4),
+    "cond_split_token_chunk": dict(num_cond_latents=1, token_chunk=2),
 }
 
 
@@ -105,12 +108,14 @@ def test_pieces_and_init_match_jax(jax_params, rng):
 
 
 def test_later_slices_raise(jax_params, rng):
+    """Meshes and ``token_chunk`` are ported (``tests/test_torch_parallel
+    _models.py``, the token_chunk variants above); what still raises is an
+    FSDP-sharded tree (a leaf marked with its ``fsdp_axis``) without the
+    mesh it was sharded on."""
     cfg = tdit.LongCatDiTConfig.tiny()
     x, t, ctx, _ = _inputs(rng, cfg)
     p = longcat_dit_params_from_jax(jax_params["float32"])
-    args = (p, cfg, torch.from_numpy(x), torch.from_numpy(t),
-            torch.from_numpy(ctx))
-    with pytest.raises(NotImplementedError):
-        tdit.longcat_dit_forward(*args, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tdit.longcat_dit_forward(*args, token_chunk=2)
+    p["blocks"][0]["qkv"]["w"].fsdp_axis = 1
+    with pytest.raises(ValueError, match="mesh"):
+        tdit.longcat_dit_forward(p, cfg, torch.from_numpy(x),
+                                 torch.from_numpy(t), torch.from_numpy(ctx))

@@ -191,8 +191,9 @@ def test_streaming_refine_pixels_match_jax(pipes, conv_mode):
 
 def test_grid_check_and_later_slices(pipes, capsys):
     """A grid that does not factor into (4, 4, 8) chunks runs dense with
-    the JAX package's message; meshes, ``token_chunk`` > 1 and
-    ``auto_layout`` (later slices) raise on every generate path."""
+    the JAX package's message; ``token_chunk`` > 1 (ported with the
+    parallel layer, as meshes are) gives the same refine; ``auto_layout``
+    (XLA entry layouts, no counterpart) raises on every generate path."""
     _, tp = pipes
     video_shape, hw, kw = CASES["spatial"]
     stage1, pe, pmask = _inputs(video_shape)
@@ -202,8 +203,12 @@ def test_grid_check_and_later_slices(pipes, capsys):
                              use_bsa=True)
     assert out.shape == (1, 3, 5, 32, 32) and np.isfinite(out).all()
     assert "BSA disabled" in capsys.readouterr().out
-    for field, value in (("mesh", object()), ("token_chunk", 2),
-                         ("auto_layout", True)):
+    chunked = dataclasses.replace(tp, token_chunk=2).generate_refine(
+        torch.Generator().manual_seed(0), stage1, pe, pmask, height=hw[0],
+        width=hw[1], num_inference_steps=2, spatial_refine_only=True,
+        use_bsa=True)
+    np.testing.assert_allclose(chunked, out, rtol=0, atol=1e-5)
+    for field, value in (("auto_layout", True),):
         bad = dataclasses.replace(tp, **{field: value})
         with pytest.raises(NotImplementedError):
             bad.generate_refine(None, stage1, pe, pmask, height=hw[0],

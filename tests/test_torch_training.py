@@ -478,11 +478,46 @@ def test_train_step_decreases_loss():
 
 
 def test_make_train_step_takes_no_mesh():
+    """``make_train_step`` and ``make_lora_train_step`` take a mesh (the
+    multi-rank steps are held against JAX in
+    ``tests/test_torch_parallel_models.py``): on a one-rank gloo mesh a
+    step gives the mesh-free step's loss and parameters bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from worldforge_tpu_torch.core.mesh import init_process_group, make_mesh
     cfg = twan.WanDiTConfig.tiny("t2v")
-    with pytest.raises(NotImplementedError):
-        tstep.make_train_step(cfg, None, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tlora.make_lora_train_step(cfg, None, {}, mesh=object())
+    batch = _torch_batch(_wan_batch(jwan.WanDiTConfig.tiny("t2v"), 0))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_process_group("cpu", rank=0, world_size=1,
+                       init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = make_mesh(1, 1, 1, device="cpu")
+        runs = []
+        for m in (None, mesh):
+            params = twan.init_wan_dit(torch.Generator().manual_seed(0), cfg,
+                                       dtype=torch.float32)
+            opt = torch.optim.AdamW(tstep.trainable_leaves(params), lr=LR,
+                                    weight_decay=WD)
+            loss = tstep.make_train_step(cfg, opt, mesh=m)(
+                params, batch, torch.Generator().manual_seed(1))
+            lora = tlora.init_lora(torch.Generator().manual_seed(2), params,
+                                   rank=2)
+            lopt = torch.optim.AdamW(tstep.trainable_leaves(lora), lr=LR)
+            lloss = tlora.make_lora_train_step(cfg, lopt, params, mesh=m)(
+                lora, batch, torch.Generator().manual_seed(3))
+            runs.append((loss, _flat(params), lloss, _flat(lora)))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0, ll0, a0), (l1, p1, ll1, a1) = runs
+    assert torch.equal(l0, l1) and torch.equal(ll0, ll1)
+    for flat0, flat1 in ((p0, p1), (a0, a1)):
+        assert sorted(flat0) == sorted(flat1)
+        for k in flat0:
+            assert torch.equal(flat0[k], flat1[k]), k
 
 
 # ------------------------------------------------------------ LoRA

@@ -18,7 +18,8 @@ with ``--use_distill`` merges the distill LoRA
 a reduced size. ``--use_distill`` also selects the 16-step distill schedule
 without CFG. ``--enable-upscale`` chains the
 result into ``generate_refine`` at twice the size. ``--context_parallel_size``
-> 1 needs the parallel layer, a later slice of the port, and raises.
+> 1 raises: the CLI runs one process, and the JAX CLI parses the flag and
+reads it nowhere (a pipeline with a ``mesh`` runs under torchrun).
 """
 
 from __future__ import annotations
@@ -90,8 +91,9 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.context_parallel_size > 1:
         raise NotImplementedError(
-            "--context_parallel_size > 1 needs the parallel layer, a later "
-            "slice of the port")
+            "--context_parallel_size > 1: this CLI runs one process (the "
+            "JAX CLI parses the flag and reads it nowhere); the parallel "
+            "layer runs a pipeline with a mesh under torchrun (README)")
     static = args.static == "True"
 
     frames, masks, _ = read_frames_from_directory(args.video_ref)

@@ -11,8 +11,9 @@ The flag surface of ``worldforge_tpu/cli/run_upscale.py``, plus
 ``--device cpu`` to run the plain PyTorch path on the CPU.
 ``--checkpoint_dir`` loads the converted LongCat checkpoints there
 (``io/convert_longcat.py``); ``--random-init`` runs random weights at a
-reduced size. ``--context_parallel_size`` > 1 is the parallel layer, a
-later slice of the port, and raises.
+reduced size. ``--context_parallel_size`` > 1 raises: the CLI runs one
+process, and the JAX CLI parses the flag and reads it nowhere (a pipeline
+with a ``mesh`` runs under torchrun).
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.context_parallel_size > 1:
         raise NotImplementedError(
-            "--context_parallel_size > 1 needs the parallel layer, a later "
-            "slice of the port")
+            "--context_parallel_size > 1: this CLI runs one process (the "
+            "JAX CLI parses the flag and reads it nowhere); the parallel "
+            "layer runs a pipeline with a mesh under torchrun (README)")
     frames = load_frames(args.input)  # [T, H, W, 3] in [0,1]
 
     from worldforge_tpu_torch.io.checkpoints import load_longcat_pipeline

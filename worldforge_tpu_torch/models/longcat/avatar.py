@@ -27,8 +27,10 @@ Kernels: every self- and cross-attention (text and audio) goes through
 ``apply_rope_qk`` (kernel 2), where the JAX module calls ``attention`` and
 ``apply_rope_qk``; the cached step rotates q and the joint k with the plain
 ``apply_rope``, as the base model does. The per-frame modulation is a plain
-LayerNorm, as in the base LongCat model. Meshes and ``token_chunk`` > 1
-belong to later slices and raise.
+LayerNorm, as in the base LongCat model. ``avatar_dit_forward`` takes a
+``mesh`` (the base model's parallel layer: ``dp``, ``sp`` through Ulysses
+outside the ref and multitalk modes, FSDP) and ``token_chunk`` (the FFN
+over token chunks).
 """
 
 from __future__ import annotations
@@ -42,21 +44,26 @@ import torch.nn.functional as F
 
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from worldforge_tpu_torch.core.mesh import (AXIS_SP, TokenSplit,
+                                            gather_batch, split_batch,
+                                            sp_size)
 from worldforge_tpu_torch.models.longcat.dit import (LongCatDiTConfig,
                                                      _cross_attention_lc,
-                                                     _embed_t,
-                                                     _ffn_residual, _heads_hd,
+                                                     _embed_t, _final_layer,
+                                                     _ffn_residual, _frames,
+                                                     _gated, _heads_hd,
                                                      _modulate_per_frame,
-                                                     _rms_hd,
+                                                     _rms_hd, _rope_rows,
                                                      _self_attention_lc,
                                                      init_longcat_dit,
                                                      init_longcat_layer,
                                                      longcat_dit_cache_cond)
-from worldforge_tpu_torch.models.wan.dit import patchify, unpatchify
+from worldforge_tpu_torch.models.wan.dit import patchify
 from worldforge_tpu_torch.ops.attention import attention
 from worldforge_tpu_torch.ops.rope import (apply_rope, apply_rope_qk,
                                            rope_cos_sin)
 from worldforge_tpu_torch.ops.sampling import jax_nearest_index
+from worldforge_tpu_torch.parallel.sharding import gather_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -371,22 +378,47 @@ def _audio_cross_attention_multitalk(p, cfg: AvatarConfig,
 
 
 def _audio_residual(p, cfg: AvatarConfig, xf, t_emb, audio, T: int,
-                    num_cond_latents: int, x_ref_attn_map, policy: Policy):
+                    num_cond_latents: int, x_ref_attn_map, policy: Policy,
+                    split=None):
     """The audio branch over the noise frames with its own fp32 modulation;
-    the cond frames get zeros. Returns xf + the branch."""
+    the cond frames get zeros. Returns xf + the branch. Under a ``split``
+    (this rank's rows of the sequence) the rank's noise rows are laid into
+    whole frames (zeros elsewhere) for the per-frame attention, which is
+    row by row the same math."""
     base = cfg.base
     b, n, c = xf.shape
-    nc = num_cond_latents * (n // T) if num_cond_latents else 0
     t_noise = T - num_cond_latents
     amod = P.dense(p["audio_adaln"], F.silu(t_emb[:, num_cond_latents:]
                                            .float()),
                    compute_dtype=torch.float32)
     a_sh, a_sc, a_g = torch.chunk(amod, 3, dim=-1)          # [B, T_n, C]
-    xv = P.layer_norm(p["pre_video_norm"], xf[:, nc:], eps=base.eps,
-                      out_dtype=policy.compute_dtype)
     audio_n = audio[:, num_cond_latents:]
     if cfg.audio_prenorm:
         audio_n = P.layer_norm(p["pre_audio_norm"], audio_n, eps=base.eps)
+    if split is not None:
+        s_f = split.n // T
+        g = split.index - num_cond_latents * s_f             # noise index
+        rows = torch.arange(n, device=xf.device)
+        sel = ((rows < split.n_real) & (g >= 0)).nonzero()[:, 0]
+        if sel.numel() == 0:
+            return xf
+        g = g[sel]
+        fr = torch.div(g, s_f, rounding_mode="floor")
+        f_lo, f_hi = int(fr.min()), int(fr.max()) + 1
+        pos = g - f_lo * s_f
+        xv = P.layer_norm(p["pre_video_norm"], xf[:, sel], eps=base.eps,
+                          out_dtype=policy.compute_dtype)
+        buf = xv.new_zeros((b, (f_hi - f_lo) * s_f, c)).index_copy(1, pos,
+                                                                   xv)
+        a_out = _audio_cross_attention(p, cfg, buf, audio_n[:, f_lo:f_hi],
+                                       f_hi - f_lo, policy)[:, pos]
+        a_out = _modulate_per_frame(a_out.float(), a_sh, a_sc, t_noise,
+                                    base.eps, fr)
+        a_out = a_g[:, fr] * a_out
+        return xf.index_add(1, sel, a_out)
+    nc = num_cond_latents * (n // T) if num_cond_latents else 0
+    xv = P.layer_norm(p["pre_video_norm"], xf[:, nc:], eps=base.eps,
+                      out_dtype=policy.compute_dtype)
     if x_ref_attn_map is not None:
         a_out = _audio_cross_attention_multitalk(
             p, cfg, xv, audio_n, t_noise, x_ref_attn_map, policy)
@@ -407,20 +439,26 @@ def avatar_layer_forward(p, cfg: AvatarConfig, x, t_emb, ctx, kv_lens,
                          ref_img_index: Optional[int] = None,
                          mask_frame_range: Optional[int] = None,
                          ref_target_masks: Optional[torch.Tensor] = None,
-                         policy: Policy = DEFAULT_POLICY):
+                         policy: Policy = DEFAULT_POLICY,
+                         token_chunk: int = 1, mesh=None, split=None):
     """The base LongCat block with the audio branch between the text
     cross-attention and the FFN. audio: [B, T, M, C_a] per-latent-frame
     tokens (2M a frame in multitalk); ref_target_masks [2, Nh*Nw] turns on
-    multitalk."""
+    multitalk. Under a ``split`` x holds this rank's rows (the base
+    self-attention through Ulysses; never in the ref or multitalk modes,
+    whose attention maps need the whole sequence). An FSDP-sharded block
+    is gathered first."""
     base = cfg.base
     b, n, c = x.shape
     cdt = policy.compute_dtype
+    p = gather_params(p, mesh)
+    frames = _frames(split, T)
     mod = P.dense(p["adaln"], F.silu(t_emb.float()),
                   compute_dtype=torch.float32)
     sh_a, sc_a, g_a, sh_f, sc_f, g_f = torch.chunk(mod, 6, dim=-1)
 
     xf = x.float()
-    x_m = _modulate_per_frame(xf, sh_a, sc_a, T, base.eps)
+    x_m = _modulate_per_frame(xf, sh_a, sc_a, T, base.eps, frames)
     x_ref_attn_map = None
     if (num_ref_latents > 0 and num_cond_latents > 1) \
             or ref_target_masks is not None:
@@ -430,17 +468,18 @@ def avatar_layer_forward(p, cfg: AvatarConfig, x, t_emb, ctx, kv_lens,
             policy, ref_target_masks=ref_target_masks)
     else:
         y = _self_attention_lc(p, base, x_m.to(cdt), cos, sin, T,
-                               num_cond_latents, policy)
-    yf = y.float().reshape(b, T, n // T, c)
-    xf = xf + (g_a[:, :, None] * yf).reshape(b, n, c)
+                               num_cond_latents, policy, mesh=mesh,
+                               split=split)
+    xf = xf + _gated(g_a, y.float(), T, frames)
 
     h2 = P.layer_norm(p["pre_crs_norm"], xf, eps=base.eps, out_dtype=cdt)
     xf = xf + _cross_attention_lc(p, base, h2, ctx, kv_lens, T,
-                                  num_cond_latents, policy).float()
+                                  num_cond_latents, policy, split).float()
 
     xf = _audio_residual(p, cfg, xf, t_emb, audio, T, num_cond_latents,
-                         x_ref_attn_map, policy)
-    return _ffn_residual(p, base, xf, sh_f, sc_f, g_f, T, cdt)
+                         x_ref_attn_map, policy, split)
+    return _ffn_residual(p, base, xf, sh_f, sc_f, g_f, T, cdt, frames,
+                         token_chunk)
 
 
 # ----------------------------------------------------------- shared
@@ -448,10 +487,10 @@ def avatar_layer_forward(p, cfg: AvatarConfig, x, t_emb, ctx, kv_lens,
 
 def _embed(params, cfg: AvatarConfig, hidden_states, timestep,
            encoder_hidden_states, encoder_attention_mask, audio_embs,
-           policy: Policy):
+           policy: Policy, split=None):
     """Patch, timestep, text and audio embeddings of a forward: (x fp32
-    [B, N, C], t_emb [B, T, adaln], ctx, kv_lens, audio tokens
-    [B, T_video_lat, M, C_a], (nt, nh, nw))."""
+    [B, N, C] (this rank's rows under a ``split``), t_emb [B, T, adaln],
+    ctx, kv_lens, audio tokens [B, T_video_lat, M, C_a], (nt, nh, nw))."""
     base = cfg.base
     cdt = policy.compute_dtype
     b, _, T, H, W = hidden_states.shape
@@ -460,9 +499,10 @@ def _embed(params, cfg: AvatarConfig, hidden_states, timestep,
     dev = hidden_states.device
     if timestep.ndim == 1:
         timestep = timestep[:, None].expand(b, nt)
-    x = P.dense(params["x_embedder"],
-                patchify(hidden_states.to(cdt), base.patch_size),
-                compute_dtype=cdt)
+    tokens = patchify(hidden_states.to(cdt), base.patch_size)
+    if split is not None:
+        tokens = split.split(tokens)
+    x = P.dense(params["x_embedder"], tokens, compute_dtype=cdt)
     t_emb = _embed_t(params, base, timestep.to(dev), b, nt)
     ctx = P.dense(params["y_embedder"]["fc2"], P.gelu_tanh(
         P.dense(params["y_embedder"]["fc1"], encoder_hidden_states.to(cdt))))
@@ -473,14 +513,8 @@ def _embed(params, cfg: AvatarConfig, hidden_states, timestep,
     return x.float(), t_emb, ctx, kv_lens, audio, (nt, nh, nw)
 
 
-def _final(params, cfg: AvatarConfig, xN, t_emb, grid):
-    base = cfg.base
-    fmod = P.dense(params["final"]["adaln"], F.silu(t_emb.float()),
-                   compute_dtype=torch.float32)
-    sh, sc = torch.chunk(fmod, 2, dim=-1)
-    xN = _modulate_per_frame(xN, sh, sc, grid[0], base.eps)
-    out = P.dense(params["final"]["linear"], xN, compute_dtype=torch.float32)
-    return unpatchify(out, grid, base.patch_size, base.out_channels).float()
+def _final(params, cfg: AvatarConfig, xN, t_emb, grid, split=None):
+    return _final_layer(params, cfg.base, xN, t_emb, grid, split)
 
 
 # ----------------------------------------------------------- KV cache
@@ -579,18 +613,38 @@ def avatar_dit_forward(params, cfg: AvatarConfig, hidden_states, timestep,
     """hidden_states [B, C_in, T, H, W]; timestep [B] or [B, T];
     audio_embs [B, T_video, W, S, C_a] per-video-frame wav2vec windows, the
     batch axis holding the two speakers when ref_target_masks ([2, H, W]
-    pixel masks, multitalk) is given. Returns [B, C_out, T, H, W] fp32."""
-    if mesh is not None:
-        raise NotImplementedError("meshes / context parallelism are not "
-                                  "ported yet (a later slice of the port)")
-    if token_chunk != 1:
-        raise NotImplementedError("token_chunk > 1 is not ported yet (a "
-                                  "later slice of the port)")
+    pixel masks, multitalk) is given. Returns [B, C_out, T, H, W] fp32.
+    ``mesh``: the parallel layer (``models/longcat/dit.py``): the batch on
+    ``dp``, the tokens on ``sp`` with the base self-attention through
+    Ulysses, except in the ref and multitalk modes, which run every token
+    on every rank. ``token_chunk`` > 1: the FFN over that many token
+    chunks (exact math)."""
     base = cfg.base
+    b, _, T, H, W = hidden_states.shape
+    pt, ph, pw = base.patch_size
+    grid = (T // pt, H // ph, W // pw)
+    nt, nh, nw = grid
+    split = None
+    if mesh is not None:
+        params = gather_params(params, mesh, skip=("blocks",))
+        if timestep.ndim == 1:
+            timestep = timestep[:, None].expand(b, nt)
+        ins = [hidden_states, timestep, encoder_hidden_states,
+               encoder_attention_mask]
+        if ref_target_masks is None:
+            ins.append(audio_embs)
+        ins = [split_batch(a, mesh, b) for a in ins]
+        hidden_states, timestep, encoder_hidden_states, \
+            encoder_attention_mask = ins[:4]
+        if ref_target_masks is None:
+            audio_embs = ins[4]
+        ref_mode = ((num_ref_latents or 0) > 0 and num_cond_latents > 1)
+        if sp_size(mesh) > 1 and not ref_mode and ref_target_masks is None:
+            split = TokenSplit(nt * nh * nw, mesh, (AXIS_SP,),
+                               device=hidden_states.device)
     xN, t_emb, ctx, kv_lens, audio, grid = _embed(
         params, cfg, hidden_states, timestep, encoder_hidden_states,
-        encoder_attention_mask, audio_embs, policy)
-    nt, nh, nw = grid
+        encoder_attention_mask, audio_embs, policy, split)
     dev = xN.device
     if num_ref_latents:
         # a ref image in front reuses frame 0's audio as padding
@@ -619,10 +673,12 @@ def avatar_dit_forward(params, cfg: AvatarConfig, hidden_states, timestep,
                                 device=dev)
     else:
         cos, sin = rope_cos_sin(nt, nh, nw, base.head_dim, device=dev)
+    cos, sin = _rope_rows(cos, sin, split)
 
     for layer in params["blocks"]:
         xN = avatar_layer_forward(layer, cfg, xN, t_emb, ctx, kv_lens, audio,
                                   cos, sin, nt, num_cond_latents,
                                   num_ref_latents or 0, ref_img_index,
-                                  mask_frame_range, token_masks, policy)
-    return _final(params, cfg, xN, t_emb, grid)
+                                  mask_frame_range, token_masks, policy,
+                                  token_chunk, mesh, split)
+    return gather_batch(_final(params, cfg, xN, t_emb, grid, split), mesh, b)

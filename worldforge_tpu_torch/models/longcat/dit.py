@@ -52,8 +52,20 @@ through the backward kernels of kernels 1 and 2 (and BSA's gathered
 recompute when ``bsa_params`` is set), and ``remat=True`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, JAX's
 ``jax.checkpoint`` around the scan body). The cache pair is inference-only.
-Left for later slices: meshes and ``token_chunk`` > 1
-(``longcat_dit_forward`` raises).
+
+Under a ``mesh`` (``core/mesh.py``) the batch is cut on ``dp`` and the
+tokens, after the patch embedding, on ``sp``; the per-frame modulations
+take each row's frame, each rank rotates its own RoPE rows, and the output
+is gathered after the final layer. Self-attention runs Ulysses
+(``parallel/ulysses.py``) when the heads divide over ``sp``, else every
+rank gathers the keys for its own queries (JAX falls back to unsharded
+attention there); with BSA on, the tokens are cut in BSA's chunk order and
+attend through the block-sparse ring (``parallel/bsa_cp.py``, kernel 5
+with ``return_lse``). The vc pair keeps the cond tokens' cache
+sequence-sharded. FSDP-sharded trees (``parallel/sharding.py``) are
+gathered a block at a time. ``token_chunk`` > 1 runs the QKV prologue and
+the FFN over token chunks (exact math, smaller transients), ignored under
+a mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -69,12 +81,19 @@ import torch.utils.checkpoint
 
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from worldforge_tpu_torch.core.mesh import (AXIS_SP, TokenSplit,
+                                            gather_batch, split_batch,
+                                            sp_size)
 from worldforge_tpu_torch.models.wan.dit import patchify, unpatchify
 from worldforge_tpu_torch.ops.attention import attention
-from worldforge_tpu_torch.ops.bsa import bsa_attention_3d
+from worldforge_tpu_torch.ops.bsa import CHUNK_Q, bsa_attention_3d
 from worldforge_tpu_torch.ops.quant import quantize_tree
 from worldforge_tpu_torch.ops.rope import (apply_rope, apply_rope_qk,
                                            rope_cos_sin)
+from worldforge_tpu_torch.parallel.bsa_cp import (block_order,
+                                                  bsa_attention_3d_cp)
+from worldforge_tpu_torch.parallel.sharding import gather_params
+from worldforge_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,62 +249,134 @@ def _rms_hd(p, x, eps):
     return y * p["scale"].float()
 
 
-def _modulate_per_frame(x, shift, scale, T, eps):
+def _modulate_per_frame(x, shift, scale, T, eps, frames=None):
     """LN (no affine, fp32) then * (1 + scale) + shift per frame.
-    x: [B, N, C]; shift / scale: [B, T, C]."""
+    x: [B, N, C]; shift / scale: [B, T, C]. ``frames``: each row's frame
+    (a ``TokenSplit``'s rows), else the rows are T equal frames."""
     b, n, c = x.shape
     xf = P.layer_norm({}, x.float(), eps=eps, out_dtype=torch.float32)
+    if frames is not None:
+        return xf * (1.0 + scale[:, frames]) + shift[:, frames]
     xf = xf.reshape(b, T, n // T, c)
     y = xf * (1.0 + scale[:, :, None]) + shift[:, :, None]
     return y.reshape(b, n, c)
 
 
-def _qkv_prologue(p, cfg, x_m, cos, sin, cdt):
-    """QKV projection + head-dim RMSNorm + RoPE -> q, k, v in ``cdt``."""
+def _gated(g, y, T, frames=None):
+    """The per-frame gate g [B, T, C] on rows y [B, N, C] (fp32)."""
+    if frames is not None:
+        return g[:, frames] * y
+    b, n, c = y.shape
+    return (g[:, :, None] * y.reshape(b, T, n // T, c)).reshape(b, n, c)
+
+
+def _chunked(fn, token_chunk, *xs):
+    """``fn`` over ``token_chunk`` chunks of the token axis of each x
+    (dim 1 of [B, N, ...], dim 0 of the [N, D/2] RoPE tables), its
+    outputs concatenated: row for row the same math, with smaller
+    transients. One call when the chunks do not divide N."""
+    n = xs[0].shape[1]
+    if token_chunk <= 1 or n % token_chunk:
+        return fn(*xs)
+    parts = [fn(*args) for args in zip(*(
+        x.chunk(token_chunk, dim=1 if x.dim() > 2 else 0) for x in xs))]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    return torch.cat(parts, dim=1)
+
+
+def _qkv_prologue(p, cfg, x_m, cos, sin, cdt, token_chunk: int = 1):
+    """QKV projection + head-dim RMSNorm + RoPE -> q, k, v in ``cdt``;
+    ``token_chunk`` > 1 runs it over token chunks."""
     h = cfg.num_heads
-    qkv = P.dense(p["qkv"], x_m.to(cdt))
-    q, k, v = torch.chunk(qkv, 3, dim=-1)
-    q = _rms_hd(p["q_norm"], _heads_hd(q, h), cfg.eps)
-    k = _rms_hd(p["k_norm"], _heads_hd(k, h), cfg.eps)
-    q, k = apply_rope_qk(q, k, cos, sin, out_dtype=cdt)
-    return q, k, _heads_hd(v, h)
+
+    def pro(xc, cos_c, sin_c):
+        qkv = P.dense(p["qkv"], xc.to(cdt))
+        q, k, v = torch.chunk(qkv, 3, dim=-1)
+        q = _rms_hd(p["q_norm"], _heads_hd(q, h), cfg.eps)
+        k = _rms_hd(p["k_norm"], _heads_hd(k, h), cfg.eps)
+        q, k = apply_rope_qk(q, k, cos_c, sin_c, out_dtype=cdt)
+        return q, k, _heads_hd(v, h)
+
+    return _chunked(pro, token_chunk, x_m, cos, sin)
+
+
+def _bsa_on(bsa_params, grid3d) -> bool:
+    return bsa_params is not None and grid3d is not None and grid3d[0] > 1
+
+
+def _check_bsa_grid(bsa_params, tq, tk):
+    ct = bsa_params.get("chunk_3d_shape_q", (4, 4, 8))[0]
+    if tq % ct or tk % ct:
+        raise ValueError(
+            f"BSA needs the temporal grid divisible by the chunk t ({ct}); "
+            f"got Tq={tq}, Tk={tk}. The refine pipeline pads latents to "
+            f"4-multiples; BSA cannot combine with cond-latent splitting "
+            f"(the reference never does).")
+
+
+def _attend(attn, q, k, v, nc):
+    """Self-attention over full sequences; with ``nc`` cond tokens in
+    front, the cond tokens attend only to cond, the noise tokens to all."""
+    if not nc:
+        return attn(q, k, v)
+    o_cond = attn(q[:, :nc], k[:, :nc], v[:, :nc])
+    o_noise = attn(q[:, nc:], k, v)
+    return torch.cat([o_cond, o_noise], dim=1)
 
 
 def _self_attention_lc(p, cfg, x_m, cos, sin, T, num_cond_latents,
-                       policy, grid3d=None, bsa_params=None):
+                       policy, grid3d=None, bsa_params=None,
+                       token_chunk: int = 1, mesh=None, split=None):
+    """Under a ``split`` x_m holds this rank's tokens: Ulysses when the
+    heads divide over the ranks, block-sparse ring CP when BSA is on (the
+    split then cuts the chunk-contiguous order), else every rank gathers
+    the keys and attends from its own queries."""
     b, n, c = x_m.shape
     cdt = policy.compute_dtype
-    q, k, v = _qkv_prologue(p, cfg, x_m, cos, sin, cdt)
+    q, k, v = _qkv_prologue(p, cfg, x_m, cos, sin, cdt, token_chunk)
+    n_glob = split.n if split is not None else n
+    nc = num_cond_latents * (n_glob // T) if num_cond_latents else 0
 
-    if bsa_params is not None and grid3d is not None and grid3d[0] > 1:
+    if _bsa_on(bsa_params, grid3d):
+        if split is not None:
+            if nc:
+                raise ValueError("BSA context parallelism cannot combine "
+                                 "with cond-latent splitting")
+            o = bsa_attention_3d_cp(
+                q, k, v, mesh=mesh, sparsity=bsa_params.get("sparsity",
+                                                            0.875),
+                cdf_threshold=bsa_params.get("cdf_threshold"))
+            return P.dense(p["attn_proj"], o.reshape(b, n, c).to(cdt))
+
         def attn(q_, k_, v_):
             tq = q_.shape[1] // (grid3d[1] * grid3d[2])
             tk = k_.shape[1] // (grid3d[1] * grid3d[2])
-            ct = bsa_params.get("chunk_3d_shape_q", (4, 4, 8))[0]
-            if tq % ct or tk % ct:
-                raise ValueError(
-                    f"BSA needs the temporal grid divisible by the chunk t "
-                    f"({ct}); got Tq={tq}, Tk={tk}. The refine pipeline pads "
-                    f"latents to 4-multiples; BSA cannot combine with "
-                    f"cond-latent splitting (the reference never does).")
+            _check_bsa_grid(bsa_params, tq, tk)
             return bsa_attention_3d(q_, k_, v_, (tq, grid3d[1], grid3d[2]),
                                     (tk, grid3d[1], grid3d[2]), **bsa_params)
     else:
         attn = attention
 
-    if num_cond_latents:
-        nc = num_cond_latents * (n // T)
-        # cond tokens attend only to cond; noise tokens attend to all
-        o_cond = attn(q[:, :nc], k[:, :nc], v[:, :nc])
-        o_noise = attn(q[:, nc:], k, v)
-        o = torch.cat([o_cond, o_noise], dim=1)
+    if split is None:
+        o = _attend(attn, q, k, v, nc)
+    elif cfg.num_heads % split.size == 0:
+        o = split.from_heads(_attend(attn, split.to_heads(q),
+                                     split.to_heads(k), split.to_heads(v),
+                                     nc))
     else:
-        o = attn(q, k, v)
+        kf, vf = split.gather_keys(k), split.gather_keys(v)
+        o = attn(q, kf, vf)
+        cond = (split.index < nc).nonzero()[:, 0]
+        if cond.numel():
+            # this rank's cond rows attend to the cond keys only
+            o = o.index_copy(1, cond, attn(q[:, cond], kf[:, :nc],
+                                           vf[:, :nc]))
     return P.dense(p["attn_proj"], o.reshape(b, n, c).to(cdt))
 
 
 def _cross_attention_lc(p, cfg, x, ctx, kv_lens, T, num_cond_latents,
-                        policy):
+                        policy, split=None):
     b, n, c = x.shape
     cdt = policy.compute_dtype
     h = cfg.num_heads
@@ -300,6 +391,10 @@ def _cross_attention_lc(p, cfg, x, ctx, kv_lens, T, num_cond_latents,
         return P.dense(p["x_proj"],
                        o.reshape(xq.shape[0], xq.shape[1], c).to(cdt))
 
+    if num_cond_latents and split is not None:
+        # row by row the same math: the cond rows are computed and zeroed
+        nc = num_cond_latents * (split.n // T)
+        return run(x) * (split.index >= nc)[None, :, None]
     if num_cond_latents:
         nc = num_cond_latents * (n // T)
         o_noise = run(x[:, nc:])
@@ -308,10 +403,14 @@ def _cross_attention_lc(p, cfg, x, ctx, kv_lens, T, num_cond_latents,
     return run(x)
 
 
-def swiglu_ffn(p, x_m):
-    """SwiGLU FFN: w2(silu(w1 x) * w3 x)."""
-    return P.dense(p["w2"], F.silu(P.dense(p["w1"], x_m))
-                   * P.dense(p["w3"], x_m))
+def swiglu_ffn(p, x_m, token_chunk: int = 1):
+    """SwiGLU FFN: w2(silu(w1 x) * w3 x), over ``token_chunk`` token
+    chunks when that divides the tokens."""
+    def ffn(xc):
+        return P.dense(p["w2"], F.silu(P.dense(p["w1"], xc))
+                       * P.dense(p["w3"], xc))
+
+    return _chunked(ffn, token_chunk, x_m)
 
 
 def _embed_t(params, cfg: LongCatDiTConfig, timestep, b: int, nt: int):
@@ -323,37 +422,74 @@ def _embed_t(params, cfg: LongCatDiTConfig, timestep, b: int, nt: int):
     return te.reshape(b, nt, cfg.adaln_tembed_dim)
 
 
-def _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt):
-    x_m2 = _modulate_per_frame(xf, sh_f, sc_f, nt, cfg.eps).to(cdt)
-    ff = swiglu_ffn(layer, x_m2).float().reshape(xf.shape[0], nt, -1,
-                                                 cfg.hidden_size)
-    return xf + (g_f[:, :, None] * ff).reshape(xf.shape)
+def _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt, frames=None,
+                  token_chunk: int = 1):
+    x_m2 = _modulate_per_frame(xf, sh_f, sc_f, nt, cfg.eps, frames).to(cdt)
+    ff = swiglu_ffn(layer, x_m2, token_chunk).float()
+    return xf + _gated(g_f, ff, nt, frames)
+
+
+def _frames(split, T):
+    """Each local row's frame under a ``split`` (None without one)."""
+    return None if split is None else split.frames(split.n // T)
 
 
 def longcat_layer_forward(p, cfg: LongCatDiTConfig, x, t_emb, ctx, kv_lens,
                           cos, sin, T: int, num_cond_latents: int = 0,
                           policy: Policy = DEFAULT_POLICY, grid3d=None,
-                          bsa_params=None):
-    """x: [B, N, C] fp32 stream; t_emb: [B, T, adaln_dim] fp32;
-    ctx: [B, M, C]."""
-    b, n, c = x.shape
+                          bsa_params=None, token_chunk: int = 1, mesh=None,
+                          split=None):
+    """x: [B, N, C] fp32 stream (this rank's rows under a ``split``);
+    t_emb: [B, T, adaln_dim] fp32; ctx: [B, M, C]. An FSDP-sharded block
+    is gathered first."""
+    p = gather_params(p, mesh)
+    frames = _frames(split, T)
     mod = P.dense(p["adaln"], F.silu(t_emb.float()),
                   compute_dtype=torch.float32)
     sh_a, sc_a, g_a, sh_f, sc_f, g_f = torch.chunk(mod, 6, dim=-1)  # [B,T,C]
 
     xf = x.float()
-    x_m = _modulate_per_frame(xf, sh_a, sc_a, T, cfg.eps)
+    x_m = _modulate_per_frame(xf, sh_a, sc_a, T, cfg.eps, frames)
     y = _self_attention_lc(p, cfg, x_m.to(policy.compute_dtype), cos, sin,
-                           T, num_cond_latents, policy, grid3d, bsa_params)
-    yf = y.float().reshape(b, T, n // T, c)
-    xf = xf + (g_a[:, :, None] * yf).reshape(b, n, c)
+                           T, num_cond_latents, policy, grid3d, bsa_params,
+                           token_chunk, mesh, split)
+    xf = xf + _gated(g_a, y.float(), T, frames)
 
     h2 = P.layer_norm(p["pre_crs_norm"], xf, eps=cfg.eps,
                       out_dtype=policy.compute_dtype)
     xf = xf + _cross_attention_lc(p, cfg, h2, ctx, kv_lens, T,
-                                  num_cond_latents, policy).float()
+                                  num_cond_latents, policy, split).float()
 
-    return _ffn_residual(p, cfg, xf, sh_f, sc_f, g_f, T, policy.compute_dtype)
+    return _ffn_residual(p, cfg, xf, sh_f, sc_f, g_f, T, policy.compute_dtype,
+                         frames, token_chunk)
+
+
+def _token_split(mesh, grid3d, dev, bsa_params=None):
+    """The forward's ``TokenSplit`` on ``sp`` (None below 2 ranks): the
+    raster order, or BSA's chunk order when BSA is on (whole chunks a
+    rank, as JAX's ring CP requires)."""
+    if sp_size(mesh) <= 1:
+        return None
+    n = grid3d[0] * grid3d[1] * grid3d[2]
+    order = None
+    if _bsa_on(bsa_params, grid3d):
+        chunk = tuple(bsa_params.get("chunk_3d_shape_q", (4, 4, 8)))
+        if tuple(bsa_params.get("chunk_3d_shape_k", chunk)) != chunk:
+            raise ValueError("BSA context parallelism needs one chunk shape "
+                             "for q and k")
+        _check_bsa_grid(bsa_params, grid3d[0], grid3d[0])
+        if (n // CHUNK_Q) % sp_size(mesh):
+            raise ValueError(f"BSA context parallelism: {n // CHUNK_Q} "
+                             f"chunks do not divide over sp="
+                             f"{sp_size(mesh)}")
+        order = block_order(grid3d, chunk, dev)
+    return TokenSplit(n, mesh, (AXIS_SP,), order=order, device=dev)
+
+
+def _rope_rows(cos, sin, split):
+    if split is None:
+        return cos, sin
+    return split.split(cos, 0), split.split(sin, 0)
 
 
 # ------------------------------------------------------------------ model
@@ -370,14 +506,10 @@ def longcat_dit_forward(params, cfg: LongCatDiTConfig, hidden_states,
     (per-frame); encoder_hidden_states: [B, M, caption];
     encoder_attention_mask: [B, M] (1 = valid). Returns [B, C_out, T, H, W]
     fp32. ``remat``: recompute each block in the backward pass (the output
-    is the same bit for bit). ``mesh`` and ``token_chunk`` > 1 belong to
-    later slices and raise."""
-    if mesh is not None:
-        raise NotImplementedError("meshes / context parallelism are not "
-                                  "ported yet (a later slice of the port)")
-    if token_chunk != 1:
-        raise NotImplementedError("token_chunk > 1 is not ported yet (a "
-                                  "later slice of the port)")
+    is the same bit for bit). ``mesh``: the parallel layer (module
+    docstring); every rank passes the global inputs and gets the global
+    output. ``token_chunk`` > 1: the QKV prologue and the FFN over that
+    many token chunks (exact math), ignored under a mesh."""
     b, _, T, H, W = hidden_states.shape
     pt, ph, pw = cfg.patch_size
     nt, nh, nw = T // pt, H // ph, W // pw
@@ -386,42 +518,73 @@ def longcat_dit_forward(params, cfg: LongCatDiTConfig, hidden_states,
 
     if timestep.ndim == 1:
         timestep = timestep[:, None].expand(b, nt)
+    split = None
+    if mesh is not None:
+        params = gather_params(params, mesh, skip=("blocks",))
+        hidden_states, timestep, encoder_hidden_states, \
+            encoder_attention_mask = (
+                split_batch(a, mesh, b) for a in (
+                    hidden_states, timestep, encoder_hidden_states,
+                    encoder_attention_mask))
+        split = _token_split(mesh, (nt, nh, nw), dev, bsa_params)
+        token_chunk = 1
+    bl = hidden_states.shape[0]
 
-    x = P.dense(params["x_embedder"],
-                patchify(hidden_states.to(cdt), cfg.patch_size),
-                compute_dtype=cdt)
+    tokens = patchify(hidden_states.to(cdt), cfg.patch_size)
+    if split is not None:
+        tokens = split.split(tokens)
+    x = P.dense(params["x_embedder"], tokens, compute_dtype=cdt)
 
-    t_emb = _embed_t(params, cfg, timestep.to(dev), b, nt)
+    t_emb = _embed_t(params, cfg, timestep.to(dev), bl, nt)
 
     ctx = P.dense(params["y_embedder"]["fc2"], P.gelu_tanh(
         P.dense(params["y_embedder"]["fc1"], encoder_hidden_states.to(cdt))))
     kv_lens = (encoder_attention_mask.sum(dim=1).to(torch.int32)
                if encoder_attention_mask is not None else None)
 
-    cos, sin = rope_cos_sin(nt, nh, nw, cfg.head_dim, device=dev)
+    cos, sin = _rope_rows(*rope_cos_sin(nt, nh, nw, cfg.head_dim,
+                                        device=dev), split)
 
     xN = x.float()
     for layer in params["blocks"]:
         args = (layer, cfg, xN, t_emb, ctx, kv_lens, cos, sin, nt,
-                num_cond_latents, policy, (nt, nh, nw), bsa_params)
+                num_cond_latents, policy, (nt, nh, nw), bsa_params,
+                token_chunk, mesh, split)
         if remat:
             xN = torch.utils.checkpoint.checkpoint(
                 longcat_layer_forward, *args, use_reentrant=False)
         else:
             xN = longcat_layer_forward(*args)
+    return gather_batch(_final_layer(params, cfg, xN, t_emb, (nt, nh, nw),
+                                     split), mesh, b)
 
-    # final layer; the bf16-stored linear under an fp32 request takes the
-    # hi/lo split in P.dense
+
+def _final_layer(params, cfg, xN, t_emb, grid, split=None):
+    """The per-frame modulated LN and linear (the bf16-stored linear under
+    an fp32 request takes the hi/lo split in P.dense), the tokens gathered
+    under a ``split``, unpatchified to [B, C_out, T, H, W] fp32."""
     fmod = P.dense(params["final"]["adaln"], F.silu(t_emb.float()),
                    compute_dtype=torch.float32)
     sh, sc = torch.chunk(fmod, 2, dim=-1)
-    xN = _modulate_per_frame(xN, sh, sc, nt, cfg.eps)
+    xN = _modulate_per_frame(xN, sh, sc, grid[0], cfg.eps,
+                             _frames(split, grid[0]))
     out = P.dense(params["final"]["linear"], xN, compute_dtype=torch.float32)
-    return unpatchify(out, (nt, nh, nw), cfg.patch_size,
-                      cfg.out_channels).float()
+    if split is not None:
+        out = split.gather(out)
+    return unpatchify(out, grid, cfg.patch_size, cfg.out_channels).float()
 
 
 # ----------------------------------------------------------- KV cache
+
+
+def _cache_split(mesh, cfg, n, dev):
+    """The vc pair's split of n tokens on ``sp``: Ulysses when the heads
+    divide over the ranks (JAX's condition), else none (every rank runs
+    the whole sequence)."""
+    sp = sp_size(mesh)
+    if sp <= 1 or cfg.num_heads % sp:
+        return None
+    return TokenSplit(n, mesh, (AXIS_SP,), device=dev)
 
 
 @torch.inference_mode()
@@ -432,30 +595,42 @@ def longcat_dit_cache_cond(params, cfg: LongCatDiTConfig, cond_latents,
     cross-attention) and return each layer's (k, v) of the cond tokens,
     post-QK-norm and pre-RoPE: a list over layers of [2, B, Sc, H, D] in
     ``cache_dtype``. fp32 is exact; bf16 halves the cache and rounds k
-    before its RoPE. ``mesh`` belongs to a later slice and raises."""
-    if mesh is not None:
-        raise NotImplementedError("meshes / context parallelism are not "
-                                  "ported yet (a later slice of the port)")
+    before its RoPE. Under a ``mesh`` with ``sp`` > 1 (heads dividing over
+    it) the cache is sequence-sharded: each rank keeps its rows of the
+    cond tokens (``TokenSplit(Sc)``, padded at the end), the layout
+    ``longcat_dit_forward_with_cache`` takes under the same mesh."""
     b, _, T, H, W = cond_latents.shape
     pt, ph, pw = cfg.patch_size
     nt, nh, nw = T // pt, H // ph, W // pw
     cdt = policy.compute_dtype
     dev = cond_latents.device
     h = cfg.num_heads
+    split = None
+    if mesh is not None:
+        params = gather_params(params, mesh, skip=("blocks",))
+        cond_latents = split_batch(cond_latents, mesh, b)
+        split = _cache_split(mesh, cfg, nt * nh * nw, dev)
+    bl = cond_latents.shape[0]
+    frames = _frames(split, nt)
 
-    x = P.dense(params["x_embedder"],
-                patchify(cond_latents.to(cdt), cfg.patch_size),
-                compute_dtype=cdt)
-    t_emb = _embed_t(params, cfg, torch.zeros((b * nt,), device=dev), b, nt)
-    cos, sin = rope_cos_sin(nt, nh, nw, cfg.head_dim, device=dev)
+    tokens = patchify(cond_latents.to(cdt), cfg.patch_size)
+    if split is not None:
+        tokens = split.split(tokens)
+    x = P.dense(params["x_embedder"], tokens, compute_dtype=cdt)
+    t_emb = _embed_t(params, cfg, torch.zeros((bl * nt,), device=dev), bl,
+                     nt)
+    cos, sin = _rope_rows(*rope_cos_sin(nt, nh, nw, cfg.head_dim,
+                                        device=dev), split)
 
     xf = x.float()
     cache = []
     for layer in params["blocks"]:
+        layer = gather_params(layer, mesh)
         mod = P.dense(layer["adaln"], F.silu(t_emb),
                       compute_dtype=torch.float32)
         sh_a, sc_a, g_a, sh_f, sc_f, g_f = torch.chunk(mod, 6, dim=-1)
-        x_m = _modulate_per_frame(xf, sh_a, sc_a, nt, cfg.eps).to(cdt)
+        x_m = _modulate_per_frame(xf, sh_a, sc_a, nt, cfg.eps,
+                                  frames).to(cdt)
         q, k, v = torch.chunk(P.dense(layer["qkv"], x_m), 3, dim=-1)
         q = _rms_hd(layer["q_norm"], _heads_hd(q, h), cfg.eps)
         k = _rms_hd(layer["k_norm"], _heads_hd(k, h), cfg.eps)
@@ -463,13 +638,12 @@ def longcat_dit_cache_cond(params, cfg: LongCatDiTConfig, cond_latents,
         cache.append(torch.stack([k.to(cache_dtype), v_h.to(cache_dtype)]))
         # continue the forward so later layers cache the right activations
         qr, kr = apply_rope_qk(q, k, cos, sin, out_dtype=cdt)
-        o = attention(qr, kr, v_h.to(cdt))
+        o = ulysses_attention(qr, kr, v_h.to(cdt), mesh=None, split=split)
         o = P.dense(layer["attn_proj"],
-                    o.reshape(b, xf.shape[1], cfg.hidden_size).to(cdt))
-        of = o.float().reshape(b, nt, -1, cfg.hidden_size)
-        xf = xf + (g_a[:, :, None] * of).reshape(xf.shape)
+                    o.reshape(bl, xf.shape[1], cfg.hidden_size).to(cdt))
+        xf = xf + _gated(g_a, o.float(), nt, frames)
         # no cross-attention while caching
-        xf = _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt)
+        xf = _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt, frames)
     return cache
 
 
@@ -484,10 +658,10 @@ def longcat_dit_forward_with_cache(params, cfg: LongCatDiTConfig,
     cached k/v (``longcat_dit_cache_cond``): RoPE over the joint
     (T_cond + T) grid, q at the noise positions; cross-attention on the
     noise tokens. cond_grid: (T_cond,). Returns [B, C_out, T, H, W] fp32.
-    ``mesh`` belongs to a later slice and raises."""
-    if mesh is not None:
-        raise NotImplementedError("meshes / context parallelism are not "
-                                  "ported yet (a later slice of the port)")
+    Under a ``mesh`` with ``sp`` > 1 the noise tokens and the cache are
+    both sequence-sharded (the cache as ``longcat_dit_cache_cond`` made it
+    under the same mesh); Ulysses gathers q over the noise tokens and k / v
+    over cache || noise."""
     b, _, T, H, W = hidden_states.shape
     pt, ph, pw = cfg.patch_size
     nt, nh, nw = T // pt, H // ph, W // pw
@@ -499,11 +673,24 @@ def longcat_dit_forward_with_cache(params, cfg: LongCatDiTConfig,
 
     if timestep.ndim == 1:
         timestep = timestep[:, None].expand(b, nt)
+    split = csplit = None
+    if mesh is not None:
+        params = gather_params(params, mesh, skip=("blocks",))
+        hidden_states, timestep, encoder_hidden_states, \
+            encoder_attention_mask = (
+                split_batch(a, mesh, b) for a in (
+                    hidden_states, timestep, encoder_hidden_states,
+                    encoder_attention_mask))
+        split = _cache_split(mesh, cfg, nt * nh * nw, dev)
+        csplit = _cache_split(mesh, cfg, n_cond, dev)
+    bl = hidden_states.shape[0]
+    frames = _frames(split, nt)
 
-    x = P.dense(params["x_embedder"],
-                patchify(hidden_states.to(cdt), cfg.patch_size),
-                compute_dtype=cdt)
-    t_emb = _embed_t(params, cfg, timestep.to(dev), b, nt)
+    tokens = patchify(hidden_states.to(cdt), cfg.patch_size)
+    if split is not None:
+        tokens = split.split(tokens)
+    x = P.dense(params["x_embedder"], tokens, compute_dtype=cdt)
+    t_emb = _embed_t(params, cfg, timestep.to(dev), bl, nt)
     ctx = P.dense(params["y_embedder"]["fc2"], P.gelu_tanh(
         P.dense(params["y_embedder"]["fc1"], encoder_hidden_states.to(cdt))))
     kv_lens = (encoder_attention_mask.sum(dim=1).to(torch.int32)
@@ -511,41 +698,47 @@ def longcat_dit_forward_with_cache(params, cfg: LongCatDiTConfig,
 
     cos_full, sin_full = rope_cos_sin(tc + nt, nh, nw, cfg.head_dim,
                                       device=dev)
-    cos_q, sin_q = cos_full[n_cond:], sin_full[n_cond:]
+    cos_c, sin_c = _rope_rows(cos_full[:n_cond], sin_full[:n_cond], csplit)
+    cos_q, sin_q = _rope_rows(cos_full[n_cond:], sin_full[n_cond:], split)
 
     xf = x.float()
     for layer, kv in zip(params["blocks"], kv_cache):
+        layer = gather_params(layer, mesh)
         mod = P.dense(layer["adaln"], F.silu(t_emb),
                       compute_dtype=torch.float32)
         sh_a, sc_a, g_a, sh_f, sc_f, g_f = torch.chunk(mod, 6, dim=-1)
-        x_m = _modulate_per_frame(xf, sh_a, sc_a, nt, cfg.eps).to(cdt)
+        x_m = _modulate_per_frame(xf, sh_a, sc_a, nt, cfg.eps,
+                                  frames).to(cdt)
         q, k, v = torch.chunk(P.dense(layer["qkv"], x_m), 3, dim=-1)
         q = _rms_hd(layer["q_norm"], _heads_hd(q, h), cfg.eps)
         k = _rms_hd(layer["k_norm"], _heads_hd(k, h), cfg.eps)
-        v_h = _heads_hd(v, h)
-        k_full = torch.cat([kv[0].float(), k], dim=1)
-        v_full = torch.cat([kv[1].to(cdt), v_h.to(cdt)], dim=1)
+        v_h = _heads_hd(v, h).to(cdt)
         q = apply_rope(q, cos_q, sin_q, out_dtype=cdt)
-        k_full = apply_rope(k_full, cos_full, sin_full, out_dtype=cdt)
-        o = attention(q, k_full, v_full)
+        if split is None:
+            k_full = torch.cat([kv[0].float(), k], dim=1)
+            v_full = torch.cat([kv[1].to(cdt), v_h], dim=1)
+            k_full = apply_rope(k_full, cos_full, sin_full, out_dtype=cdt)
+            o = attention(q, k_full, v_full)
+        else:
+            k_c = apply_rope(kv[0].float(), cos_c, sin_c, out_dtype=cdt)
+            k_n = apply_rope(k, cos_q, sin_q, out_dtype=cdt)
+            k_full = torch.cat([csplit.to_heads(k_c), split.to_heads(k_n)],
+                               dim=1)
+            v_full = torch.cat([csplit.to_heads(kv[1].to(cdt)),
+                                split.to_heads(v_h)], dim=1)
+            o = split.from_heads(attention(split.to_heads(q), k_full,
+                                           v_full))
         o = P.dense(layer["attn_proj"],
-                    o.reshape(b, nt * nh * nw, cfg.hidden_size).to(cdt))
-        of = o.float().reshape(b, nt, -1, cfg.hidden_size)
-        xf = xf + (g_a[:, :, None] * of).reshape(xf.shape)
+                    o.reshape(bl, xf.shape[1], cfg.hidden_size).to(cdt))
+        xf = xf + _gated(g_a, o.float(), nt, frames)
 
         h2 = P.layer_norm(layer["pre_crs_norm"], xf, eps=cfg.eps,
                           out_dtype=cdt)
         xf = xf + _cross_attention_lc(layer, cfg, h2, ctx, kv_lens, nt, 0,
                                       policy).float()
-        xf = _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt)
-
-    fmod = P.dense(params["final"]["adaln"], F.silu(t_emb),
-                   compute_dtype=torch.float32)
-    sh, sc = torch.chunk(fmod, 2, dim=-1)
-    xN = _modulate_per_frame(xf, sh, sc, nt, cfg.eps)
-    out = P.dense(params["final"]["linear"], xN, compute_dtype=torch.float32)
-    return unpatchify(out, (nt, nh, nw), cfg.patch_size,
-                      cfg.out_channels).float()
+        xf = _ffn_residual(layer, cfg, xf, sh_f, sc_f, g_f, nt, cdt, frames)
+    return gather_batch(_final_layer(params, cfg, xf, t_emb, (nt, nh, nw),
+                                     split), mesh, b)
 
 
 # ------------------------------------------------------------------ LoRA

@@ -26,8 +26,14 @@ on CUDA tensors the gradients go through the backward kernels of kernels 1,
 the scan body), so only the blocks' inputs are kept. The pipelines call it
 under their own ``torch.inference_mode``.
 
-Left for later slices: meshes and ``token_chunk`` > 1 (``wan_dit_forward``
-raises).
+Under a ``mesh`` (``core/mesh.py``) the batch is cut on ``dp`` and the
+tokens, after the patch embedding, on ``sp`` (Ulysses,
+``parallel/ulysses.py``) or on ``sp_h`` x ``sp_w`` (``parallel/cp2d.py``);
+each rank rotates its own RoPE rows, cross-attention and the FFN stay
+local, and the output is gathered after the head. FSDP-sharded trees
+(``parallel/sharding.py``) are gathered a block at a time.
+``token_chunk`` > 1 runs the FFN over that many token chunks (exact math, a
+smaller [N, ffn_dim] transient); it is ignored under a mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,12 +49,24 @@ import torch.utils.checkpoint
 
 from worldforge_tpu_torch.core import params as P
 from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from worldforge_tpu_torch.core.mesh import (AXIS_SP, AXIS_SP_H, AXIS_SP_W,
+                                            TokenSplit,
+                                            gather_batch, split_batch,
+                                            sp_size)
 from worldforge_tpu_torch.ops.attention import attention
 from worldforge_tpu_torch.ops.fused_norm import modulated_layer_norm
 from worldforge_tpu_torch.ops.quant import (dense_q8_pre,
                                             quantize_activations,
                                             quantize_tree)
 from worldforge_tpu_torch.ops.rope import apply_rope_qk, rope_cos_sin
+from worldforge_tpu_torch.parallel.cp2d import (cross_attention_2d,
+                                                gather_cp_2d, grid_split,
+                                                rope_rows_2d, split_cp_2d,
+                                                ulysses_attention_2d,
+                                                uses_cp2d)
+from worldforge_tpu_torch.parallel.sharding import gather_params
+from worldforge_tpu_torch.parallel.ulysses import (
+    sequence_local_cross_attention, ulysses_attention)
 
 CLIP_TOKENS = 257  # i2v CLIP image context tokens
 
@@ -228,7 +246,8 @@ def _heads(x, h):
     return x.reshape(x.shape[:-1] + (h, x.shape[-1] // h))
 
 
-def _self_attention(p, cfg: WanDiTConfig, x, cos, sin, policy: Policy):
+def _self_attention(p, cfg: WanDiTConfig, x, cos, sin, policy: Policy,
+                    mesh=None, split=None):
     cdt = policy.compute_dtype
     xq = x.to(cdt)
     if "w8" in p["q"] and not any(
@@ -247,13 +266,25 @@ def _self_attention(p, cfg: WanDiTConfig, x, cos, sin, policy: Policy):
         v = P.dense(p["v"], xq)
     h = cfg.num_heads
     q, k = apply_rope_qk(_heads(q, h), _heads(k, h), cos, sin)
-    o = attention(q, k, _heads(v, h))
+    # Ulysses over the rank's split (both spatial axes under the 2-D
+    # split), plain attention without one
+    if uses_cp2d(mesh):
+        o = ulysses_attention_2d(q, k, _heads(v, h), mesh=mesh, split=split)
+    else:
+        o = ulysses_attention(q, k, _heads(v, h), mesh=None, split=split)
     return P.dense(p["o"], o.reshape(x.shape[0], x.shape[1], cfg.dim))
 
 
 def _cross_attention(p, cfg: WanDiTConfig, x, context, img_ctx_len: int,
-                     policy: Policy):
-    """context: [B, img_ctx_len + text_len, dim] (i2v) or [B, text_len, dim]."""
+                     policy: Policy, mesh=None):
+    """context: [B, img_ctx_len + text_len, dim] (i2v) or [B, text_len, dim].
+    Under a mesh each rank's tokens attend to the whole context locally."""
+    if uses_cp2d(mesh):
+        attend = functools.partial(cross_attention_2d, mesh=mesh)
+    elif sp_size(mesh) > 1:
+        attend = functools.partial(sequence_local_cross_attention, mesh=mesh)
+    else:
+        attend = attention
     cdt = policy.compute_dtype
     xq = x.to(cdt)
     ctx = context.to(cdt)
@@ -266,12 +297,12 @@ def _cross_attention(p, cfg: WanDiTConfig, x, context, img_ctx_len: int,
     k = _heads(P.rms_norm(p["norm_k"], P.dense(p["k"], ctx_txt),
                           eps=cfg.eps), h)
     v = _heads(P.dense(p["v"], ctx_txt), h)
-    o = attention(q, k, v)
+    o = attend(q, k, v)
     if ctx_img is not None:
         k_i = _heads(P.rms_norm(p["norm_k_img"], P.dense(p["k_img"], ctx_img),
                                 eps=cfg.eps), h)
         v_i = _heads(P.dense(p["v_img"], ctx_img), h)
-        o = o + attention(q, k_i, v_i)
+        o = o + attend(q, k_i, v_i)
     return P.dense(p["o"], o.reshape(x.shape[:-1] + (cfg.dim,)))
 
 
@@ -280,15 +311,26 @@ def _modulated_ln(xf, sc, sh, eps, out_dtype):
     return modulated_layer_norm(xf, sc, sh, eps=eps, out_dtype=out_dtype)
 
 
-def _ffn(p, h3):
-    return P.dense(p["fc2"], P.gelu_tanh(P.dense(p["fc1"], h3)))
+def _ffn(p, h3, token_chunk: int = 1):
+    """The FFN, over ``token_chunk`` token chunks when that divides the
+    tokens (row for row the same math; the [N, ffn_dim] gate transient
+    shrinks by the factor)."""
+    def f(xc):
+        return P.dense(p["fc2"], P.gelu_tanh(P.dense(p["fc1"], xc)))
+
+    if token_chunk > 1 and h3.shape[1] % token_chunk == 0:
+        return torch.cat([f(c) for c in h3.chunk(token_chunk, dim=1)], dim=1)
+    return f(h3)
 
 
 def wan_dit_layer_forward(p, cfg: WanDiTConfig, x, e0, context, cos, sin,
                           img_ctx_len: int = 0,
-                          policy: Policy = DEFAULT_POLICY):
-    """One WanAttentionBlock. x: [B, L, dim] fp32 residual stream, e0:
-    [B, 6, dim] fp32, context: [B, Lc, dim]."""
+                          policy: Policy = DEFAULT_POLICY, mesh=None,
+                          split=None, token_chunk: int = 1):
+    """One WanAttentionBlock. x: [B, L, dim] fp32 residual stream (this
+    rank's tokens under a ``split``), e0: [B, 6, dim] fp32, context:
+    [B, Lc, dim]. An FSDP-sharded block is gathered first."""
+    p = gather_params(p, mesh)
     mod = p["modulation"].float() + e0.float()
     bcast = (mod.shape[0], 1, mod.shape[-1])
     sh_sa, sc_sa, g_sa, sh_ff, sc_ff, g_ff = [
@@ -296,17 +338,18 @@ def wan_dit_layer_forward(p, cfg: WanDiTConfig, x, e0, context, cos, sin,
 
     xf = x.float()
     h1 = _modulated_ln(xf, sc_sa, sh_sa, cfg.eps, policy.compute_dtype)
-    y = _self_attention(p["self_attn"], cfg, h1, cos, sin, policy)
+    y = _self_attention(p["self_attn"], cfg, h1, cos, sin, policy, mesh,
+                        split)
     xf = xf + y.float() * g_sa
 
     h2 = P.layer_norm(p["norm3"], xf, eps=cfg.eps,
                       out_dtype=policy.compute_dtype)
     y = _cross_attention(p["cross_attn"], cfg, h2, context, img_ctx_len,
-                         policy)
+                         policy, mesh)
     xf = xf + y.float()
 
     h3 = _modulated_ln(xf, sc_ff, sh_ff, cfg.eps, policy.compute_dtype)
-    y = _ffn(p["ffn"], h3)
+    y = _ffn(p["ffn"], h3, token_chunk)
     return xf + y.float() * g_ff
 
 
@@ -351,16 +394,27 @@ def embed_text(params, context: torch.Tensor, policy: Policy):
                                        context.to(policy.compute_dtype))))
 
 
-def dit_head(params, cfg: WanDiTConfig, hN, e, grid):
+def dit_head(params, cfg: WanDiTConfig, hN, e, grid, split=None,
+             mesh=None):
     """The head: modulated norm, then the output projection (bf16-stored
     weights under an fp32 request take the hi/lo split in P.dense);
-    [B, L, dim] -> [B, out_dim, F, H, W] fp32."""
+    [B, L, dim] -> [B, out_dim, F, H, W] fp32. Under a ``split`` the
+    projected tokens are gathered from every rank first (their 2-D blocks
+    by ``gather_cp_2d`` under the 2-D split)."""
     b = hN.shape[0]
     hm = params["head"]["modulation"].float() + e[:, None]
     sh, sc = hm[:, 0].reshape(b, 1, cfg.dim), hm[:, 1].reshape(b, 1, cfg.dim)
     hN = P.layer_norm({}, hN, eps=cfg.eps, out_dtype=torch.float32)
     hN = hN * (1.0 + sc) + sh
     out = P.dense(params["head"]["head"], hN, compute_dtype=torch.float32)
+    if uses_cp2d(mesh):
+        f, hh, ww = grid
+        blk = (b, f, hh // mesh.shape[AXIS_SP_H], ww // mesh.shape[AXIS_SP_W],
+               -1)
+        out = gather_cp_2d(out.reshape(blk), mesh).reshape(b, f * hh * ww,
+                                                           -1)
+    elif split is not None:
+        out = split.gather(out)
     return unpatchify(out, grid, cfg.patch_size, cfg.out_dim).float()
 
 
@@ -379,22 +433,36 @@ def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
     clip_fea: [B, 257, 1280] CLIP image tokens (i2v).
     Returns [B, out_dim, F, H, W] fp32. ``remat``: recompute each block in
     the backward pass instead of keeping its activations (the output is the
-    same bit for bit). ``mesh`` and ``token_chunk`` > 1 belong to later
-    slices and raise.
+    same bit for bit). ``mesh``: the parallel layer (module docstring);
+    every rank passes the global inputs and gets the global output. The
+    heads must divide over ``sp`` (Ulysses) and the token grid over
+    ``sp_h`` x ``sp_w``, as in JAX. ``token_chunk``: the FFN over that many
+    token chunks, ignored under a mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError("meshes / context parallelism are not "
-                                  "ported yet (a later slice of the port)")
-    if token_chunk != 1:
-        raise NotImplementedError("token_chunk > 1 is not ported yet (a "
-                                  "later slice of the port)")
     if y is not None:
         x = torch.cat([x, y], dim=1)
+    batch = x.shape[0]
     pt, ph, pw = cfg.patch_size
     grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
     f, hh, ww = grid
+    split = None
+    if mesh is not None:
+        params = gather_params(params, mesh, skip=("blocks",))
+        x, t, context, clip_fea = (split_batch(a, mesh, batch)
+                                   for a in (x, t, context, clip_fea))
+        if uses_cp2d(mesh):
+            split = grid_split(mesh, grid, x.device)
+        elif sp_size(mesh) > 1:
+            split = TokenSplit(f * hh * ww, mesh, (AXIS_SP,),
+                               device=x.device)
+        token_chunk = 1
 
     tokens = patchify(x.to(policy.compute_dtype), cfg.patch_size)
+    if uses_cp2d(mesh):
+        tokens = split_cp_2d(tokens.reshape(x.shape[0], f, hh, ww, -1),
+                             mesh).reshape(x.shape[0], -1, tokens.shape[-1])
+    elif split is not None:
+        tokens = split.split(tokens)
     h0 = P.dense(params["patch_embedding"], tokens,
                  compute_dtype=policy.compute_dtype)
     e, e0 = embed_time(params, cfg, t)
@@ -412,16 +480,22 @@ def wan_dit_forward(params, cfg: WanDiTConfig, x, t, context,
         ctx = torch.cat([ci, ctx], dim=1)
         img_ctx_len = clip_fea.shape[1]
 
-    cos, sin = rope_cos_sin(f, hh, ww, cfg.head_dim, device=x.device)
+    if uses_cp2d(mesh):
+        cos, sin = rope_rows_2d(mesh, grid, cfg.head_dim, x.device)
+    else:
+        cos, sin = rope_cos_sin(f, hh, ww, cfg.head_dim, device=x.device)
+        if split is not None:
+            cos, sin = split.split(cos, 0), split.split(sin, 0)
 
     hN = h0.float()
     for layer in params["blocks"]:
+        args = (layer, cfg, hN, e0, ctx, cos, sin, img_ctx_len, policy,
+                mesh, split, token_chunk)
         if remat:
             hN = torch.utils.checkpoint.checkpoint(
-                wan_dit_layer_forward, layer, cfg, hN, e0, ctx, cos, sin,
-                img_ctx_len, policy, use_reentrant=False)
+                wan_dit_layer_forward, *args, use_reentrant=False)
         else:
-            hN = wan_dit_layer_forward(layer, cfg, hN, e0, ctx, cos, sin,
-                                       img_ctx_len, policy)
+            hN = wan_dit_layer_forward(*args)
 
-    return dit_head(params, cfg, hN, e, grid)
+    return gather_batch(dit_head(params, cfg, hN, e, grid, split, mesh), mesh,
+                        batch)

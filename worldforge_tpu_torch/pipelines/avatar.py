@@ -55,6 +55,9 @@ class AvatarPipeline:
     policy: Policy = DEFAULT_POLICY
     vae_scale_t: int = 4
     vae_scale_s: int = 8
+    # the parallel layer's mesh, passed to every DiT forward (the base
+    # self-attention through Ulysses on sp, models/longcat/avatar.py)
+    mesh: object = None
 
     @property
     def device(self) -> torch.device:
@@ -65,7 +68,7 @@ class AvatarPipeline:
                                   t_per_frame, ctx, audio,
                                   encoder_attention_mask=ctx_mask,
                                   num_cond_latents=num_cond,
-                                  policy=self.policy)
+                                  policy=self.policy, mesh=self.mesh)
 
     @torch.inference_mode()
     def generate_i2v_audio(

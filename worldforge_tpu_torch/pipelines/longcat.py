@@ -23,8 +23,11 @@ paths:
   where the token grid factors into (4, 4, 8) chunks.
 
 The fused and chunked scan runners (``fused=True``, ``exec_chunk``) work
-around TPU runtime limits and raise, as ``auto_layout`` does; meshes and
-``token_chunk`` > 1 are a later slice and raise.
+around TPU runtime limits and raise, as ``auto_layout`` does. ``mesh``
+(``core/mesh.py``) goes to every DiT call, the vc cache pair included (the
+cache then sequence-sharded); the pipeline stays global-view, as
+``pipelines/wan_i2v.py`` says. ``token_chunk`` > 1 runs the DiT's QKV
+prologue and FFN over token chunks (ignored under a mesh).
 """
 
 from __future__ import annotations
@@ -68,8 +71,8 @@ class LongCatPipeline:
     vae_scale_s: int = 8
     streaming_vae: bool = False
     streaming_vae_chunk: int = 1    # latent frames per streaming decode step
-    mesh: object = None             # a later slice (the parallel layer)
-    token_chunk: int = 1            # > 1: a later slice
+    mesh: object = None             # the parallel layer's mesh
+    token_chunk: int = 1            # the DiT's token chunks
     auto_layout: bool = False       # XLA entry layouts: no counterpart
     # generate_vc's cond-token k/v cache: "float32" is exact, "bfloat16"
     # halves it (k rounded before its RoPE)
@@ -86,14 +89,6 @@ class LongCatPipeline:
                 (lambda v: enc(self.vae_params, self.vae_cfg, v)))
 
     def _check_ported(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "LongCatPipeline.mesh: meshes and context parallelism are "
-                "the parallel layer, a later slice of the port")
-        if self.token_chunk != 1:
-            raise NotImplementedError(
-                "LongCatPipeline.token_chunk > 1 is a later slice of the "
-                "port")
         if self.auto_layout:
             raise NotImplementedError(
                 "LongCatPipeline.auto_layout sets XLA entry layouts; the "
@@ -181,12 +176,14 @@ class LongCatPipeline:
             v = longcat_dit_forward(
                 self.dit_params, self.dit_cfg, lat.float(), tb, pe,
                 encoder_attention_mask=pmask, num_cond_latents=1,
-                policy=self.policy)
+                policy=self.policy, mesh=self.mesh,
+                token_chunk=self.token_chunk)
             if do_cfg:
                 vu = longcat_dit_forward(
                     self.dit_params, self.dit_cfg, lat.float(), tb, ne,
                     encoder_attention_mask=nmask, num_cond_latents=1,
-                    policy=self.policy)
+                    policy=self.policy, mesh=self.mesh,
+                    token_chunk=self.token_chunk)
                 v = cfg_zero_combine(v, vu, guidance_scale)
             return -v                         # the scheduler's sign
 
@@ -245,11 +242,13 @@ class LongCatPipeline:
                             dtype=torch.float32, device=dev)
             v = longcat_dit_forward(self.dit_params, self.dit_cfg, latents,
                                     tb, pe, encoder_attention_mask=pmask,
-                                    policy=self.policy)
+                                    policy=self.policy, mesh=self.mesh,
+                                    token_chunk=self.token_chunk)
             if do_cfg:
                 vu = longcat_dit_forward(
                     self.dit_params, self.dit_cfg, latents, tb, ne,
-                    encoder_attention_mask=nmask, policy=self.policy)
+                    encoder_attention_mask=nmask, policy=self.policy,
+                    mesh=self.mesh, token_chunk=self.token_chunk)
                 v = cfg_zero_combine(v, vu, guidance_scale)
             latents = fm_euler_step(sched, i, latents, -v)
         if output_type == "latent":
@@ -315,7 +314,8 @@ class LongCatPipeline:
                        "bfloat16": torch.bfloat16}[self.vc_cache_dtype]
         kv_cache = longcat_dit_cache_cond(self.dit_params, self.dit_cfg,
                                           cond_lat, policy=self.policy,
-                                          cache_dtype=cache_dtype)
+                                          cache_dtype=cache_dtype,
+                                          mesh=self.mesh)
         for i in range(sched.num_steps):
             nt = latents.shape[2] // self.dit_cfg.patch_size[0]
             tb = torch.full((b, nt), float(sched.timesteps[i]),
@@ -323,7 +323,7 @@ class LongCatPipeline:
             v = longcat_dit_forward_with_cache(
                 self.dit_params, self.dit_cfg, latents, tb, pe, kv_cache,
                 (n_cond_lat,), encoder_attention_mask=pmask,
-                policy=self.policy)
+                policy=self.policy, mesh=self.mesh)
             latents = fm_euler_step(sched, i, latents, -v)
 
         full = torch.cat([cond_lat.float(), latents], dim=2)
@@ -435,7 +435,8 @@ class LongCatPipeline:
             v = longcat_dit_forward(
                 self.dit_params, self.dit_cfg, latents, tb, pe,
                 encoder_attention_mask=pmask, policy=self.policy,
-                bsa_params=bsa_params)
+                bsa_params=bsa_params, mesh=self.mesh,
+                token_chunk=self.token_chunk)
             latents = fm_euler_step(sched, i, latents, -v)
             if callback is not None:
                 callback(i, latents)

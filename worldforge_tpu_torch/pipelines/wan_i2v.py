@@ -15,9 +15,14 @@ Counterpart of ``worldforge_tpu/pipelines/wan_i2v.py`` on its host-loop path
 
 FLF (``GuidanceConfig.use_flf``, on by default) runs at r = 0 of every
 guided step (``sampling/guidance.py::guided_fuse``). The whole-loop fused and chunked runners (``fused=True``,
-``exec_chunk``, ``auto_layout``), meshes and ``token_chunk`` > 1 are later
-slices of the port and raise. ``streaming_vae`` runs the streaming VAE
-(``models/wan/vae_stream.py``).
+``exec_chunk``, ``auto_layout``) are later slices of the port and raise.
+``streaming_vae`` runs the streaming VAE (``models/wan/vae_stream.py``).
+``mesh`` (``core/mesh.py``) goes to every DiT forward: the pipeline stays
+global-view (every rank draws the same noise from the same seed and runs
+the solver, the fuse, FLF and the VAE on the whole batch, so FLF's
+statistics are the global batch's, as JAX computes them) while the DiT
+cuts the batch on ``dp`` and the tokens on ``sp``. ``token_chunk`` > 1
+runs the DiT's FFN over token chunks (ignored under a mesh).
 """
 
 from __future__ import annotations
@@ -97,6 +102,8 @@ class WanI2VPipeline:
     vae_scale_t: int = 4
     vae_scale_s: int = 8
     streaming_vae: bool = False
+    # the parallel layer's mesh, passed to every DiT forward
+    mesh: object = None
     token_chunk: int = 1
 
     @property
@@ -117,7 +124,7 @@ class WanI2VPipeline:
         return wan_dit_forward(self.dit_params, self.dit_cfg,
                                latents.float(), tb, ctx, clip_fea=clip_fea,
                                y=condition.float(), policy=self.policy,
-                               token_chunk=self.token_chunk)
+                               mesh=self.mesh, token_chunk=self.token_chunk)
 
     def prepare_latents(self, generator: Optional[torch.Generator],
                         image: torch.Tensor, batch_size: int, height: int,

@@ -17,6 +17,18 @@ the ``torch.optim.Optimizer`` given to ``make_train_step`` (built over
 ``optax.adamw`` pass ``torch.optim.AdamW(..., weight_decay=1e-4)``: optax's
 default decay is 1e-4, PyTorch's 1e-2. ``sigma=`` and ``noise=`` take given
 draws in place of the generator's (tests feed JAX's).
+
+Under a ``mesh`` (JAX :57-76) every rank passes the global batch and draws
+the same sigma and noise; the DiT cuts the batch on ``dp`` (when dp divides
+it) and the tokens on ``sp`` or on ``sp_h`` x ``sp_w`` (Ulysses,
+differentiable) and gathers its output, so every rank computes the global
+loss. Each rank's gradients then hold its own rows' share and are summed
+over the axes the forward cut, which it records in ``mesh.cut_axes``
+(``core/mesh.py``): a forward that ran the whole batch or sequence on
+every rank adds nothing to sum. FSDP-sharded leaves
+(``parallel/sharding.py``) get theirs through the gather's backward, a
+reduce-scatter over ``fsdp``, and the optimizer over the chunks keeps its
+state sharded.
 """
 
 from __future__ import annotations
@@ -24,6 +36,8 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+
+import torch.distributed as dist
 
 from worldforge_tpu_torch.core import params as P
 
@@ -93,11 +107,17 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, *, mesh=None,
     and the noise are drawn from ``gen`` unless given. The step computes the
     loss and its gradients and calls ``optimizer.step()``: the parameters
     it was built over update in place. Returns the loss (fp32 0-d, no
-    gradient). ``mesh`` belongs to a later slice and raises."""
-    if mesh is not None:
-        raise NotImplementedError("meshes / data and FSDP parallelism are "
-                                  "not ported yet (a later slice of the "
-                                  "port)")
+    gradient). ``mesh``: data, sequence and FSDP parallelism (module
+    docstring)."""
+    def reduce_grads():
+        axes = [a for a in mesh.cut_axes if mesh.shape[a] > 1]
+        if not axes:
+            return
+        group = mesh.group(*axes)
+        for pg in optimizer.param_groups:
+            for p in pg["params"]:
+                if p.grad is not None:
+                    dist.all_reduce(p.grad, group=group)
 
     def step(params, batch, gen: Optional[torch.Generator] = None, *,
              sigma=None, noise=None):
@@ -107,11 +127,15 @@ def make_train_step(cfg, optimizer: torch.optim.Optimizer, *, mesh=None,
             sigma = ds if sigma is None else sigma
             noise = dn if noise is None else noise
         optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            mesh.cut_axes.clear()
         loss = flow_match_loss(params, cfg, x0, noise, sigma,
                                batch["context"], y=batch.get("y"),
-                               clip_fea=batch.get("clip_fea"), remat=remat,
-                               forward_fn=forward_fn)
+                               clip_fea=batch.get("clip_fea"), mesh=mesh,
+                               remat=remat, forward_fn=forward_fn)
         loss.backward()
+        if mesh is not None:
+            reduce_grads()
         optimizer.step()
         return loss.detach()
 
