@@ -173,6 +173,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
    or more cards, ``run_dryrun(min(4, cards), "cuda")``; with one, the
    line says ``"multi_card": "not run: 1 card"``.
 
+19. fused -- the whole-loop runners (``runtime/step_graph.py``): every
+   step a replay of its segment kind's captured CUDA graph, FLF selected
+   on the card. Right after the generate, on its pipeline: first the
+   reduced random-init Wan through ``generate(fused=True)`` over 8 guided
+   steps, the graph replays bit-equal to the same body run eagerly on the
+   card (a numpy noise stream and a registered card generator),
+   ``exec_chunk`` 1-3 bit-equal to one program, FLF's card sets equal to
+   the host loop's, and the reduced LongCat's ``generate_i2v(fused=True)``
+   likewise; then the generate's guided repaint (its cuts, 7 steps, every
+   one guided, so FLF hands channels back from step 6) fused beside the
+   host loop from one generator seed: s per step, peaks, FLF's sets, the
+   latents' error; 3 steps (2 guided, 1 plain) as graphs, eagerly, with
+   ``exec_chunk=2`` and as the host loop, the graph and loop runs under
+   ``torch.profiler`` for the device's idle share per step. After the
+   LongCat guided i2v, the same run through ``generate_i2v(fused=True)``.
+   The kernel table's launches count the replays.
+20. runtime -- ``runtime/streaming.py``: in the dit phase, the Wan-14B's 40
+   blocks moved to pinned host memory and streamed through
+   ``StreamingExecutor`` for one forward at 20,280 tokens, bit-equal to the
+   resident forward (s, copy rate, peaks); after the fused phase,
+   ``decode_in_subprocess`` of its final latents on the card, bit-equal to
+   the in-process decode; at the end, ``parallel/dryrun.py``'s phases (the
+   fused and chunked Wan generates among them) at world size 1 on NCCL.
+
 The line before the last holds the kernel table; the last line is the device
 summary.
 """
@@ -860,10 +884,12 @@ def phase_kernels():
     main["flash_attention"] = _check_flash(
         gen, records, 1, s, s, 40, 128, torch.bfloat16, 2e-2, 1e-2,
         "flash_attention self-attn", 5)
-    _check_flash(gen, records, 1, s, 512, 40, 128, torch.bfloat16, 2e-2,
-                 1e-2, "flash_attention text cross-attn", 10)
-    _check_flash(gen, records, 1, s, 257, 40, 128, torch.bfloat16, 2e-2,
-                 1e-2, "flash_attention clip cross-attn", 10)
+    main[TEXT_ROW] = _check_flash(
+        gen, records, 1, s, 512, 40, 128, torch.bfloat16, 2e-2, 1e-2,
+        "flash_attention text cross-attn", 10)
+    main[CLIP_ROW] = _check_flash(
+        gen, records, 1, s, 257, 40, 128, torch.bfloat16, 2e-2, 1e-2,
+        "flash_attention clip cross-attn", 10)
     _check_flash(gen, records, GEN_FRAMES // 4 + 1, (HEIGHT // 8) *
                  (WIDTH // 8), (HEIGHT // 8) * (WIDTH // 8), 1, 384,
                  torch.float32, 1e-4, 1e-4, "flash_attention vae fp32 d384", 3)
@@ -904,10 +930,12 @@ def phase_kernels():
     main["conv3d_causal"] = _check_conv(
         gen, records, GEN_FRAMES, HEIGHT, WIDTH, 96, 96, 3,
         "conv3d 96->96 full res")
-    _check_conv(gen, records, GEN_FRAMES, HEIGHT, WIDTH, 3, 96, 3,
-                "conv3d encoder conv_in 3->96")
-    _check_conv(gen, records, GEN_FRAMES, HEIGHT, WIDTH, 96, 3, 3,
-                "conv3d decoder conv_out 96->3")
+    main[CONV_IN_ROW] = _check_conv(gen, records, GEN_FRAMES, HEIGHT,
+                                    WIDTH, 3, 96, 3,
+                                    "conv3d encoder conv_in 3->96")
+    main[CONV_OUT_ROW] = _check_conv(gen, records, GEN_FRAMES, HEIGHT,
+                                     WIDTH, 96, 3, 3,
+                                     "conv3d decoder conv_out 96->3")
     _check_conv(gen, records, GEN_FRAMES, HEIGHT // 2, WIDTH // 2, 192, 192,
                 3, "conv3d 192->192 half res")
     _check_conv(gen, records, GEN_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8,
@@ -1507,6 +1535,20 @@ FACADE_ROWS = (
 )
 AVATAR_PATH_KERNELS = ("flash_attention", "rope_qk", "conv3d_causal",
                        "conv2d_3x3")
+# the table's rows at the Wan DiT's cross-attentions and the Wan VAE's
+# narrow convs, counted at their own keys and channels on every path
+TEXT_ROW = "flash_attention bf16 d128 (wan text cross-attn, 512 keys)"
+CLIP_ROW = "flash_attention bf16 d128 (wan clip cross-attn, 257 keys)"
+CONV_IN_ROW = "conv3d_causal 3->96 (wan vae encoder conv_in)"
+CONV_OUT_ROW = "conv3d_causal 96->3 (wan vae decoder conv_out)"
+WAN_ROWS = (
+    (TEXT_ROW, "flash_attention",
+     lambda k: k[0] == "bf16 d128" and k[1] == 40 and k[3] == TEXT_LEN),
+    (CLIP_ROW, "flash_attention",
+     lambda k: k[0] == "bf16 d128" and k[1] == 40 and k[3] == 257),
+    (CONV_IN_ROW, "conv3d_causal", lambda k: k[4:] == (3, 96)),
+    (CONV_OUT_ROW, "conv3d_causal", lambda k: k[4:] == (96, 3)),
+)
 
 
 class Launches(dict):
@@ -1848,9 +1890,10 @@ def phase_dit():
         lambda: wan_dit_forward(params, cfg, x, t, ctx, clip_fea=clip, y=y),
         "dit_profile", "one Wan2.1-I2V-14B DiT forward at 20,280 tokens under "
         "torch.profiler", {"tokens": t_lat * (h_lat // 2) * (w_lat // 2)})
+    streaming = runtime_streaming(params, cfg, (x, t, ctx, clip, y))
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, streaming
 
 
 def _rel_max(a, b) -> float:
@@ -2760,9 +2803,499 @@ def phase_generate(warp_dir, ctx):
     if not (ok_shape and finite):
         raise SystemExit("chip_smoke: generate output is wrong")
     _require_launches(launches, WAN_PATH_KERNELS, "generate")
-    del pipe
-    return {"launches": launches, "out": out,
+    fused_launches, fused_latents = phase_fused(pipe, warp_dir, ctx)
+    runtime_subproc_decode(pipe, fused_latents,
+                           os.path.join(HERE, "build", "chip_smoke"))
+    del pipe, fused_latents
+    return {"launches": launches, "out": out, "fused": fused_launches,
             "flf": {r["step"]: r["channels"] for r in flf}}
+
+
+# ------------------------------------------------------------------ fused
+
+# The fused phase runs the generate's guided repaint (its cuts: 17 frames at
+# 480 x 832) through ``generate(fused=True)`` over FUSED_STEPS steps, every
+# one guided, so that the Wan schedule hands channels back (from step 6);
+# the graph-against-eager and exec_chunk checks run FUSED_CHECK_STEPS steps
+# with guide_steps 2 (two guided steps, then a plain one: the carry crosses
+# a change of captured graph).
+FUSED_STEPS = 7
+FUSED_CHECK_STEPS = 3
+FUSED_TOL = 2e-2         # the generate's card-against-CPU gate (rel. L2)
+
+
+@contextlib.contextmanager
+def eager_fused():
+    """``generate(fused=True)`` with the step body run eagerly on the card
+    (``sampling/engine.py::run_plan`` with ``graphs=False``): the body,
+    tables and draws of the graph replays, launched op by op."""
+    from worldforge_tpu_torch.sampling import engine
+    orig = engine.run_plan
+
+    def eager(plan, make_body, carry, graphs=None, **kw):
+        return orig(plan, make_body, carry, graphs=False, **kw)
+
+    engine.run_plan = eager
+    try:
+        yield
+    finally:
+        engine.run_plan = orig
+
+
+def _step_marks():
+    """A generate callback that synchronizes after each step (inside a
+    ``step_end`` profiler mark) and keeps the time and the step's latents
+    (a copy)."""
+    marks, lat = [], {}
+
+    def on_step(i, latents):
+        with torch.profiler.record_function("step_end"):
+            torch.cuda.synchronize()
+        marks.append(time.time())
+        lat[i] = latents.detach().float().clone()
+
+    return on_step, marks, lat
+
+
+def _idle_by_step(prof) -> list:
+    """From a profile of a run with ``_step_marks``'s callback: for each
+    step after the first (the window between the ends of two ``step_end``
+    marks), the share of its wall time in which no kernel or copy ran on
+    the device."""
+    from torch.autograd import DeviceType
+    syncs, spans = [], []
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.device_type == DeviceType.CPU and e.name == "step_end":
+            syncs.append(e.time_range.end)
+    syncs.sort()
+    spans.sort()
+    out = []
+    for a, b in zip(syncs[:-1], syncs[1:]):
+        busy, end = 0.0, a
+        for s, e in spans:
+            s, e = max(s, end), min(e, b)
+            if e > s:
+                busy += e - s
+                end = e
+        out.append(1.0 - busy / (b - a) if b > a else None)
+    return out
+
+
+def _flf_sets(masks) -> dict:
+    """``{step: [channels]}`` of a fused run's FLF masks."""
+    return {int(i): [int(c) for c in m.nonzero()[0]]
+            for i, m in masks.items()}
+
+
+def _small_fused_check():
+    """The reduced random-init Wan pipeline of ``_small_generate_check``
+    (fp32 policy, weights drawn on the CPU and copied to the card) through
+    ``generate(fused=True)`` over 8 guided steps with FLF: the graph replays
+    bit-equal to the same body run eagerly on the card, with a numpy noise
+    stream (``noise_fn``) and with a seeded card generator registered with
+    the graphs; the same with the generator over a schedule whose three
+    segment kinds follow each other (guide_steps 2 < resample_round 4:
+    (fuse, IRR), (no fuse, IRR), (no fuse, no IRR), two of them drawing
+    from the one registered generator), also at ``exec_chunk=2``;
+    ``exec_chunk`` 1, 2 and 3 bit-equal to one program; and the
+    fused run against the host loop (``fused=False``) on the card from the
+    same noise: FLF's sets equal at every step (on the card against the
+    host's), the latents within the generate's gate. Then the reduced
+    LongCat's ``generate_i2v(fused=True)`` (distill, FLF): graph against
+    eager and exec_chunk 2, bit-equal, and against its host loop."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.core.dtypes import FP32_POLICY
+    from worldforge_tpu_torch.io.checkpoints import (load_longcat_pipeline,
+                                                     load_wan_pipeline)
+    from worldforge_tpu_torch.sampling import guidance
+    from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
+    rng = np.random.default_rng(0)
+    f, hw, steps = 5, 64, 8
+    image = rng.uniform(-1, 1, (1, 3, hw, hw)).astype(np.float32)
+    ref = rng.uniform(0, 1, (1, 3, f, hw, hw)).astype(np.float32)
+    mask = np.zeros((1, 1, f, hw, hw), np.float32)
+    mask[..., : hw // 2] = 1.0
+    guide = GuidanceConfig(guided=True, guide_steps=steps, resample_steps=2,
+                           resample_round=steps, omega=1.8)
+    pipe, enc_t, enc_i = load_wan_pipeline(random_init=True, device="cpu",
+                                           policy=FP32_POLICY)
+    pipe = dataclasses.replace(pipe, dit_params=_to_card(pipe.dit_params),
+                               vae_params=_to_card(pipe.vae_params))
+    pe, ne = enc_t("a prompt").cuda(), enc_t("a negative prompt").cuda()
+    ie = enc_i(image).cuda()
+
+    mixed = dataclasses.replace(guide, guide_steps=2, resample_round=4)
+
+    def wan(noise=None, seed=None, g=guide, **kw):
+        gen = (None if seed is None else
+               torch.Generator(device="cuda").manual_seed(seed))
+        out = pipe.generate(
+            gen, image, pe, ne, ie, height=hw, width=hw, num_frames=f,
+            num_inference_steps=steps, guidance_scale=5.0, video_ref=ref,
+            mask=mask, guidance=g, output_type="latent",
+            noise_fn=None if noise is None else _numpy_noise(noise), **kw)
+        return out.float().cpu()
+
+    rec = {"phase": "fused", "part": "small_wan"}
+    graph = wan(7, fused=True)
+    graph_masks = _flf_sets(pipe.last_flf_masks)
+    with eager_fused():
+        eager = wan(7, fused=True)
+    rec["graph_eq_eager_noise_fn"] = torch.equal(graph, eager)
+    g_gen = wan(seed=3, fused=True)
+    with eager_fused():
+        e_gen = wan(seed=3, fused=True)
+    rec["graph_eq_eager_generator"] = torch.equal(g_gen, e_gen)
+    g_mix = wan(seed=4, g=mixed, fused=True)
+    with eager_fused():
+        e_mix = wan(seed=4, g=mixed, fused=True)
+    rec["generator_three_kinds"] = {
+        "guide_steps": mixed.guide_steps,
+        "resample_round": mixed.resample_round,
+        "graph_eq_eager": torch.equal(g_mix, e_mix),
+        "exec_chunk2_eq_one_program": torch.equal(
+            wan(seed=4, g=mixed, fused=True, exec_chunk=2), g_mix)}
+    rec["exec_chunk_eq_one_program"] = {
+        k: torch.equal(wan(7, fused=True, exec_chunk=k), graph)
+        for k in (1, 2, 3)}
+    with timed_calls(guidance, "flf_select", [], flf_record) as sel:
+        loop = wan(7)
+    host = {r["step"]: r["channels"] for r in sel}
+    rec["flf_device_by_step"] = graph_masks
+    rec["flf_host_by_step"] = host
+    rec["flf_sets_equal"] = all(graph_masks.get(i, []) == c
+                                for i, c in host.items())
+    rec["channels_handed_back"] = sum(len(c) for c in graph_masks.values())
+    rec["fused_vs_loop_rel_l2"] = _rel_l2(graph, loop)
+    rec["tol_rel_l2"] = FUSED_TOL
+    rec["ok"] = (rec["graph_eq_eager_noise_fn"]
+                 and rec["graph_eq_eager_generator"]
+                 and rec["generator_three_kinds"]["graph_eq_eager"]
+                 and rec["generator_three_kinds"][
+                     "exec_chunk2_eq_one_program"]
+                 and all(rec["exec_chunk_eq_one_program"].values())
+                 and rec["flf_sets_equal"]
+                 and rec["channels_handed_back"] >= 1
+                 and rec["fused_vs_loop_rel_l2"] < FUSED_TOL)
+    emit(rec)
+    del pipe
+
+    lc, enc_t = load_longcat_pipeline(random_init=True, device="cpu",
+                                      policy=FP32_POLICY)
+    lc = dataclasses.replace(lc, dit_params=_to_card(lc.dit_params),
+                             vae_params=_to_card(lc.vae_params))
+    f, hw, steps = 9, 128, 4
+    frames, lmask, limage = _guided_inputs(f, hw, hw, seed=5)
+    lpe, lpm = enc_t(LC_PROMPT)
+    lguide = GuidanceConfig(guided=True, guide_steps=steps, resample_steps=2,
+                            resample_round=steps, omega=1.8,
+                            flf_backend="longcat", max_replace=2)
+
+    def longcat(**kw):
+        return lc.generate_i2v(
+            None, limage, lpe, lpm, height=hw, width=hw, num_frames=f,
+            num_inference_steps=steps, use_distill=True, video_ref=frames,
+            mask=lmask, guidance=lguide, output_type="latent",
+            noise_fn=_numpy_noise(13), **kw).float().cpu()
+
+    lrec = {"phase": "fused", "part": "small_longcat"}
+    lgraph = longcat(fused=True)
+    with eager_fused():
+        lrec["graph_eq_eager"] = torch.equal(longcat(fused=True), lgraph)
+    lrec["exec_chunk2_eq_one_program"] = torch.equal(
+        longcat(fused=True, exec_chunk=2), lgraph)
+    lrec["fused_vs_loop_rel_l2"] = _rel_l2(lgraph, longcat())
+    lrec["tol_rel_l2"] = FUSED_TOL
+    lrec["ok"] = (lrec["graph_eq_eager"] and lrec["exec_chunk2_eq_one_program"]
+                  and lrec["fused_vs_loop_rel_l2"] < FUSED_TOL)
+    emit(lrec)
+    if not (rec["ok"] and lrec["ok"]):
+        raise SystemExit("chip_smoke: the small fused runs disagree")
+
+
+def phase_fused(pipe, warp_dir, ctx):
+    """The guided repaint through ``generate(fused=True)`` at the generate
+    phase's width, depth and cuts on its pipeline, fed by the warp's frames
+    and masks and the encoders' contexts, every step a replay of a captured
+    CUDA graph: FUSED_STEPS steps beside the host loop from the same
+    generator seed (s per step, peaks, FLF's sets on the card against the
+    host's, the final latents' error); FUSED_CHECK_STEPS steps as graph
+    replays, run eagerly, with exec_chunk 2 and as the host loop (the first
+    bit-equal to the second and third; the first and the last under
+    ``torch.profiler`` for the device's idle share per step). Returns the
+    launches of the FUSED_STEPS fused run (replays counted) and its final
+    latents."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from worldforge_tpu_torch.sampling import guidance
+    from worldforge_tpu_torch.sampling.guidance import GuidanceConfig
+
+    _small_fused_check()
+
+    f, h, w = GEN_FRAMES, HEIGHT, WIDTH
+    frames, mask = _frames_480p(warp_dir)
+    image = (frames[:, :, 0] * 2.0 - 1.0).astype(np.float32)
+    pe, ne, ie = ctx["pe"], ctx["ne"], ctx["ie"]
+
+    def run(steps, seed, guide_steps=None, **kw):
+        g = guide_steps or steps
+        guide = GuidanceConfig(guided=True, guide_steps=g, resample_steps=2,
+                               resample_round=g, omega=1.8,
+                               omega_resample=1.0)
+        on_step, marks, lat = _step_marks()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = pipe.generate(gen, image, pe, ne, ie, height=h, width=w,
+                            num_frames=f, num_inference_steps=steps,
+                            guidance_scale=5.0, video_ref=frames, mask=mask,
+                            guidance=guide, callback=on_step,
+                            output_type="latent", **kw)
+        torch.cuda.synchronize()
+        step_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+        return {"out": out.float(), "step_s": step_s,
+                "steady_s_per_step": sum(step_s[1:]) / max(1, len(step_s) - 1),
+                "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "lat": lat}
+
+    before_gb = torch.cuda.memory_allocated() / 2 ** 30
+    _reset_counters()
+    fused = run(FUSED_STEPS, 42, fused=True)
+    launches = _read_counters()
+    device_sets = _flf_sets(pipe.last_flf_masks)
+    _reset_counters()
+    with timed_calls(guidance, "flf_select", [], flf_record) as sel:
+        loop = run(FUSED_STEPS, 42)
+    loop_launches = _read_counters()
+    host_sets = {r["step"]: r["channels"] for r in sel}
+
+    # FUSED_CHECK_STEPS: graphs (profiled), eager, exec_chunk 2, host loop
+    # (profiled)
+    def profiled(**kw):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r = run(FUSED_CHECK_STEPS, 43, guide_steps=2, **kw)
+        r["idle_by_step"] = _idle_by_step(prof)
+        return r
+
+    g3 = profiled(fused=True)
+    with eager_fused():
+        e3 = run(FUSED_CHECK_STEPS, 43, guide_steps=2, fused=True)
+    c3 = run(FUSED_CHECK_STEPS, 43, guide_steps=2, fused=True, exec_chunk=2)
+    l3 = profiled()
+    handed = sum(len(c) for c in device_sets.values())
+    rec = {"phase": "fused", "part": "wan_14b",
+           "config": "wan_14b_i2v + wan_2_1 vae",
+           "cuts": {"layers": f"{GEN_LAYERS} of 40", "frames":
+                    f"{GEN_FRAMES} of 49", "steps": f"{FUSED_STEPS} of 50"},
+           "height": h, "width": w, "frames": f, "steps": FUSED_STEPS,
+           "guide_steps": FUSED_STEPS, "resample_steps": 2,
+           "guidance_scale": 5.0,
+           "s_per_step": {"fused": fused["steady_s_per_step"],
+                          "unfused": loop["steady_s_per_step"]},
+           "step_s": {"fused": fused["step_s"], "unfused": loop["step_s"]},
+           "first_step_note": "the fused run's first step holds the "
+                              "warm-up step and the captures",
+           "idle_share_by_step": {"fused": g3["idle_by_step"],
+                                  "unfused": l3["idle_by_step"]},
+           "idle_note": f"{FUSED_CHECK_STEPS} steps (2 guided, 1 plain) "
+                        "under torch.profiler: steps 1 (guided) and 2 "
+                        "(plain), each the window between two of the "
+                        "callback's synchronizes",
+           "s_per_step_3": {"graph": g3["steady_s_per_step"],
+                            "eager_fused": e3["steady_s_per_step"],
+                            "unfused": l3["steady_s_per_step"]},
+           "memory_allocated_before_gb": before_gb,
+           "peak_gb": {"fused": fused["peak_gb"], "unfused": loop["peak_gb"]},
+           "flf_device_by_step": device_sets, "flf_host_by_step": host_sets,
+           "flf_sets_equal": all(device_sets.get(i, []) == c
+                                 for i, c in host_sets.items()),
+           "channels_handed_back": handed,
+           "fused_vs_unfused_rel_l2": _rel_l2(fused["out"], loop["out"]),
+           "fused_vs_unfused_rel_max": _rel_max(fused["out"], loop["out"]),
+           "tol_rel_l2": FUSED_TOL,
+           "graph_eq_eager": torch.equal(g3["out"], e3["out"]),
+           "exec_chunk2_eq_one_program": torch.equal(c3["out"], g3["out"]),
+           "launches": launches, "launches_unfused": loop_launches,
+           "launches_note": "graph replays counted: each replay adds the "
+                            "launches its capture recorded; the fused run "
+                            "also runs one warm-up step eagerly"}
+    rec["ok"] = (rec["flf_sets_equal"] and handed >= 1
+                 and rec["fused_vs_unfused_rel_l2"] < FUSED_TOL
+                 and rec["graph_eq_eager"]
+                 and rec["exec_chunk2_eq_one_program"]
+                 and bool(torch.isfinite(fused["out"]).all()))
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the fused generate is wrong")
+    _require_launches(launches, WAN_PATH_KERNELS, "fused")
+    return launches, fused["out"]
+
+
+# ---------------------------------------------------------------- runtime
+
+
+def runtime_subproc_decode(pipe, latents, work_dir, reps=2):
+    """``decode_in_subprocess`` of ``latents`` (the fused run's final
+    latents) on the card, the child building the VAE from the seed the
+    generate's loader drew it from (``load_wan_pipeline`` seed 0: the VAE
+    from seed 1 on the card), against the streaming decode the child runs
+    (``runtime/subproc.py::decode_clip``) in this process: bit for bit in
+    fp16, the child's output type (a float32 clip would add 81 MB to the
+    disk the run writes, which the checkpoints phase nearly fills)."""
+    from worldforge_tpu_torch.runtime.subproc import (decode_clip,
+                                                      decode_in_subprocess)
+    gc.collect()                 # the fused runs' graph pools, then the
+    torch.cuda.empty_cache()     # cached blocks: the child needs the room
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = decode_clip(pipe.vae_params, pipe.vae_cfg, latents).half()
+        want = want.cpu()
+        times.append(time.time() - t0)
+    t0 = time.time()
+    video, child_s = decode_in_subprocess(
+        latents.cpu().numpy(), pipe.vae_cfg, params_seed=1, dtype="float32",
+        reps=reps, device="cuda", workdir=os.path.join(work_dir, "subproc"),
+        verbose=False)
+    call_s = time.time() - t0
+    got = torch.from_numpy(video)
+    rec = {"phase": "runtime", "part": "subproc_decode",
+           "latents": list(latents.shape), "video": list(got.shape),
+           "dtype": str(got.dtype),
+           "s_per_rep_in_process": times, "s_per_rep_child": child_s,
+           "call_s": call_s, "call_note": "the whole call: the child's "
+           "start, its VAE init and kernel load, its reps, the files",
+           "bit_equal": torch.equal(got, want),
+           "max_abs_diff": float((got.float() - want.float()).abs().max())}
+    rec["ok"] = rec["bit_equal"]
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the subprocess decode differs from "
+                         "the in-process decode")
+
+
+def _free_pinned():
+    """Hand the pinned host allocator's cached blocks back to the system
+    (its name differs between torch versions); returns the name used."""
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return name
+    return None
+
+
+def runtime_streaming(params, cfg, inputs):
+    """The Wan DiT's blocks streamed from pinned host memory through
+    ``StreamingExecutor`` (``StreamedBlocks`` in place of the block list):
+    the forward at the inputs' shape bit for bit against the resident one,
+    s per forward against resident, the copy rate to the card, the device
+    peak against the resident forward's. Takes the blocks off the card
+    (``params["blocks"]`` ends as None, the pinned buffer handed back to
+    the system). Returns the two streamed forwards' launches."""
+    from worldforge_tpu_torch.models.wan.dit import wan_dit_forward
+    from worldforge_tpu_torch.runtime.streaming import (StreamedBlocks,
+                                                        to_host_blocks)
+    x, t, ctx, clip, y = inputs
+
+    def forward(p):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = wan_dit_forward(p, cfg, x, t, ctx, clip_fea=clip, y=y)
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    forward(params)                        # warm (the kernels' plans)
+    torch.cuda.reset_peak_memory_stats()
+    out_ref, resident_s = forward(params)
+    resident_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    t0 = time.time()
+    host = to_host_blocks(params["blocks"])
+    pin_s = time.time() - t0
+    block_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(params["blocks"]))
+    params["blocks"] = host
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the copy rate alone: every layer to the card, one after another
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for layer in host:
+        dev = [t.to("cuda", non_blocking=True) for t in _leaves(layer)]
+        torch.cuda.synchronize()
+        del dev
+    h2d_s = time.time() - t0
+    streamed = dict(params, blocks=StreamedBlocks(host, cfg.num_layers))
+    torch.cuda.reset_peak_memory_stats()
+    outs, times = [], []
+    _reset_counters()
+    for _ in range(2):
+        out, s = forward(streamed)
+        outs.append(out)
+        times.append(s)
+    launches = _read_counters()
+    streamed_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ex = streamed["blocks"].executor
+    prefetch, max_resident = ex.prefetch, ex.max_resident
+    rss_before = _rss_gib()
+    del host, streamed, layer, ex
+    params["blocks"] = None
+    gc.collect()
+    freed_by = _free_pinned()
+    rec = {"phase": "runtime", "part": "streaming",
+           "config": "wan_14b_i2v", "layers": cfg.num_layers,
+           "tokens": out_ref.shape[2] * out_ref.shape[3] * out_ref.shape[4]
+           // 4, "prefetch": prefetch, "max_resident_layers": max_resident,
+           "block_gb": block_bytes / 1e9,
+           "pin_s": pin_s, "resident_s": resident_s, "streamed_s": times,
+           "overhead": min(times) / resident_s - 1.0,
+           "h2d_gb_per_s": block_bytes / h2d_s / 1e9,
+           "streamed_gb_per_s": block_bytes / min(times) / 1e9,
+           "peak_gb": {"resident": resident_peak, "streamed": streamed_peak},
+           "host_rss_gib": {"streaming": rss_before,
+                            "after_free": _rss_gib()},
+           "pinned_freed_by": freed_by, "launches": launches,
+           "bit_equal": all(torch.equal(o, out_ref) for o in outs)}
+    rec["ok"] = rec["bit_equal"]
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the streamed forward differs from "
+                         "the resident one")
+    _require_launches(launches, ("flash_attention", "rope_qk",
+                                 "modulated_layer_norm"), "streamed forward")
+    return launches
+
+
+def runtime_dryrun():
+    """``parallel/dryrun.py``'s phases at world size 1 on the one-rank NCCL
+    mesh, the fused guided generate and the chunked one among them (CUDA
+    graphs under the mesh). Returns their launches."""
+    from worldforge_tpu_torch.parallel import dryrun
+    _nccl_mesh()
+    _reset_counters()
+    t0 = time.time()
+    done = dryrun.run_phases(1, torch.device("cuda"))
+    launches = _read_counters()
+    rec = {"phase": "runtime", "part": "dryrun_world_1_nccl",
+           "phases": {p: {"out": list(s), "s": t} for p, s, t in done},
+           "total_s": time.time() - t0, "launches": launches}
+    rec["ok"] = {"wan_guided_fused", "wan_chunked"} <= set(rec["phases"])
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the dry run's fused phases did not run")
+    _require_launches(launches, ("flash_attention", "rope_qk",
+                                 "conv3d_causal"), "dry run")
+    return launches
 
 
 # ------------------------------------------------------------------ quant
@@ -3763,8 +4296,61 @@ def phase_longcat_guided(pipe, encode_text, init_s):
         raise SystemExit("chip_smoke: LongCat guided output is wrong")
     _require_launches(launches, LONGCAT_GUIDED_PATH_KERNELS,
                       "LongCat guided")
+    fused_launches = _longcat_guided_fused(
+        pipe, (image, pe, pmask, frames, mask, guide), out,
+        {"s_per_step": (marks[-1] - t0) / len(marks), "peak_gb": peak_gb})
     del out
     _profile_longcat_guided_forward(pipe, pe, pmask)
+    return launches, fused_launches
+
+
+def _longcat_guided_fused(pipe, inputs, want, unfused):
+    """The LongCat guided i2v of ``phase_longcat_guided`` again through
+    ``generate_i2v(fused=True)`` (every step a CUDA graph replay, FLF on
+    the card) from the same generator seed, against the host loop's output
+    ``want``. Returns its launches (replays counted)."""
+    import numpy as np
+    image, pe, pmask, frames, mask, guide = inputs
+    on_step, marks, _ = _step_marks()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.time()
+    out = pipe.generate_i2v(
+        gen, image, pe, pmask, height=HEIGHT, width=WIDTH,
+        num_frames=DIT_FRAMES, num_inference_steps=LC_GUIDED_STEPS,
+        use_distill=True, video_ref=frames, mask=mask, guidance=guide,
+        callback=on_step, fused=True)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    launches = _read_counters()
+    step_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    a, b = np.asarray(out, np.float64), np.asarray(want, np.float64)
+    rel_l2 = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    rec = {"phase": "fused", "part": "longcat_13b_guided",
+           "config": "longcat_13b + wan_2_1 vae (streaming)",
+           "cuts": {"steps": f"num_inference_steps {LC_GUIDED_STEPS} of "
+                    "the 16-step distill table (production: 16)"},
+           "total_s": total_s, "step_s": step_s,
+           "s_per_step": {"fused_steady": sum(step_s[1:]) /
+                          max(1, len(step_s) - 1),
+                          "unfused": unfused["s_per_step"]},
+           "unfused_note": "the unfused run is timed with a synchronize "
+                           "around each DiT forward, fuse and FLF call",
+           "peak_gb": {"fused": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "unfused": unfused["peak_gb"]},
+           "out_shape": list(out.shape),
+           "finite": bool(np.isfinite(out).all()),
+           "fused_vs_unfused_rel_l2": rel_l2, "tol_rel_l2": FUSED_TOL,
+           "launches": launches}
+    rec["ok"] = rec["finite"] and rel_l2 < FUSED_TOL
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the fused LongCat guided i2v "
+                         "disagrees with its host loop")
+    _require_launches(launches, LONGCAT_GUIDED_PATH_KERNELS,
+                      "LongCat guided fused")
     return launches
 
 
@@ -5787,7 +6373,7 @@ def main() -> int:
     by_path = {"parallel_bodies": phase_parallel_bodies()}
     phase_flf()
     phase_vae()
-    by_path["parallel_nccl_wan"] = phase_dit()
+    by_path["parallel_nccl_wan"], by_path["runtime_streaming"] = phase_dit()
     warp_dir, by_path["warp"] = phase_warp(
         os.path.join(HERE, "build", "chip_smoke"))
     by_path.update(phase_depthcrafter(
@@ -5798,6 +6384,7 @@ def main() -> int:
         frames[0, :, -1].transpose(1, 2, 0))
     bf16_run = phase_generate(warp_dir, ctx)
     by_path["generate"] = bf16_run["launches"]
+    by_path["fused"] = bf16_run["fused"]
     gc.collect()
     torch.cuda.empty_cache()
     by_path.update(phase_quant(warp_dir, ctx, bf16_run))
@@ -5814,13 +6401,15 @@ def main() -> int:
         phase_refine()
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["longcat_guided"] = phase_longcat_guided(*longcat_pipe)
+    by_path["longcat_guided"], by_path["longcat_guided_fused"] = \
+        phase_longcat_guided(*longcat_pipe)
     phase_checkpoints_lora(longcat_pipe[0])
     del longcat_pipe
     gc.collect()
     torch.cuda.empty_cache()
     by_path.update(phase_avatar(frames, ctx, os.path.join(
         HERE, "build", "chip_smoke"), decode93))
+    by_path["runtime_dryrun"] = runtime_dryrun()
     phase_parallel_multi_card()
     import torch.distributed as dist
     if dist.is_initialized():
@@ -5833,7 +6422,7 @@ def main() -> int:
     rows = [(name, meta, name, None) for name, meta in KERNEL_META.items()]
     rows += [(row, {**KERNEL_META[counter], "launches_counted":
                     "the launches at this row's shape"}, counter, shape)
-             for row, counter, shape in DC_ROWS + FACADE_ROWS]
+             for row, counter, shape in DC_ROWS + FACADE_ROWS + WAN_ROWS]
 
     def count(counts, counter, shape):
         if shape is None:

@@ -50,16 +50,19 @@ def test_cli_streaming_vae_on_cpu(warp_dir, tmp_path):
 
 
 def test_cli_later_slices_raise(warp_dir, tmp_path):
-    """``--fused`` (the TPU scan runner) raises; FLF
-    (``--use-pca-channel-selection``) is ported and runs."""
+    """``--fused`` (the whole-loop runner) runs on the CPU with FLF on, and
+    so does the host loop without it."""
     out = str(tmp_path / "x.mp4")
     base = ["--video-ref", warp_dir, "--random-init", "--device", "cpu",
             "--guided", "--resize", "16", "16", "--num-frames", "5",
-            "--num-inference-steps", "1", "--output", out]
-    with pytest.raises(NotImplementedError):
-        cli.main(base + ["--fused"])
-    cli.main(base + ["--use-pca-channel-selection"])
-    assert os.path.getsize(out) > 0
+            "--num-inference-steps", "2", "--resample-steps", "2",
+            "--guide-steps", "2", "--resample-round", "2",
+            "--use-pca-channel-selection", "--output", out]
+    for extra in (["--fused"], []):
+        if os.path.exists(out):
+            os.unlink(out)
+        cli.main(base + extra)
+        assert os.path.getsize(out) > 0, extra
 
 
 def test_cli_flf_on_cpu(warp_dir, tmp_path):

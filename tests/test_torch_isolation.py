@@ -27,7 +27,8 @@ def _imported_roots(path):
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
     LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar,
-    checkpoint, quantization, LoRA and training modules among them."""
+    checkpoint, quantization, LoRA, training and runtime modules among
+    them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -55,7 +56,10 @@ def test_isolation_covers_the_port_modules():
                 "io/convert_longcat.py", "io/convert_wav2vec2.py",
                 "io/convert_vggt.py", "io/convert_depthcrafter.py",
                 "ops/quant.py", "training/lora.py", "training/__init__.py",
-                "training/step.py"):
+                "training/step.py", "runtime/__init__.py",
+                "runtime/step_graph.py", "runtime/layouts.py",
+                "runtime/streaming.py", "runtime/subproc.py",
+                "core/consts.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 

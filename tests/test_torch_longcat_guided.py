@@ -243,14 +243,98 @@ def test_generate_i2v_pixels_and_unguided(pipes, fp32_convs):
     assert _rel(got, want) < TOL
 
 
-def test_generate_i2v_runners_raise(pipes):
+def test_generate_i2v_runners_raise(pipes, fp32_convs):
+    """The whole-loop runners are ported: ``fused=True`` (FLF selected on
+    the device) holds the host loop's latents at ``TOL`` from one noise
+    stream, and ``exec_chunk`` 1, 2 and 3 (with or without ``fused``)
+    equal ``fused=True`` bit for bit."""
     _, tp = pipes
     x = _inputs()
-    for kw in (dict(fused=True), dict(exec_chunk=2)):
-        with pytest.raises(NotImplementedError, match="scan runners"):
-            tp.generate_i2v(None, x["image"], x["pe"], x["pmask"],
-                            height=HW, width=HW, num_frames=FRAMES,
-                            num_inference_steps=1, **kw)
+    g = dict(GUIDE, guide_steps=4, resample_round=3)
+
+    def run(**kw):
+        return tp.generate_i2v(
+            None, x["image"], x["pe"], x["pmask"], height=HW, width=HW,
+            num_frames=FRAMES, num_inference_steps=4, use_distill=True,
+            video_ref=x["ref"], mask=x["mask"], guidance=TGuide(**g),
+            output_type="latent", noise_fn=_torch_stream(12), **kw)
+    loop, fused = run(), run(fused=True)
+    assert _rel(fused, loop) < TOL
+    assert torch.equal(run(exec_chunk=2), fused)
+    for k in (1, 2, 3):
+        assert torch.equal(run(fused=True, exec_chunk=k), fused), k
+
+
+def _jax_key_stream(seed):
+    """The draws JAX's fused runners make from ``key(seed)``: the initial
+    latents from ``split(key)[1]``, then a split of ``split(key)[0]`` for
+    each IRR re-noise."""
+    key, first = jax.random.split(jax.random.key(seed))
+    state = {"k": key, "first": first}
+
+    def draw(shape):
+        if state["first"] is not None:
+            k, state["first"] = state["first"], None
+        else:
+            state["k"], k = jax.random.split(state["k"])
+        return np.asarray(jax.random.normal(k, tuple(shape), jnp.float32))
+    return draw
+
+
+@pytest.mark.parametrize("use_distill", [True, False],
+                         ids=["distill", "standard-cfg"])
+def test_generate_i2v_fused_matches_jax(pipes, fp32_convs, use_distill):
+    """``generate_i2v(fused=True)`` against JAX's fused runner (IRR, FLF on
+    the device, DSG; CFG-zero on the standard table), and ``exec_chunk=3``
+    against JAX's chunk programs, at ``TOL``."""
+    jp, tp = pipes
+    x = _inputs()
+    steps = 4 if use_distill else 5
+    g = dict(GUIDE, guide_steps=steps - 1, resample_round=steps)
+    kw = dict(height=HW, width=HW, num_frames=FRAMES,
+              num_inference_steps=steps, guidance_scale=4.0,
+              use_distill=use_distill, output_type="latent")
+    jargs = tuple(jnp.asarray(x[k]) for k in ("image", "pe", "pmask", "ne",
+                                              "nmask"))
+    for chunk in (0, 3):
+        want = jp.generate_i2v(
+            jax.random.key(3), *jargs, video_ref=jnp.asarray(x["ref"]),
+            mask=jnp.asarray(x["mask"]), guidance=JGuide(**g), fused=True,
+            exec_chunk=chunk, **kw)
+        got = tp.generate_i2v(
+            None, x["image"], x["pe"], x["pmask"], x["ne"], x["nmask"],
+            video_ref=x["ref"], mask=x["mask"], guidance=TGuide(**g),
+            fused=True, exec_chunk=chunk, noise_fn=_jax_key_stream(3), **kw)
+        assert got.shape == (1, 4, 3, 8, 8)
+        assert _rel(got, want) < TOL, (chunk, _rel(got, want))
+
+
+def test_auto_layout_is_the_fused_runner(pipes, fp32_convs):
+    """``auto_layout=True`` takes the fused runner on the weights as they
+    are: the same latents bit for bit, no weight tensor copied. The field
+    is read by no code in the port, so this holds the JAX API, not a
+    behaviour."""
+    _, tp = pipes
+    x = _inputs(1)
+    ptrs = lambda: [t.data_ptr() for t in _tree_leaves(tp.dit_params)]
+    before = ptrs()
+    outs = {}
+    for auto in (False, True):
+        pipe = dataclasses.replace(tp, auto_layout=auto)
+        outs[auto] = pipe.generate_i2v(
+            None, x["image"], x["pe"], x["pmask"], height=HW, width=HW,
+            num_frames=FRAMES, num_inference_steps=3, use_distill=True,
+            video_ref=x["ref"], mask=x["mask"],
+            guidance=TGuide(**dict(GUIDE, use_flf=False)),
+            output_type="latent", fused=True, noise_fn=_torch_stream(2))
+        assert ptrs() == before
+    assert torch.equal(outs[True], outs[False])
+
+
+def _tree_leaves(tree):
+    out = []
+    TP.tree_map(out.append, tree)
+    return out
 
 
 # ---------------------------------------------------------------- t2v

@@ -483,4 +483,5 @@ def test_dryrun_cpu():
     from worldforge_tpu_torch.parallel.dryrun import run_dryrun
     phases = run_dryrun(4, "cpu")
     assert set(phases) == {"longcat_refine_bsa", "longcat_vc", "avatar",
-                           "wan_cp2d", "wan_guided"}, phases
+                           "wan_cp2d", "wan_guided_fused", "wan_chunked"}, \
+        phases

@@ -136,11 +136,13 @@ def test_generate_pixels_and_unguided(pipes):
 
 
 @pytest.mark.parametrize("what", ["flf", "fused", "streaming"])
-def test_later_slices_raise(pipes, what):
+def test_later_slices_raise(pipes, what, monkeypatch):
     """'streaming': the streaming VAE is ported; its H-strip tiling
-    (``spatial_chunks`` > 1) is a later slice. 'fused': the TPU scan
-    runner raises. 'flf': FLF is ported, and the guided generate with the
-    default ``GuidanceConfig()`` (FLF on) runs."""
+    (``spatial_chunks`` > 1) is a later slice. 'fused': the whole-loop
+    runner is ported: ``fused=True`` holds the host loop's latents (fp32
+    convs, the same noise stream) at the fp32 gate, and ``exec_chunk=2``
+    equals ``fused=True`` bit for bit. 'flf': FLF is ported, and the guided
+    generate with the default ``GuidanceConfig()`` (FLF on) runs."""
     tp, _ = pipes
     if what == "streaming":
         z = torch.zeros((1, tp.vae_cfg.z_dim, 2, 2, 2))
@@ -156,9 +158,14 @@ def test_later_slices_raise(pipes, what):
                           x["pe"], x["ne"], x["ie"], guidance=TGuide(), **kw)
         assert out.shape == (1, 3, 5, 16, 16) and np.isfinite(out).all()
         return
-    with pytest.raises(NotImplementedError):
-        tp.generate(None, x["image"], x["pe"], x["ne"], x["ie"],
-                    guidance=TGuide(**GUIDE), fused=True, **kw)
+    monkeypatch.setattr(tvae, "conv3d_causal", fp32_conv3d)
+    run = lambda **k: tp.generate(
+        None, x["image"], x["pe"], x["ne"], x["ie"], guidance=TGuide(**GUIDE),
+        noise_fn=_noise(3), output_type="latent", **kw, **k).numpy()
+    loop, fused = run(), run(fused=True)
+    rel_max = np.abs(fused - loop).max() / np.abs(loop).max()
+    assert rel_max < TOL["fp32"][0], rel_max
+    np.testing.assert_array_equal(run(fused=True, exec_chunk=2), fused)
 
 
 def test_guided_generate_with_flf_matches_jax(pipes, monkeypatch):

@@ -193,7 +193,8 @@ def test_grid_check_and_later_slices(pipes, capsys):
     """A grid that does not factor into (4, 4, 8) chunks runs dense with
     the JAX package's message; ``token_chunk`` > 1 (ported with the
     parallel layer, as meshes are) gives the same refine; ``auto_layout``
-    (XLA entry layouts, no counterpart) raises on every generate path."""
+    (XLA entry layouts, no counterpart in torch) leaves the refine, i2v, t2v
+    and vc paths bit for bit as they are."""
     _, tp = pipes
     video_shape, hw, kw = CASES["spatial"]
     stage1, pe, pmask = _inputs(video_shape)
@@ -208,30 +209,28 @@ def test_grid_check_and_later_slices(pipes, capsys):
         width=hw[1], num_inference_steps=2, spatial_refine_only=True,
         use_bsa=True)
     np.testing.assert_allclose(chunked, out, rtol=0, atol=1e-5)
-    for field, value in (("auto_layout", True),):
-        bad = dataclasses.replace(tp, **{field: value})
-        with pytest.raises(NotImplementedError):
-            bad.generate_refine(None, stage1, pe, pmask, height=hw[0],
-                                width=hw[1], num_inference_steps=2,
-                                spatial_refine_only=True, use_bsa=False)
-        # the guided i2v, t2v and vc paths run (tests/
-        # test_torch_longcat_guided.py) and refuse the same fields
-        calls = (
-            lambda: bad.generate_i2v(None, np.zeros((1, 3, 16, 16),
-                                                    np.float32), pe, pmask,
-                                     height=16, width=16, num_frames=5,
-                                     num_inference_steps=1),
-            lambda: bad.generate_t2v(None, pe, pmask, height=16, width=16,
-                                     num_frames=5, num_inference_steps=1),
-            lambda: bad.generate_vc(None, np.zeros((1, 3, 5, 16, 16),
-                                                   np.float32), pe, pmask,
-                                    height=16, width=16, num_frames=9,
-                                    num_cond_frames=5,
-                                    num_inference_steps=1,
-                                    enhance_hf=False))
-        for call in calls:
-            with pytest.raises(NotImplementedError):
-                call()
+    # auto_layout (XLA entry layouts in JAX, none in torch:
+    # runtime/layouts.py) leaves every generate path as it is
+    auto = dataclasses.replace(tp, auto_layout=True)
+    calls = (
+        lambda p: p.generate_refine(
+            torch.Generator().manual_seed(0), stage1, pe, pmask,
+            height=hw[0], width=hw[1], num_inference_steps=2,
+            spatial_refine_only=True, use_bsa=False),
+        lambda p: p.generate_i2v(
+            torch.Generator().manual_seed(1),
+            np.zeros((1, 3, 16, 16), np.float32), pe, pmask, height=16,
+            width=16, num_frames=5, num_inference_steps=1),
+        lambda p: p.generate_t2v(
+            torch.Generator().manual_seed(2), pe, pmask, height=16,
+            width=16, num_frames=5, num_inference_steps=1),
+        lambda p: p.generate_vc(
+            torch.Generator().manual_seed(3),
+            np.zeros((1, 3, 5, 16, 16), np.float32), pe, pmask, height=16,
+            width=16, num_frames=9, num_cond_frames=5, num_inference_steps=1,
+            enhance_hf=False))
+    for call in calls:
+        np.testing.assert_array_equal(call(auto), call(tp))
 
 
 def test_loader_defaults_match_jax(monkeypatch):

@@ -382,9 +382,18 @@ def _noise(seed):
     return lambda shape: rng.randn(*shape)
 
 
+def _replay(draws):
+    """``noise_fn`` giving ``draws`` in order (JAX's key draws, made in the
+    test process)."""
+    it = iter(draws)
+    return lambda shape: next(it)
+
+
 def wan_generate(inp):
-    """The unfused guided generate through ``WanI2VPipeline(mesh=...)``
-    with fp32 convs, fed the numpy noise stream both sides use."""
+    """The guided generate through ``WanI2VPipeline(mesh=...)`` with fp32
+    convs: unfused, fed the numpy noise stream both sides use; or, with
+    ``inp["run"]`` (``fused`` / ``exec_chunk``) and ``inp["draws"]``, the
+    fused runner fed JAX's draws in order."""
     from worldforge_tpu_torch.core import params as P
     from worldforge_tpu_torch.io.from_jax import (dit_params_from_jax,
                                                   tree_from_numpy)
@@ -407,16 +416,27 @@ def wan_generate(inp):
         vae_cfg=tvae.WanVAEConfig.tiny(), policy=FP32_POLICY)
     x = inp["inputs"]
     kw = dict(video_ref=x["ref"], mask=x["mask"],
-              guidance=GuidanceConfig(**inp["guide"]), **inp["kw"])
+              guidance=GuidanceConfig(**inp["guide"]), **inp["kw"],
+              **inp.get("run", {}))
+    noise = ((lambda: _replay(inp["draws"])) if "draws" in inp
+             else (lambda: _noise(7)))
+    on_mesh = dataclasses.replace(
+        pipe, dit_params=shard_params_fsdp(params, mesh), mesh=mesh)
+    chunks = []
+    if kw.get("exec_chunk"):
+        orig = on_mesh.run_fused_chunked
+
+        def counting(*a, **k):
+            k["on_chunk"] = lambda i, n, sf, si, lat: chunks.append(n)
+            return orig(*a, **k)
+        on_mesh.run_fused_chunked = counting
     with _Counted() as counts:
-        out = dataclasses.replace(
-            pipe, dit_params=shard_params_fsdp(params, mesh), mesh=mesh
-        ).generate(None, x["image"], x["pe"], x["ne"], x["ie"],
-                   noise_fn=_noise(7), **kw)
-    res = {"out": _np(out), "counts": counts}
+        out = on_mesh.generate(None, x["image"], x["pe"], x["ne"], x["ie"],
+                               noise_fn=noise(), **kw)
+    res = {"out": _np(out), "counts": counts, "chunks": list(chunks)}
     if dist.get_rank() == 0:
         res["single"] = _np(pipe.generate(None, x["image"], x["pe"], x["ne"],
-                                          x["ie"], noise_fn=_noise(7), **kw))
+                                          x["ie"], noise_fn=noise(), **kw))
     return res
 
 

@@ -15,7 +15,8 @@ loads the converted checkpoints there (``transformer/``, ``vae/``,
 ``io/convert_wan.py``); ``--random-init`` runs the full pipeline with random
 weights at a reduced size. ``--use-pca-channel-selection`` turns on
 FLF channel selection; ``--streaming-vae`` runs the streaming VAE;
-``--fused`` (the TPU scan runner) raises.
+``--fused`` runs the whole-loop runner (FLF selected on the device; on the
+card every step a replay of a captured CUDA graph).
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="downscale inputs to HxW before the pipeline "
                         "(smoke tests; the reference runs native 480p/720p)")
     p.add_argument("--fused", action="store_true",
-                   help="not ported: the whole-loop fused runner")
+                   help="the whole-loop runner: FLF on the device, CUDA "
+                        "graph replays on the card")
     p.add_argument("--streaming-vae", action="store_true",
                    help="streaming VAE (bounded memory at 480p+)")
     p.add_argument("--device", type=str, default=None,

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from worldforge_tpu_torch.core import params as P
+from worldforge_tpu_torch.core.consts import device_constant
 from worldforge_tpu_torch.ops.attention import attention
 from worldforge_tpu_torch.ops.conv3d import conv2d_3x3, conv3d_causal
 
@@ -315,7 +316,13 @@ def _decoder(p, cfg: WanVAEConfig, z):
 
 def _latent_stats(cfg: WanVAEConfig, mean, std, like: torch.Tensor):
     if mean is None and cfg.z_dim == 16:
-        mean, std = WAN_LATENTS_MEAN, WAN_LATENTS_STD
+        # the Wan constants, made once per dtype and device: a decode
+        # captured in a CUDA graph cannot copy them from the host
+        return tuple(device_constant(
+            ("wan_latents", name, like.dtype),
+            lambda a=a: torch.from_numpy(a).to(like.dtype), like.device)
+            for name, a in (("mean", WAN_LATENTS_MEAN),
+                            ("std", WAN_LATENTS_STD)))
     if mean is None:
         return None, None
     as_t = lambda a: torch.as_tensor(a, dtype=like.dtype, device=like.device)

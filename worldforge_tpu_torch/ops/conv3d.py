@@ -215,7 +215,8 @@ def conv3d_causal(x: torch.Tensor, w: torch.Tensor,
                   out_dtype=None) -> torch.Tensor:
     """x [B, T+2, H, W, Cin] (temporally pre-padded), w [3,3,3,Cin,Cout],
     b [Cout] or None. Returns [B, T, H, W, Cout]. CUDA tensors launch the
-    kernel; CPU tensors take ``conv3d_causal_plain``."""
+    kernel; CPU tensors take ``conv3d_causal_plain``. Each launch adds one to
+    ``launches`` and to ``launches_by_shape[(B, T, H, W, Cin, Cout)]``."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return conv3d_causal_plain(x, w, b, out_dtype=out_dtype)
@@ -223,10 +224,14 @@ def conv3d_causal(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv3d_causal: unsupported device {x.device}")
     y = _launch(x, w, b, out_dtype, 3)
     conv3d_causal.launches += 1
+    key = (*y.shape[:4], x.shape[-1], y.shape[-1])
+    conv3d_causal.launches_by_shape[key] = (
+        conv3d_causal.launches_by_shape.get(key, 0) + 1)
     return y
 
 
 conv3d_causal.launches = 0
+conv3d_causal.launches_by_shape = {}
 
 
 def conv2d_3x3(x: torch.Tensor, w: torch.Tensor,

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from worldforge_tpu_torch.core.consts import device_constant
+
 # --- host tables (float64 -> float32, OpenCV's) ----------------------------
 
 _SMALL_GAUSSIAN_TAB = {
@@ -299,7 +301,9 @@ def farneback_flow(i1: torch.Tensor, i2: torch.Tensor, *,
                                device=i1.device)
         elif flow.shape[1:3] != (hk, wk):
             flow = _resize_linear(flow, hk, wk) * (1.0 / pyr_scale)
-        border = torch.from_numpy(_border_scale(hk, wk)).to(i1.device)
+        border = device_constant(
+            ("farneback_border", hk, wk),
+            lambda: torch.from_numpy(_border_scale(hk, wk)), i1.device)
         M = _update_matrices(R0, R1, flow, border)
         for it in range(iterations):
             flow = _update_flow(M, winsize)

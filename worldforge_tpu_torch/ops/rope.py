@@ -38,6 +38,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from worldforge_tpu_torch.core.consts import device_constant
+
 
 def _freqs_1d(positions: np.ndarray, dim: int, theta: float = 10000.0):
     """Angles [len(positions), dim/2] in float64."""
@@ -78,11 +80,14 @@ def rope_cos_sin(f: int, h: int, w: int, head_dim: int,
                  theta: float = 10000.0, h_offset: int = 0,
                  w_offset: int = 0, t_positions: Optional[tuple] = None,
                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 cos/sin tables [f*h*w, head_dim/2] (cos/sin taken in fp64)."""
-    ang = rope_3d_angles(f, h, w, head_dim, theta, h_offset, w_offset,
-                         t_positions)
-    return (torch.from_numpy(np.cos(ang).astype(np.float32)).to(device),
-            torch.from_numpy(np.sin(ang).astype(np.float32)).to(device))
+    """fp32 cos/sin tables [f*h*w, head_dim/2] (cos/sin taken in fp64),
+    made once per shape and device (``core/consts.py``)."""
+    args = (f, h, w, head_dim, theta, h_offset, w_offset, t_positions)
+    ang = lambda: rope_3d_angles(*args)
+    return (device_constant(("rope_cos",) + args, lambda: torch.from_numpy(
+                np.cos(ang()).astype(np.float32)), device),
+            device_constant(("rope_sin",) + args, lambda: torch.from_numpy(
+                np.sin(ang()).astype(np.float32)), device))
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

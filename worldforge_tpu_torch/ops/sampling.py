@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from worldforge_tpu_torch.core.consts import device_constant
+
 
 def interp1d_align_corners(x: torch.Tensor, n_out: int, axis: int
                            ) -> torch.Tensor:
@@ -63,8 +65,11 @@ def jax_linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     axis: a triangle kernel at half-pixel centres, widened by the scale when
     downsampling (antialiasing), each column normalised, samples outside the
     input zeroed. Computed in float32, as JAX computes them."""
-    return _jax_weights(n_in, n_out, device,
-                        lambda x: torch.clamp(1.0 - x, min=0.0))
+    return device_constant(
+        ("jax_linear_weights", n_in, n_out),
+        lambda: _jax_weights(n_in, n_out, "cpu",
+                             lambda x: torch.clamp(1.0 - x, min=0.0)),
+        device)
 
 
 def jax_cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
@@ -101,5 +106,7 @@ def _jax_weights(n_in: int, n_out: int, device, kernel) -> torch.Tensor:
 def jax_nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
     """``jax.image.resize(method="nearest")``: floor((i + 0.5) * in / out),
     in float32."""
-    off = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
-    return torch.floor(off).to(torch.int64).to(device)
+    def make():
+        off = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
+        return torch.floor(off).to(torch.int64)
+    return device_constant(("jax_nearest_index", n_in, n_out), make, device)

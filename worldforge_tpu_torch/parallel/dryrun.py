@@ -13,14 +13,20 @@ every rank:
      tokens a frame: the sp cut is padded);
   4. wan_cp2d -- ``wan_dit_forward`` on a (1, n/4, 2, 2) mesh (sp_h x
      sp_w) and a solver update, CFG-style;
-  5. wan_guided -- the unfused guided ``WanI2VPipeline.generate`` (CFG,
-     IRR, the VAE fuse, DSG, FLF) on (dp, fsdp, sp), one sample a dp rank;
-  6. at n % 8 == 0, the same on (2, 2, n/4) and one ``make_train_step``
-     step there (FSDP params and optimizer state, dp batch, sp tokens).
+  5. wan_guided_fused -- the fused guided ``WanI2VPipeline.generate``
+     (``fused=True``: ``wan_denoise_scan`` with CFG, IRR, the VAE fuse,
+     FLF selected on the device, DSG; CUDA graphs on the card) on (dp,
+     fsdp, sp), one sample a dp rank;
+  6. wan_chunked -- the same with ``exec_chunk=2``: 2 guided chunks and a
+     plain one, so the carry crosses chunks and segment kinds;
+  7. at n % 8 == 0, wan_guided_fused on (2, 2, n/4) and one
+     ``make_train_step`` step there (FSDP params and optimizer state, dp
+     batch, sp tokens).
 
-The JAX dry run's fused and chunked-runner phases wait for the runtime
-slice of the port. The VAE weights stay whole on every rank (the JAX dry
-run FSDP-shards them too).
+The models are tiny with head dim 64 (the VAE's mid attention too), the
+smallest the card's attention kernels take. The VAE weights stay whole on every rank (the JAX dry run
+FSDP-shards them too). ``run_phases(n, dev)`` runs the phases in a group
+that is already joined (``chip_smoke.py`` at world size 1 on NCCL).
 
 From a shell: ``python -m worldforge_tpu_torch.parallel.dryrun --n 4
 --device cpu``.
@@ -66,16 +72,21 @@ def _same_everywhere(name: str, out) -> tuple:
     return tuple(t.shape)
 
 
+def _tiny_vae_cfg():
+    """The tiny Wan VAE at width 32: its mid attention's head dim is 64."""
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
+    return dataclasses.replace(WanVAEConfig.tiny(), dim=32)
+
+
 def _tiny_wan(dev, seed, model_type="i2v"):
     from worldforge_tpu_torch.core import params as P
     from worldforge_tpu_torch.models.wan.dit import (WanDiTConfig,
                                                      init_wan_dit)
-    from worldforge_tpu_torch.models.wan.vae import (WanVAEConfig,
-                                                     init_wan_vae)
-    vae_cfg = WanVAEConfig.tiny()
+    from worldforge_tpu_torch.models.wan.vae import init_wan_vae
+    vae_cfg = _tiny_vae_cfg()
     in_dim = 4 + 2 * vae_cfg.z_dim if model_type == "i2v" else vae_cfg.z_dim
     cfg = WanDiTConfig(model_type=model_type, in_dim=in_dim,
-                       out_dim=vae_cfg.z_dim, dim=64, ffn_dim=128,
+                       out_dim=vae_cfg.z_dim, dim=256, ffn_dim=512,
                        num_heads=4, num_layers=2, text_len=16, text_dim=32,
                        freq_dim=16, clip_dim=64)
     gen = P.make_generator(seed, dev)
@@ -87,7 +98,7 @@ def _tiny_wan(dev, seed, model_type="i2v"):
     return cfg, params, vae_cfg, init_wan_vae(gen, vae_cfg)
 
 
-def _wan_guided(mesh, dev, name):
+def _wan_guided(mesh, dev, name, exec_chunk=0):
     from worldforge_tpu_torch.core.mesh import AXIS_DP
     from worldforge_tpu_torch.parallel.sharding import shard_params_fsdp
     from worldforge_tpu_torch.pipelines.wan_i2v import WanI2VPipeline
@@ -97,6 +108,14 @@ def _wan_guided(mesh, dev, name):
                           dit_cfg=cfg, vae_params=vae, vae_cfg=vae_cfg,
                           mesh=mesh)
     b, hpx, nf = mesh.shape[AXIS_DP], 64, 9
+    chunks = []
+    orig = pipe.run_fused_chunked
+
+    def counting(*a, **k):
+        k["on_chunk"] = lambda i, n, sf, si, lat: chunks.append((n, sf, si))
+        return orig(*a, **k)
+
+    pipe.run_fused_chunked = counting
     gen = torch.Generator(device=dev).manual_seed(2)
     r = lambda *s: torch.rand(s, generator=gen, device=dev)
     n = lambda *s: torch.randn(s, generator=gen, device=dev)
@@ -109,7 +128,9 @@ def _wan_guided(mesh, dev, name):
         mask=torch.ones((b, 1, nf, hpx, hpx), device=dev),
         guidance=GuidanceConfig(guided=True, guide_steps=2, resample_steps=2,
                                 resample_round=2, use_flf=True),
-        output_type="latent")
+        output_type="latent", fused=True, exec_chunk=exec_chunk)
+    if exec_chunk and len(chunks) < 2:
+        raise RuntimeError(f"dryrun {name}: one chunk ({chunks})")
     return _same_everywhere(name, out)
 
 
@@ -143,14 +164,14 @@ def _longcat_pipe(mesh, dev, seed, **cfg_kw):
     from worldforge_tpu_torch.core import params as P
     from worldforge_tpu_torch.models.longcat.dit import (LongCatDiTConfig,
                                                          init_longcat_dit)
-    from worldforge_tpu_torch.models.wan.vae import (WanVAEConfig,
-                                                     init_wan_vae)
+    from worldforge_tpu_torch.models.wan.vae import init_wan_vae
     from worldforge_tpu_torch.parallel.sharding import shard_params_fsdp
     from worldforge_tpu_torch.pipelines.longcat import LongCatPipeline
-    vae_cfg = WanVAEConfig.tiny()
+    vae_cfg = _tiny_vae_cfg()
     cfg = dataclasses.replace(LongCatDiTConfig.tiny(),
                               in_channels=vae_cfg.z_dim,
-                              out_channels=vae_cfg.z_dim, **cfg_kw)
+                              out_channels=vae_cfg.z_dim,
+                              **{"hidden_size": 128, **cfg_kw})
     gen = P.make_generator(seed, dev)
     return LongCatPipeline(
         dit_params=shard_params_fsdp(init_longcat_dit(gen, cfg), mesh),
@@ -175,7 +196,7 @@ def _longcat_refine_bsa(mesh, dev):
 
 
 def _longcat_vc(mesh, dev):
-    pipe = _longcat_pipe(mesh, dev, 40, num_heads=4)
+    pipe = _longcat_pipe(mesh, dev, 40, hidden_size=256, num_heads=4)
     gen = torch.Generator(device=dev).manual_seed(42)
     video = torch.rand((1, 3, 5, 32, 32), generator=gen, device=dev) * 2 - 1
     pe = torch.randn((1, 6, pipe.dit_cfg.caption_channels), generator=gen,
@@ -193,13 +214,12 @@ def _avatar(mesh, dev):
     from worldforge_tpu_torch.models.longcat.avatar import (AvatarConfig,
                                                             init_avatar_dit)
     from worldforge_tpu_torch.models.longcat.dit import LongCatDiTConfig
-    from worldforge_tpu_torch.models.wan.vae import (WanVAEConfig,
-                                                     init_wan_vae)
+    from worldforge_tpu_torch.models.wan.vae import init_wan_vae
     from worldforge_tpu_torch.parallel.sharding import shard_params_fsdp
     from worldforge_tpu_torch.pipelines.avatar import AvatarPipeline
-    vae_cfg = WanVAEConfig.tiny()
+    vae_cfg = _tiny_vae_cfg()
     base = LongCatDiTConfig(in_channels=vae_cfg.z_dim,
-                            out_channels=vae_cfg.z_dim, hidden_size=64,
+                            out_channels=vae_cfg.z_dim, hidden_size=256,
                             depth=2, num_heads=4, caption_channels=32,
                             adaln_tembed_dim=32, frequency_embedding_size=16)
     cfg = AvatarConfig(base=base, audio_blocks=2, audio_channels=8,
@@ -240,7 +260,9 @@ def _train_step(mesh, dev):
     return _same_everywhere("train_step", loss)
 
 
-def _phases(n: int, dev: torch.device) -> List[Tuple[str, tuple, float]]:
+def run_phases(n: int, dev: torch.device) -> List[Tuple[str, tuple, float]]:
+    """The phases on this rank of an ``n``-rank group that is already
+    joined; returns (phase, output shape, seconds) of each."""
     from worldforge_tpu_torch.core.mesh import make_mesh
     dp, fsdp, sp = _pick_mesh_dims(n)
     mesh = make_mesh(dp, fsdp, sp, device=dev.type)
@@ -256,10 +278,12 @@ def _phases(n: int, dev: torch.device) -> List[Tuple[str, tuple, float]]:
     run("avatar", _avatar, mesh, dev)
     if n % 4 == 0:
         run("wan_cp2d", _wan_cp2d, n, dev)
-    run("wan_guided", _wan_guided, mesh, dev, "wan_guided")
+    run("wan_guided_fused", _wan_guided, mesh, dev, "wan_guided_fused")
+    run("wan_chunked", _wan_guided, mesh, dev, "wan_chunked", 2)
     if n % 8 == 0:
         mesh222 = make_mesh(2, 2, n // 4, device=dev.type)
-        run("wan_guided_dp2", _wan_guided, mesh222, dev, "wan_guided_dp2")
+        run("wan_guided_fused_dp2", _wan_guided, mesh222, dev,
+            "wan_guided_fused_dp2")
         run("train_step", _train_step, mesh222, dev)
     return done
 
@@ -271,7 +295,7 @@ def _rank_main(rank: int, n: int, device: str, port: int, out_dir: str):
     dev = init_process_group(device, rank=rank, world_size=n,
                              init_method=f"tcp://127.0.0.1:{port}")
     try:
-        done = _phases(n, dev)
+        done = run_phases(n, dev)
     finally:
         dist.destroy_process_group()
     if rank == 0:

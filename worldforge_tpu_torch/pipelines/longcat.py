@@ -22,8 +22,13 @@ paths:
   schedule truncated below ``t_thresh``, no CFG, and block-sparse attention
   where the token grid factors into (4, 4, 8) chunks.
 
-The fused and chunked scan runners (``fused=True``, ``exec_chunk``) work
-around TPU runtime limits and raise, as ``auto_layout`` does. ``mesh``
+``generate_i2v(fused=True)`` runs the whole loop through
+``sampling/engine.py::longcat_denoise_scan`` with FLF selected on the device
+(``select_mask_longcat_device``); on the card each segment kind's step is a
+captured CUDA graph (``runtime/step_graph.py``), and ``exec_chunk=k``
+replays them in chunks of k plain-step equivalents. ``auto_layout`` (XLA
+entry layouts in the JAX package) has no counterpart in torch: the field is
+accepted and read by no code (``runtime/layouts.py``). ``mesh``
 (``core/mesh.py``) goes to every DiT call, the vc cache pair included (the
 cache then sequence-sharded); the pipeline stays global-view, as
 ``pipelines/wan_i2v.py`` says. ``token_chunk`` > 1 runs the DiT's QKV
@@ -46,14 +51,15 @@ from worldforge_tpu_torch.ops.sampling import resize3d_align_corners
 from worldforge_tpu_torch.pipelines.vae_dispatch import vae_fn_pair
 from worldforge_tpu_torch.models.longcat.dit import (
     longcat_dit_cache_cond, longcat_dit_forward_with_cache)
-from worldforge_tpu_torch.pipelines.wan_i2v import (NOT_PORTED_RUNNERS,
-                                                    _as_tensor)
-from worldforge_tpu_torch.sampling.engine import longcat_denoise_loop
+from worldforge_tpu_torch.pipelines.wan_i2v import _as_tensor
+from worldforge_tpu_torch.sampling.engine import (longcat_denoise_loop,
+                                                  longcat_denoise_scan)
 from worldforge_tpu_torch.sampling.flow_match import (FlowMatchSchedule,
                                                       cfg_zero_combine,
                                                       fm_euler_step,
                                                       make_flow_match_schedule)
 from worldforge_tpu_torch.sampling.guidance import (GuidanceConfig,
+                                                    fuse_latents,
                                                     guided_fuse)
 
 
@@ -73,7 +79,9 @@ class LongCatPipeline:
     streaming_vae_chunk: int = 1    # latent frames per streaming decode step
     mesh: object = None             # the parallel layer's mesh
     token_chunk: int = 1            # the DiT's token chunks
-    auto_layout: bool = False       # XLA entry layouts: no counterpart
+    # XLA entry layouts in the JAX package. Inert here: torch has none, no
+    # code reads the field (runtime/layouts.py)
+    auto_layout: bool = False
     # generate_vc's cond-token k/v cache: "float32" is exact, "bfloat16"
     # halves it (k rounded before its RoPE)
     vc_cache_dtype: str = "float32"
@@ -88,11 +96,49 @@ class LongCatPipeline:
         return ((lambda z: dec(self.vae_params, self.vae_cfg, z)),
                 (lambda v: enc(self.vae_params, self.vae_cfg, v)))
 
-    def _check_ported(self):
-        if self.auto_layout:
-            raise NotImplementedError(
-                "LongCatPipeline.auto_layout sets XLA entry layouts; the "
-                "port has no counterpart")
+    def _make_fused_fns(self, guidance: GuidanceConfig, do_cfg: bool,
+                        guided_on: bool, gscale: float, pe, pmask, ne, nmask,
+                        video_ref, mask, t_lat: int):
+        """(model_fn, fuse_fn) of ``make_longcat_body``, shared by the
+        one-program and the chunked runners. t is a 0-dim tensor; FLF blends
+        the fused x0 with the unfused one under the device mask."""
+        from worldforge_tpu_torch.ops.flow import video_channel_flows_pair
+        from worldforge_tpu_torch.sampling.channel_select import (
+            _flow_similarity_scores, select_mask_longcat_device)
+        dec, enc = self._vae_fns()
+
+        def model_fn(lat, t):
+            tb = t.reshape(1, 1).expand(lat.shape[0], t_lat).clone()
+            tb[:, 0] = 0.0                    # the cond frame
+            v = longcat_dit_forward(
+                self.dit_params, self.dit_cfg, lat.float(), tb, pe,
+                encoder_attention_mask=pmask, num_cond_latents=1,
+                policy=self.policy, mesh=self.mesh,
+                token_chunk=self.token_chunk)
+            if do_cfg:
+                vu = longcat_dit_forward(
+                    self.dit_params, self.dit_cfg, lat.float(), tb, ne,
+                    encoder_attention_mask=nmask, num_cond_latents=1,
+                    policy=self.policy, mesh=self.mesh,
+                    token_chunk=self.token_chunk)
+                v = cfg_zero_combine(v, vu, gscale)
+            return -v                         # the scheduler's sign
+
+        fuse_fn = None
+        if guided_on:
+            def fuse_fn(x0_full, step):
+                fused = fuse_latents(x0_full, video_ref, mask, dec, enc)
+                if guidance.use_flf:
+                    scores = _flow_similarity_scores(
+                        *video_channel_flows_pair(x0_full, fused),
+                        variant="longcat")
+                    m = select_mask_longcat_device(
+                        scores, step, guidance.distill, guidance.max_replace)
+                    m = m[None, :, None, None, None]
+                    fused = fused * (1.0 - m) + x0_full * m
+                return fused
+
+        return model_fn, fuse_fn
 
     def _to_video(self, latents):
         video = self._vae_fns()[0](latents)
@@ -136,11 +182,12 @@ class LongCatPipeline:
         re-noise; ``noise_fn(shape) -> array`` overrides both, so a test can
         feed one noise stream to two implementations. Guidance runs when
         ``guidance.guided`` and both ``video_ref`` and ``mask`` are given.
-        Returns numpy [B, 3, T, H, W] in [0, 1] (or the latents for
+        ``fused=True`` runs the whole-loop runner (FLF selected on the
+        device; CUDA graphs on the card); ``exec_chunk`` > 0 runs it in
+        chunks of that many plain-step equivalents, with or without
+        ``fused`` (the same latents bit for bit). Returns numpy
+        [B, 3, T, H, W] in [0, 1] (or the latents for
         ``output_type="latent"``)."""
-        if fused or exec_chunk:
-            raise NotImplementedError(NOT_PORTED_RUNNERS)
-        self._check_ported()
         dev = self.device
         image = _as_tensor(image, dev)
         pe = _as_tensor(prompt_embeds, dev)
@@ -168,6 +215,20 @@ class LongCatPipeline:
                      and mask is not None)
         gcfg = dataclasses.replace(guidance, flf_backend="longcat",
                                    distill=use_distill)
+
+        if fused or exec_chunk:
+            model_fn, fuse_fn = self._make_fused_fns(
+                gcfg, do_cfg, guided_on, float(guidance_scale), pe, pmask,
+                ne if do_cfg else pe, nmask if do_cfg else pmask, video_ref,
+                mask, t_lat)
+            latents = longcat_denoise_scan(
+                model_fn, latents, sched, gcfg, generator=generator,
+                noise_fn=noise_fn, fuse_fn=fuse_fn, exec_chunk=exec_chunk,
+                on_step=(None if callback is None else
+                         lambda i, carry, aux: callback(i, carry[0])))
+            if output_type == "latent":
+                return latents
+            return self._to_video(latents)
 
         def model_fn(lat, t_val, i, r):
             tb = torch.full((b, t_lat), t_val, dtype=torch.float32,
@@ -221,7 +282,6 @@ class LongCatPipeline:
     ):
         """Text-to-video: a plain flow-match Euler loop with CFG-zero and no
         cond latents. ``noise_fn`` overrides the initial draw."""
-        self._check_ported()
         dev = self.device
         pe = _as_tensor(prompt_embeds, dev)
         pmask = _as_tensor(prompt_mask, dev, dtype=torch.int32)
@@ -285,7 +345,6 @@ class LongCatPipeline:
         if use_distill and enhance_hf:
             raise ValueError("use_distill and enhance_hf cannot both be "
                              "True")
-        self._check_ported()
         dev = self.device
         video = _as_tensor(video, dev)
         pe = _as_tensor(prompt_embeds, dev)
@@ -384,7 +443,6 @@ class LongCatPipeline:
         ``callback(i, latents)`` runs after each step. Returns numpy
         [1, 3, T, H, W] in [0, 1] with the granularity padding dropped (or
         the latents for ``output_type="latent"``)."""
-        self._check_ported()
         dev = self.device
         if stage1_latents is not None:
             latent_up = _as_tensor(stage1_latents, dev)

@@ -1,7 +1,7 @@
 """Wan2.1 image-to-video WorldForge pipeline (CFG + IRR + VAE fuse + DSG).
 
-Counterpart of ``worldforge_tpu/pipelines/wan_i2v.py`` on its host-loop path
-(``fused=False``). Per outer step i (timestep t):
+Counterpart of ``worldforge_tpu/pipelines/wan_i2v.py``. Per outer step i
+(timestep t):
 
     for r in range(resample_steps):              # IRR
       r>0: model timestep = floor(sigma_i*1000)
@@ -14,9 +14,16 @@ Counterpart of ``worldforge_tpu/pipelines/wan_i2v.py`` on its host-loop path
     redo the UniP update from the ORIGINAL x of this step.
 
 FLF (``GuidanceConfig.use_flf``, on by default) runs at r = 0 of every
-guided step (``sampling/guidance.py::guided_fuse``). The whole-loop fused and chunked runners (``fused=True``,
-``exec_chunk``, ``auto_layout``) are later slices of the port and raise.
-``streaming_vae`` runs the streaming VAE (``models/wan/vae_stream.py``).
+guided step. The host loop (``fused=False``) selects its channels on the
+host (``sampling/guidance.py::guided_fuse``). ``fused=True`` runs the whole
+loop through ``sampling/engine.py::wan_denoise_scan``: FLF selects on the
+device (``select_mask_wan_device``), and on the card each segment kind's
+step is a captured CUDA graph replayed step after step
+(``runtime/step_graph.py``); ``exec_chunk=k`` replays the same graphs in
+chunks of k plain-step equivalents with a synchronize between chunks
+(``run_fused_chunked``). ``auto_layout`` has no counterpart in torch
+(``runtime/layouts.py``): the field is accepted and read by no code, so
+the fused runner takes the weights as they are whatever its value. ``streaming_vae`` runs the streaming VAE (``models/wan/vae_stream.py``).
 ``mesh`` (``core/mesh.py``) goes to every DiT forward: the pipeline stays
 global-view (every rank draws the same noise from the same seed and runs
 the solver, the fuse, FLF and the VAE on the whole batch, so FLF's
@@ -37,16 +44,12 @@ from worldforge_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from worldforge_tpu_torch.models.wan.dit import WanDiTConfig, wan_dit_forward
 from worldforge_tpu_torch.models.wan.vae import WanVAEConfig
 from worldforge_tpu_torch.pipelines.vae_dispatch import vae_fn_pair
-from worldforge_tpu_torch.sampling.engine import wan_denoise_loop
+from worldforge_tpu_torch.sampling.engine import (wan_denoise_loop,
+                                                  wan_denoise_scan)
 from worldforge_tpu_torch.sampling.guidance import (GuidanceConfig,
+                                                    fuse_latents,
                                                     guided_fuse)
 from worldforge_tpu_torch.sampling.unipc import make_flow_unipc_schedule
-
-
-NOT_PORTED_RUNNERS = (
-    "the fused / chunked scan runners (fused=True, exec_chunk) work around "
-    "TPU runtime limits and are not ported; the host-loop path "
-    "(fused=False) is the port's path")
 
 
 def _as_tensor(x, device, dtype=torch.float32) -> Optional[torch.Tensor]:
@@ -104,6 +107,10 @@ class WanI2VPipeline:
     streaming_vae: bool = False
     # the parallel layer's mesh, passed to every DiT forward
     mesh: object = None
+    # XLA entry layouts in the JAX package. Inert here: torch has none to
+    # choose, no code reads the field, and the fused runner takes the
+    # weights as they are (runtime/layouts.py)
+    auto_layout: bool = False
     token_chunk: int = 1
 
     @property
@@ -119,12 +126,101 @@ class WanI2VPipeline:
                 (lambda v: enc(self.vae_params, self.vae_cfg, v)))
 
     def _dit(self, latents, condition, t, ctx, clip_fea):
-        tb = torch.full((latents.shape[0],), float(t), dtype=torch.float32,
-                        device=latents.device)
+        """One DiT forward; t a number or a [B] tensor of timesteps."""
+        tb = t if isinstance(t, torch.Tensor) else torch.full(
+            (latents.shape[0],), float(t), dtype=torch.float32,
+            device=latents.device)
         return wan_dit_forward(self.dit_params, self.dit_cfg,
                                latents.float(), tb, ctx, clip_fea=clip_fea,
                                y=condition.float(), policy=self.policy,
                                mesh=self.mesh, token_chunk=self.token_chunk)
+
+    def _make_fused_fns(self, guidance: GuidanceConfig, do_cfg: bool,
+                        guided_on: bool, gscale: float, condition, pe, ne, ie,
+                        video_ref, mask):
+        """(model_fn, fuse_fn, flf_fn) of ``make_wan_body``, shared by the
+        one-program and the chunked runners. t is a 0-dim tensor; FLF blends
+        the fused x0 with the unfused one under the device mask."""
+        from worldforge_tpu_torch.ops.flow import video_channel_flows_pair
+        from worldforge_tpu_torch.sampling.channel_select import (
+            _flow_similarity_scores, select_mask_wan_device)
+        dec, enc = self._vae_fns()
+
+        def model_fn(lat, t):
+            tb = t.reshape(1).expand(lat.shape[0])
+            pred = self._dit(lat, condition, tb, pe, ie)
+            if do_cfg:
+                unc = self._dit(lat, condition, tb, ne, ie)
+                pred = pred + gscale * (pred - unc)
+            return pred
+
+        fuse_fn = flf_fn = None
+        if guided_on:
+            def fuse_fn(x0, step):
+                return fuse_latents(x0, video_ref, mask, dec, enc)
+
+            if guidance.use_flf:
+                def flf_fn(pre, fused, step):
+                    scores = _flow_similarity_scores(
+                        *video_channel_flows_pair(pre, fused))
+                    m = select_mask_wan_device(scores, step)
+                    mb = m[None, :, None, None, None]
+                    return fused * (1.0 - mb) + pre * mb, m
+
+        return model_fn, fuse_fn, flf_fn
+
+    def _run_fused_one_program(self, guidance, num_inference_steps,
+                               flow_shift, do_cfg, guided_on, gscale,
+                               latents, condition, prompt_embeds, ne_arg,
+                               image_embeds, ref_arg, mask_arg, generator,
+                               **kw):
+        """The whole loop as one plan: ``run_fused_chunked`` at
+        ``exec_chunk=0``, kept under the JAX package's name. JAX compiles
+        entry layouts here under ``auto_layout``; torch has none
+        (``auto_layouts_supported()`` is False), so nothing differs."""
+        return self.run_fused_chunked(
+            guidance, num_inference_steps, flow_shift, do_cfg, guided_on,
+            gscale, 0, latents, condition, prompt_embeds, ne_arg,
+            image_embeds, ref_arg, mask_arg, generator, **kw)
+
+    def run_fused_chunked(self, guidance, num_inference_steps, flow_shift,
+                          do_cfg, guided_on, gscale, exec_chunk, latents,
+                          condition, prompt_embeds, ne_arg, image_embeds,
+                          ref_arg, mask_arg, generator=None, on_chunk=None,
+                          donate_data: bool = False, fuse_cost: float = 0.5,
+                          noise_fn: Optional[Callable] = None,
+                          callback: Optional[Callable] = None):
+        """The fused runner in chunks of ``exec_chunk`` plain-step
+        equivalents (0: one chunk a segment; ``wan_scan_chunks``, weighted
+        by ``fuse_cost``, the fuse / plain step cost ratio). The UniPC
+        m0 / m1 history rides the carry across chunks, so every chunking
+        gives the same latents bit for bit. ``on_chunk(chunk, n_steps,
+        seg_fuse, seg_irr, latents)`` runs after each chunk (synchronized on
+        the card). ``donate_data`` is accepted for the JAX signature and
+        ignored: the JAX package frees the data args' pre-relayout
+        originals; the port makes no copies of them. ``callback(i,
+        latents)`` runs after each step; ``self.last_flf_masks`` holds the
+        FLF mask of every step that selected ({step: [C] numpy})."""
+        sched = make_flow_unipc_schedule(num_inference_steps, flow_shift)
+        model_fn, fuse_fn, flf_fn = self._make_fused_fns(
+            guidance, do_cfg, guided_on, gscale, condition, prompt_embeds,
+            ne_arg, image_embeds, ref_arg, mask_arg)
+        masks = {}
+
+        def on_step(i, carry, aux):
+            if aux is not None:
+                masks[i] = aux.clone()
+            if callback is not None:
+                callback(i, carry[0])
+
+        out = wan_denoise_scan(
+            model_fn, latents, sched, guidance, generator=generator,
+            noise_fn=noise_fn, fuse_fn=fuse_fn, flf_fn=flf_fn,
+            record_r0=do_cfg, exec_chunk=exec_chunk, fuse_cost=fuse_cost,
+            on_step=on_step, on_chunk=on_chunk)
+        self.last_flf_masks = {i: m.float().cpu().numpy()
+                               for i, m in sorted(masks.items())}
+        return out
 
     def prepare_latents(self, generator: Optional[torch.Generator],
                         image: torch.Tensor, batch_size: int, height: int,
@@ -175,10 +271,11 @@ class WanI2VPipeline:
         latents and the IRR re-noise; ``noise_fn(shape) -> array`` overrides
         both, so a test can feed one noise stream to two implementations.
         Array inputs may be numpy or torch; they are moved to the pipeline's
-        device. Returns numpy [B,3,T,H,W] in [0,1] (or the latents for
+        device. ``fused=True`` runs the whole-loop runner (FLF selected on
+        the device; CUDA graphs on the card); ``exec_chunk`` > 0 runs it in
+        chunks (``run_fused_chunked``), with or without ``fused``.
+        Returns numpy [B,3,T,H,W] in [0,1] (or the latents for
         ``output_type="latent"``)."""
-        if fused or exec_chunk:
-            raise NotImplementedError(NOT_PORTED_RUNNERS)
         if num_frames % self.vae_scale_t != 1:
             num_frames = num_frames // self.vae_scale_t * self.vae_scale_t + 1
         dev = self.device
@@ -218,10 +315,23 @@ class WanI2VPipeline:
                 return guided_fuse(x0, video_ref, mask, dec, enc, i,
                                    guidance, flf=r == 0)
 
-        latents = wan_denoise_loop(
-            model_fn, latents, sched, guidance, generator=generator,
-            noise_fn=noise_fn, fuse_fn=fuse_fn, callback=callback,
-            record_r0=do_cfg)
+        if fused or exec_chunk:
+            ne_arg = negative_prompt_embeds if do_cfg else prompt_embeds
+            args = (guidance, num_inference_steps, flow_shift, do_cfg,
+                    guided_on, float(guidance_scale))
+            data = (latents, condition, prompt_embeds, ne_arg, image_embeds,
+                    video_ref, mask, generator)
+            kw = dict(noise_fn=noise_fn, callback=callback)
+            if exec_chunk:
+                latents = self.run_fused_chunked(*args, exec_chunk, *data,
+                                                 **kw)
+            else:
+                latents = self._run_fused_one_program(*args, *data, **kw)
+        else:
+            latents = wan_denoise_loop(
+                model_fn, latents, sched, guidance, generator=generator,
+                noise_fn=noise_fn, fuse_fn=fuse_fn, callback=callback,
+                record_r0=do_cfg)
 
         if output_type == "latent":
             return latents
