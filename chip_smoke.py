@@ -197,6 +197,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the in-process decode; at the end, ``parallel/dryrun.py``'s phases (the
    fused and chunked Wan generates among them) at world size 1 on NCCL.
 
+21. sfm -- right after the warp phase (``"phase": "sfm"`` lines, each with
+   the card's name and power limit): VGGT tracking and SfM on 8 square
+   frames of 518x518 (a synthetic scene under a camera pan). VGGT-1B fp32
+   with the world-point and track heads (kernel 1's global attention over
+   10,992 tokens), its track head on the first 1,024 of ALIKED-N16's
+   keypoints on frame 0; ``predict_tracks`` with the VGGSfM tracker
+   (published coarse and fine configs) and ALIKED-N16 + SuperPoint at
+   4,096 keypoints (the final trial adds SIFT at 2,048), 5 query frames,
+   6 coarse refinements, the fine refinement and the non-visible-frame
+   loop, fed VGGT's world points and confidence; the COLMAP export
+   (``build_reconstruction(masks=vis > 0.2)``, ``write_text``). Seconds of
+   each part, peaks, counts and kernel 1's launches. Before it, the small
+   runs on the card against the CPU: a widened tiny VGGT with the point
+   head and a tiny track head, tiny ALIKED (keypoints as score-sorted
+   sets) and the published tracker through ``predict_tracks`` on 3 frames
+   of 128x128 with its coordinate heads damped (random full-scale heads
+   make tracks chaotic; see ``_damped_tracker``).
+
 The line before the last holds the kernel table; the last line is the device
 summary.
 """
@@ -266,6 +284,11 @@ FLF_SHAPE = (1, 16, DIT_FRAMES // 4 + 1, HEIGHT // 8, WIDTH // 8)
 WARP_H, WARP_W = 294, 518
 VGGT_TOKENS = (WARP_H // 14) * (WARP_W // 14) + 5                 # 782
 WARP_DIRECTION, WARP_DEGREE = "right", 15.0
+# the sfm phase: 8 square frames of 518 x 518 (37 x 37 patches + 5 special
+# tokens a frame; the global attention runs over all 8 frames' tokens)
+SFM_FRAMES, SFM_SIZE = 8, 518
+SFM_TOKENS = (SFM_SIZE // 14) ** 2 + 5                              # 1,374
+SFM_TRACK_QUERIES = 1024
 # UMT5: 512 token ids (no tokenizer here), the prompt's 28 and the
 # negative prompt's 64 of them unmasked
 PROMPT_TOKENS, NEGATIVE_TOKENS = 28, 64
@@ -1010,6 +1033,11 @@ def phase_kernels():
                         kv_lens=(32, 17, 0))
     _check_flash_masked(gen, records, 64, torch.float32, b=2, sq=100, sk=8,
                         kv_lens=(8, 5))
+    # the sfm phase's new shape: VGGT-1B's global attention over 8 frames
+    # of 518 x 518
+    main[SFM_GLOBAL_ROW] = _check_flash(
+        gen, records, 1, SFM_FRAMES * SFM_TOKENS, SFM_FRAMES * SFM_TOKENS,
+        16, 64, torch.float32, 1e-4, 1e-4, SFM_GLOBAL_ROW, 5)
     main.update(_dc_kernel_checks(gen, records))
     main.update(_backward_kernel_checks(gen, records))
     for rec in records:
@@ -1551,6 +1579,18 @@ WAN_ROWS = (
 )
 
 
+# the table's row at the sfm phase's global attention (kernel 1, fp32 d 64,
+# 8 x 1,374 = 10,992 tokens), counted at its own shape
+SFM_GLOBAL_ROW = (f"flash_attention fp32 d64 (vggt global attn, "
+                  f"{SFM_FRAMES} x {SFM_TOKENS} tokens)")
+SFM_ROWS = (
+    (SFM_GLOBAL_ROW, "flash_attention",
+     lambda k: k == ("fp32 d64", 16, SFM_FRAMES * SFM_TOKENS,
+                     SFM_FRAMES * SFM_TOKENS)),
+)
+SFM_PATH_KERNELS = ("flash_attention",)
+
+
 class Launches(dict):
     """One run's launches by wrapper (kernel 1's also by instantiation, as
     ``"flash_attention fp32 d512"``); ``by_shape`` holds the wrappers'
@@ -2045,13 +2085,15 @@ def phase_warp(work_dir):
                      "vggt_profile", "VGGT-1B depth_and_camera on one "
                      "518x294 image under torch.profiler (after a warm-up "
                      "call)", {"image": [WARP_H, WARP_W]})
+    full_tree = _warp_full_tree(params, cfg, images)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     ok = (all(r["frames"] == GEN_FRAMES and r["card_vs_cpu_mask_px_"
               "differing"] == 0 and r["frame_shape"] == [WARP_H, WARP_W, 3]
               for r in runs)
-          and bool(np.isfinite(depth).all() and np.isfinite(conf).all()))
+          and bool(np.isfinite(depth).all() and np.isfinite(conf).all())
+          and full_tree["bit_equal"])
     emit({"phase": "warp", "config": "vggt_1b (DINOv2-L/14 + 24 dual "
           "blocks + camera and DPT heads), fp32",
           "params": n_params, "image": [WARP_H, WARP_W],
@@ -2062,12 +2104,384 @@ def phase_warp(work_dir):
           "focal_px": [float(intrinsic[0, 0]), float(intrinsic[1, 1])],
           "direction": WARP_DIRECTION, "degree": WARP_DEGREE,
           "runs": [{k: v for k, v in r.items() if k != "out"}
-                   for r in runs], "launches": launches, "ok": ok})
+                   for r in runs], "full_tree": full_tree,
+          "launches": launches, "ok": ok})
     if not ok:
         raise SystemExit("chip_smoke: the warp is wrong or differs from "
                          "the CPU")
     _require_launches(launches, WARP_PATH_KERNELS, "warp")
     return runs[-1]["out"], launches
+
+
+def _warp_full_tree(params, cfg, images):
+    """The warp's VGGT stage on a tree that also holds the world-point and
+    track heads, as a converted facebook/VGGT-1B checkpoint does:
+    ``depth_and_camera`` must give the lean tree's outputs bit for bit and
+    take its time, since it runs neither head. ``vggt_forward`` on the
+    full tree runs the point head too: its time is what the warp would
+    pay if it did. Medians of 3 calls after a warm-up each."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.vggt.inference import (depth_and_camera,
+                                                            init_vggt_full,
+                                                            vggt_forward)
+    heads = init_vggt_full(P.make_generator(13, "cuda"), cfg,
+                           enable_point=True, enable_track=True)
+    full = dict(params, point_head=heads["point_head"],
+                track_head=heads["track_head"])
+    im = torch.as_tensor(images, device="cuda")[None]
+
+    def median_s(fn):
+        fn()
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.time() - t0)
+        return sorted(ts)[1]
+
+    lean_out = depth_and_camera(params, cfg, images)
+    full_out = depth_and_camera(full, cfg, images)
+    rec = {"bit_equal": all(bool((a == b).all())
+                            for a, b in zip(lean_out, full_out)),
+           "depth_and_camera_lean_s": median_s(
+               lambda: depth_and_camera(params, cfg, images)),
+           "depth_and_camera_full_tree_s": median_s(
+               lambda: depth_and_camera(full, cfg, images)),
+           "vggt_forward_full_tree_s": median_s(
+               lambda: vggt_forward(full, cfg, im))}
+    del full, heads
+    return rec
+
+
+def _sfm_video(n, size, seed=8):
+    """``n`` square frames of a synthetic scene under a camera pan: a
+    textured ground, a sky gradient and boxes, each frame a crop shifted
+    by 24 pixels, [n, size, size, 3] float32 in [0, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    wide = size + 24 * (n - 1)
+    yy, xx = np.mgrid[0:size, 0:wide].astype(np.float32)
+    img = np.empty((size, wide, 3), np.float32)
+    sky = yy < 0.35 * size
+    img[..., 0] = np.where(sky, 0.5 + 0.3 * yy / size,
+                           0.35 + 0.2 * np.sin(xx / 13.0) * np.cos(yy / 9.0))
+    img[..., 1] = np.where(sky, 0.6 + 0.2 * yy / size,
+                           0.45 + 0.1 * np.cos(xx / 7.0 + yy / 5.0))
+    img[..., 2] = np.where(sky, 0.9, 0.3 + 0.1 * np.sin(xx / 5.0))
+    for _ in range(14):
+        x0, y0 = rng.integers(0, wide - 90), rng.integers(0, size - 120)
+        bw, bh = rng.integers(30, 90), rng.integers(40, 120)
+        img[y0:y0 + bh, x0:x0 + bw] = rng.uniform(0.1, 0.9, 3)
+        img[y0:y0 + bh:5, x0:x0 + bw] *= 0.6
+        img[y0:y0 + bh, x0:x0 + bw:7] *= 0.8
+    img += 0.02 * rng.standard_normal(img.shape)
+    img = np.clip(img, 0.0, 1.0)
+    return np.stack([img[:, 24 * i:24 * i + size] for i in range(n)])
+
+
+def _damped_tracker(params, f=0.01):
+    """The tracker tree with the (dx, dy) columns of both flow heads scaled
+    by ``f`` (a copy): each refinement then moves a track by a fraction of a
+    pixel, as a trained tracker's late refinements do. With the random
+    init's full-scale heads a rounding difference grows ~400 times per
+    coarse refinement, so a card-against-CPU gate on tracks would measure
+    only that growth (tests/test_torch_sfm.py shows it on the CPU)."""
+    from worldforge_tpu_torch.core import params as P
+    out = P.tree_map(lambda t: t.clone(), params)
+    for k in ("coarse_predictor", "fine_predictor"):
+        fh = out[k]["updateformer"]["flow_head"]
+        fh["w"][:, :2] *= f
+        fh["b"][:2] *= f
+    return out
+
+
+def _small_sfm_checks(card):
+    """The sfm phase's part (a): weights drawn on the CPU and copied to the
+    card; each run on the card against the same run on the CPU, fp32.
+    ``vggt_forward`` with query points on VGGTConfig.tiny() widened to 128
+    (heads of 64), with the world-point head and a TrackHeadConfig.tiny()
+    track head at the trunk's width; ALIKEDConfig.tiny() on two 96 x 128 images; the
+    published-width VGGSfM tracker through ``predict_tracks`` on 3 frames
+    of 128 x 128 with a 4 x 4 grid extractor, the fine refinement, no
+    augmentation, the coordinate heads damped (``_damped_tracker``)."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.vggt import inference
+    from worldforge_tpu_torch.models.vggt.model import VGGTConfig
+    from worldforge_tpu_torch.models.vggt.track import (TrackHeadConfig,
+                                                        init_track_head)
+    from worldforge_tpu_torch.sfm.aliked import (ALIKEDConfig, aliked_forward,
+                                                 init_aliked)
+    from worldforge_tpu_torch.sfm.track_predict import predict_tracks
+    from worldforge_tpu_torch.sfm.tracker import init_sfm_tracker
+
+    def to_card(tree):
+        return P.tree_map(lambda t: t.cuda(), tree)
+
+    recs = []
+    tiny = VGGTConfig.tiny()
+    cfg = dataclasses.replace(tiny, embed_dim=128,
+                              backbone=dataclasses.replace(tiny.backbone,
+                                                           embed_dim=128))
+    gen = P.make_generator(31)
+    params = inference.init_vggt_full(gen, cfg, enable_point=True)
+    tcfg = dataclasses.replace(TrackHeadConfig.tiny(),
+                               dim_in=2 * cfg.embed_dim)
+    params["track_head"] = init_track_head(gen, tcfg)
+    rng = np.random.default_rng(31)
+    images = torch.from_numpy(rng.random((1, 2, 3, 56, 84)).astype(
+        np.float32))
+    qp = torch.tensor([[[10.0, 12.0], [40.5, 30.25], [70.0, 50.0]]])
+
+    # vggt_forward, the users' entry point, with its track head config
+    # set to the tiny one for this check
+    published = inference.track_head_config
+    inference.track_head_config = lambda c: tcfg
+    try:
+        with P.no_tf32_matmul():
+            got = inference.vggt_forward(to_card(params), cfg,
+                                         images.cuda(), qp.cuda())
+        want = inference.vggt_forward(params, cfg, images, qp)
+    finally:
+        inference.track_head_config = published
+    assert sorted(want) == sorted(
+        ["pose_enc", "depth", "depth_conf", "world_points",
+         "world_points_conf", "track", "vis", "track_conf"]), sorted(want)
+    errs = {k: _rel_max(got[k], want[k]) for k in want}
+    recs.append({"part": "vggt_point_track_small_vs_cpu",
+                 "config": "VGGTConfig.tiny() embed_dim 128 + point head; "
+                           "TrackHeadConfig.tiny() at dim_in 256",
+                 "images": list(images.shape), "queries": qp.shape[1],
+                 "max_rel_err": errs, "tol": 1e-4,
+                 "ok": max(errs.values()) <= 1e-4 and all(
+                     bool(torch.isfinite(v).all()) for v in got.values())})
+
+    acfg = ALIKEDConfig.tiny()
+    ap = init_aliked(P.make_generator(32), acfg)
+    img = torch.from_numpy(rng.random((2, 96, 128, 3)).astype(np.float32))
+    with P.no_tf32_matmul():
+        got = aliked_forward(to_card(ap), acfg, img.cuda())
+    want = aliked_forward(ap, acfg, img)
+    rec = {"part": "aliked_small_vs_cpu", "config": "ALIKEDConfig.tiny()",
+           "images": list(img.shape), "tol": 1e-4}
+    counts, errs = [], {"keypoints": 0.0, "scores": 0.0, "descriptors": 0.0}
+    ok = True
+    for b in range(img.shape[0]):
+        gs, ws = got["scores"][b].cpu(), want["scores"][b]
+        gv, wv = gs > 0, ws > 0
+        counts.append([int(gv.sum()), int(wv.sum())])
+        if int(gv.sum()) != int(wv.sum()):
+            ok = False
+            continue
+        go = torch.argsort(-gs[gv], stable=True)
+        wo = torch.argsort(-ws[wv], stable=True)
+        for key in errs:
+            g = got[key][b].cpu()[gv][go]
+            w = want[key][b][wv][wo]
+            errs[key] = max(errs[key], _rel_max(g, w))
+    rec.update(valid_keypoints_card_cpu=counts, max_rel_err=errs,
+               ok=ok and max(errs.values()) <= 1e-4)
+    recs.append(rec)
+
+    tracker = _damped_tracker(init_sfm_tracker(P.make_generator(33)))
+    frames = _sfm_video(3, 128, seed=33)
+
+    def grid(im):
+        n, h = 4, im.shape[0]
+        c = (np.arange(n) + 0.5) * h / n + 0.3
+        ys, xs = np.meshgrid(c, c - 0.5, indexing="ij")
+        return np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+
+    kw = dict(extract_fn=grid, fine_tracking=True, complete_non_vis=False)
+    with P.no_tf32_matmul():
+        got = predict_tracks(to_card(tracker), frames, **kw)
+    want = predict_tracks(tracker, frames, device="cpu", **kw)
+    tr_err = float(np.abs(got[0] - want[0]).max() / np.abs(want[0]).max())
+    vis_err = float(np.abs(got[1] - want[1]).max())
+    recs.append({"part": "sfm_tracker_small_vs_cpu",
+                 "config": "init_sfm_tracker (published coarse + fine "
+                           "widths), coordinate heads damped 0.01",
+                 "frames": list(frames.shape), "query_frames": 3,
+                 "queries_per_frame": 16, "coarse_iters": 6,
+                 "fine_tracking": True, "tracks_shape": list(got[0].shape),
+                 "tracks_max_rel_err": tr_err, "tracks_tol": 1e-4,
+                 "vis_max_abs_err": vis_err, "vis_tol": 1e-3,
+                 "colors_equal": bool(np.array_equal(got[4], want[4])),
+                 "ok": (got[0].shape == want[0].shape and tr_err <= 1e-4
+                        and vis_err <= 1e-3
+                        and bool(np.array_equal(got[4], want[4]))
+                        and bool(np.isfinite(got[0]).all()))})
+    for rec in recs:
+        emit({"phase": "sfm", "card": card, **rec})
+    bad = [r["part"] for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: sfm small runs disagree with the "
+                         f"CPU: {bad}")
+
+
+def phase_sfm(work_dir, card):
+    """VGGT tracking and SfM through the user's entry points on 8 square
+    frames of 518 x 518: VGGT-1B fp32 (random weights from a seed) with the
+    world-point and track heads, its track head on the first 1,024 of
+    ALIKED-N16's keypoints on frame 0; ``predict_tracks`` with the VGGSfM
+    tracker (published coarse and fine configs, random weights) and
+    ``combined_extract_fn(make_extractors("aliked+sp", 4096))``, the final
+    trial on ``aliked+sp+sift`` at 2,048, JAX's defaults (5 query frames,
+    6 coarse refinements, the fine refinement, the non-visible-frame
+    loop), VGGT's world points and confidence as ``points_3d`` / ``conf``;
+    then ``build_reconstruction(masks=vis > 0.2)`` and ``write_text``.
+    Cut: no ``max_reproj_error`` (at random init no track reprojects).
+    Before it, the small runs on the card against the CPU. Returns the
+    path's launches (counted from the VGGT forward to the export)."""
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.vggt import inference
+    from worldforge_tpu_torch.models.vggt.model import VGGTConfig
+    from worldforge_tpu_torch.models.vggt.utils import \
+        pose_encoding_to_extri_intri
+    from worldforge_tpu_torch.sfm import track_predict
+    from worldforge_tpu_torch.sfm.colmap_export import build_reconstruction
+    from worldforge_tpu_torch.sfm.extractors import (combined_extract_fn,
+                                                     make_extractors)
+    from worldforge_tpu_torch.sfm.tracker import init_sfm_tracker
+
+    t_phase = time.time()
+    _small_sfm_checks(card)
+    frames = _sfm_video(SFM_FRAMES, SFM_SIZE)
+    cfg = VGGTConfig.vggt_1b()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = inference.init_vggt_full(P.make_generator(41, "cuda"), cfg,
+                                      enable_point=True, enable_track=True)
+    extractors = make_extractors("aliked+sp", max_query_num=4096,
+                                 device="cuda")
+    final = make_extractors("aliked+sp+sift", max_query_num=2048,
+                            device="cuda")
+    tracker = init_sfm_tracker(P.make_generator(42, "cuda"))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+
+    ext_times = {}
+
+    def timed(name, fn):
+        def run(img):
+            t = time.perf_counter()
+            out = fn(img)
+            ext_times.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    extractors = {k: timed(k, fn) for k, fn in extractors.items()}
+    final = {k: timed(f"final_{k}", fn) for k, fn in final.items()}
+    aliked_first = extractors["aliked"](frames[0])      # warm-up and queries
+    queries = aliked_first[:SFM_TRACK_QUERIES]
+    ext_times.clear()
+
+    images = torch.from_numpy(frames.transpose(0, 3, 1, 2).copy()).cuda()[
+        None]
+    qp = torch.from_numpy(np.ascontiguousarray(queries)).cuda()[None]
+    rec = {"phase": "sfm", "part": "vggt_1b_sfm", "card": card,
+           "config": "vggt_1b fp32 + point and track heads; VGGSfM tracker "
+                     "(coarse + fine, published); ALIKED-N16 + SuperPoint "
+                     "at 4,096, final trial + SIFT at 2,048",
+           "frames": [SFM_FRAMES, SFM_SIZE, SFM_SIZE],
+           "tokens_per_frame": SFM_TOKENS,
+           "cuts": ["random weights", "no max_reproj_error (at random init "
+                    "no track reprojects)"],
+           "init_s": init_s}
+    # a first call (cuDNN's algorithm choices, the kernels' first
+    # launches), then the counted one
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    inference.vggt_forward(params, cfg, images, qp)
+    torch.cuda.synchronize()
+    rec["vggt_first_call_s"] = time.time() - t0
+    _reset_counters()
+    t0 = time.time()
+    with timed_calls(inference, "track_head_forward", []) as th:
+        out = inference.vggt_forward(params, cfg, images, qp)
+        torch.cuda.synchronize()
+    rec["vggt_forward_s"] = time.time() - t0
+    rec["track_head_s"] = th[0]["s"]
+    rec["vggt_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    host = {k: v.float().cpu().numpy() for k, v in out.items()}
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    extr, intr = pose_encoding_to_extri_intri(host["pose_enc"],
+                                              (SFM_SIZE, SFM_SIZE))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with timed_calls(track_predict, "compute_tracker_fmaps", []) as fm, \
+            timed_calls(track_predict, "_forward_on_query", [],
+                        keep=lambda a, o: {"query_frame": int(a[0]),
+                                           "tracks": int(o[0].shape[1])}
+                        ) as per_query:
+        tracks, vis, confs, p3d, colors = track_predict.predict_tracks(
+            tracker, frames, combined_extract_fn(extractors),
+            conf=host["world_points_conf"][0],
+            points_3d=host["world_points"][0],
+            final_trial_extract_fn=combined_extract_fn(final))
+    rec["predict_tracks_s"] = time.time() - t0
+    rec["tracker_fmaps_s"] = fm[0]["s"]
+    rec["per_query_frame"] = per_query
+    rec["extractor_s_per_frame"] = {k: [round(x, 4) for x in v]
+                                    for k, v in ext_times.items()}
+    rec["predict_tracks_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    t0 = time.time()
+    recon, valid = build_reconstruction(
+        p3d, extr[0], intr[0], tracks, (SFM_SIZE, SFM_SIZE),
+        masks=vis > 0.2, points_rgb=colors)
+    out_dir = os.path.join(work_dir, "sfm_colmap")
+    if recon is not None:
+        recon.write_text(out_dir)
+    rec["export_s"] = time.time() - t0
+    launches = _read_counters()
+    files = {}
+    if recon is not None:
+        for name in ("cameras.txt", "images.txt", "points3D.txt"):
+            with open(os.path.join(out_dir, name)) as f:
+                files[name] = sum(1 for ln in f if not ln.startswith("#"))
+    n0 = per_query[0]["tracks"]        # query frame 0's tracks come first
+    rec.update({
+        "track_head_queries": int(qp.shape[1]),
+        "track_head_track": list(host["track"].shape),
+        "track_head_vis_range": [float(host["vis"].min()),
+                                 float(host["vis"].max())],
+        "world_points_conf_range": [float(host["world_points_conf"].min()),
+                                    float(host["world_points_conf"].max())],
+        "tracks": list(tracks.shape),
+        "visible_above_0.2": int((vis > 0.2).sum()),
+        "augmentation_queries": len(per_query) - min(5, SFM_FRAMES),
+        "points3d": int(valid.sum()) if valid is not None else 0,
+        "colmap_lines": files, "launches": dict(launches),
+        "seconds": time.time() - t_phase})
+    finite = all(bool(np.isfinite(v).all()) for v in host.values()) and \
+        bool(np.isfinite(tracks).all())
+    rec["ok"] = bool(
+        finite and recon is not None
+        and host["track"].shape == (1, SFM_FRAMES, int(qp.shape[1]), 2)
+        and tracks.shape[0] == SFM_FRAMES and tracks.shape[1] > 0
+        and (vis >= 0).all() and (vis <= 1).all()
+        and files.get("cameras.txt") == SFM_FRAMES
+        and files.get("images.txt") == 2 * SFM_FRAMES
+        and files.get("points3D.txt") == int(valid.sum())
+        # frame 0 is pinned to the queries: the track head's and, for
+        # predict_tracks' first query frame, the extracted keypoints
+        and np.array_equal(host["track"][0, 0], queries)
+        and n0 > 0 and bool(((tracks[0, :n0] >= 0)
+                             & (tracks[0, :n0] < SFM_SIZE)).all()))
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the sfm path is wrong")
+    _require_launches(launches, SFM_PATH_KERNELS, "sfm")
+    return launches
 
 
 DC_UNET_KERNELS = ("flash_attention", "conv2d_3x3",
@@ -6366,7 +6780,7 @@ def _parallel_nccl_longcat(pipe, latent_shape, pe, pmask):
 
 
 def main() -> int:
-    phase_device()
+    card = phase_device()
     phase_build()
     decode93 = _measure_decode_alone((AVATAR_CLI_FRAMES - 1) // 4 + 1)
     main_recs = phase_kernels()
@@ -6376,6 +6790,10 @@ def main() -> int:
     by_path["parallel_nccl_wan"], by_path["runtime_streaming"] = phase_dit()
     warp_dir, by_path["warp"] = phase_warp(
         os.path.join(HERE, "build", "chip_smoke"))
+    by_path["sfm"] = phase_sfm(os.path.join(HERE, "build", "chip_smoke"),
+                               card)
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path.update(phase_depthcrafter(
         os.path.join(HERE, "build", "chip_smoke")))
     frames, _ = _frames_480p(warp_dir)
@@ -6422,7 +6840,8 @@ def main() -> int:
     rows = [(name, meta, name, None) for name, meta in KERNEL_META.items()]
     rows += [(row, {**KERNEL_META[counter], "launches_counted":
                     "the launches at this row's shape"}, counter, shape)
-             for row, counter, shape in DC_ROWS + FACADE_ROWS + WAN_ROWS]
+             for row, counter, shape in DC_ROWS + FACADE_ROWS + WAN_ROWS
+             + SFM_ROWS]
 
     def count(counts, counter, shape):
         if shape is None:

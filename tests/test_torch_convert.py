@@ -657,8 +657,9 @@ def _dpt_sd(sd, pre, h):
     for i, p in zip((1, 2, 3, 4), h["layer_rn"]):
         _conv(sd, f"{pre}.scratch.layer{i}_rn", p)
     _conv(sd, f"{pre}.scratch.output_conv1", h["out_conv1"])
-    _conv(sd, f"{pre}.scratch.output_conv2.0", h["out_conv2a"])
-    _conv(sd, f"{pre}.scratch.output_conv2.2", h["out_conv2b"])
+    if "out_conv2a" in h:                   # not on a feature-only head
+        _conv(sd, f"{pre}.scratch.output_conv2.0", h["out_conv2a"])
+        _conv(sd, f"{pre}.scratch.output_conv2.2", h["out_conv2b"])
     for i in range(1, 5):
         rn, r = f"{pre}.scratch.refinenet{i}", h[f"refine{i}"]
         if i < 4:                            # refinenet4 has no unit 1
@@ -667,6 +668,51 @@ def _dpt_sd(sd, pre, h):
         _conv(sd, f"{rn}.resConfUnit2.conv1", r["rcu2_conv1"])
         _conv(sd, f"{rn}.resConfUnit2.conv2", r["rcu2_conv2"])
         _conv(sd, f"{rn}.out_conv", r["out"])
+
+
+def mha_sd(sd, name, p):
+    sd[f"{name}.in_proj_weight"] = np.ascontiguousarray(
+        np.asarray(p["in_proj"]["w"]).T)
+    sd[f"{name}.in_proj_bias"] = np.asarray(p["in_proj"]["b"])
+    _lin(sd, f"{name}.out_proj", p["out_proj"])
+
+
+def attn_block_sd(sd, pre, p, attn="attn"):
+    """A track-module attention block; its norms only where it has them
+    (the VGGSfM blocks' non-affine norms have no weights)."""
+    for k, n in (("norm1", "norm1"), ("norm2", "norm2"),
+                 ("norm_ctx", "norm_context")):
+        if k in p:
+            _ln(sd, f"{pre}.{n}", p[k])
+    mha_sd(sd, f"{pre}.{attn}", p["attn"])
+    _lin(sd, f"{pre}.mlp.fc1", p["mlp"]["fc1"])
+    _lin(sd, f"{pre}.mlp.fc2", p["mlp"]["fc2"])
+
+
+def track_head_sd(sd, h):
+    """The VGGT track head in the upstream layout under ``track_head.``."""
+    _dpt_sd(sd, "track_head.feature_extractor", h["feature_extractor"])
+    t, pre = h["tracker"], "track_head.tracker."
+    _lin(sd, f"{pre}corr_mlp.fc1", t["corr_mlp"]["fc1"])
+    _lin(sd, f"{pre}corr_mlp.fc2", t["corr_mlp"]["fc2"])
+    sd[f"{pre}query_ref_token"] = np.asarray(t["query_ref_token"])
+    uf, u = f"{pre}updateformer", t["updateformer"]
+    _ln(sd, f"{uf}.input_norm", u["input_norm"])
+    _lin(sd, f"{uf}.input_transform", u["input_transform"])
+    sd[f"{uf}.virual_tracks"] = np.asarray(u["virtual"])
+    for key, name, attn in (
+            ("time_blocks", "time_blocks", "attn"),
+            ("space_virtual", "space_virtual_blocks", "attn"),
+            ("v2p", "space_virtual2point_blocks", "cross_attn"),
+            ("p2v", "space_point2virtual_blocks", "cross_attn")):
+        for i, blk in enumerate(u[key]):
+            attn_block_sd(sd, f"{uf}.{name}.{i}", blk, attn)
+    _ln(sd, f"{uf}.output_norm", u["output_norm"])
+    _lin(sd, f"{uf}.flow_head", u["flow_head"])
+    _ln(sd, f"{pre}fmap_norm", t["fmap_norm"])
+    _ln(sd, f"{pre}ffeat_norm", t["ffeat_norm"])
+    for k in ("ffeat_updater", "vis_predictor", "conf_predictor"):
+        _lin(sd, f"{pre}{k}.0", t[k])
 
 
 def vggt_sd(tree, cfg) -> dict:
@@ -703,24 +749,37 @@ def vggt_sd(tree, cfg) -> dict:
     for head in ("depth_head", "point_head"):
         if head in tree:
             _dpt_sd(sd, head, tree[head])
+    if "track_head" in tree:
+        track_head_sd(sd, tree["track_head"])
     return sd
 
 
-def _vggt_tree(rng, point=True):
+def zero_refine4_unit1(head):
+    """refinenet4 has no first residual unit in the checkpoint: both
+    converters fill it with zeros, so a tree written and converted back
+    has zeros there."""
+    r4 = head["refine4"]
+    for k in ("rcu1_conv1", "rcu1_conv2"):
+        r4[k] = jax.tree_util.tree_map(np.zeros_like, r4[k])
+
+
+def _vggt_tree(rng, point=True, track=False):
     cfg = jvmodel.VGGTConfig.tiny()
     return cfg, _random_tree(jax.eval_shape(
-        lambda k: jvinf.init_vggt_full(k, cfg, enable_point=point),
+        lambda k: jvinf.init_vggt_full(k, cfg, enable_point=point,
+                                       enable_track=track),
         jax.random.key(0)), rng)
 
 
 def test_vggt_conversion_matches_jax(tmp_path):
-    """Aggregator, camera head, depth and point heads; the resize deconvs
-    flipped as JAX flips them; ``track_head.*`` keys left alone."""
-    cfg, tree = _vggt_tree(np.random.default_rng(10))
-    for head in ("depth_head", "point_head"):   # not in the checkpoint
-        r4 = tree[head]["refine4"]
-        for k in ("rcu1_conv1", "rcu1_conv2"):
-            r4[k] = jax.tree_util.tree_map(np.zeros_like, r4[k])
+    """Aggregator, camera head, depth, point and track heads; the resize
+    deconvs flipped as JAX flips them; the track head's feature-only DPT
+    extractor and its tracker; a checkpoint without ``track_head.*`` gives
+    no track head."""
+    cfg, tree = _vggt_tree(np.random.default_rng(10), track=True)
+    for head in (tree["depth_head"], tree["point_head"],
+                 tree["track_head"]["feature_extractor"]):
+        zero_refine4_unit1(head)
     sd = vggt_sd(tree, cfg)
     path = _save(sd, str(tmp_path / "vggt.safetensors"), "float32")
     tcfg = tvmodel.VGGTConfig.tiny()
@@ -728,14 +787,19 @@ def test_vggt_conversion_matches_jax(tmp_path):
     want = FJ.vggt_params_from_jax(jax.tree_util.tree_map(
         np.asarray, jcvggt.load_converted_vggt(path, cfg)))
     _assert_same(got, want)
-    assert "point_head" in got
+    assert "point_head" in got and "track_head" in got
+    lean = tcvggt.load_converted_vggt(path, tcfg, device="cpu",
+                                      point_and_track=False)
+    assert sorted(lean) == ["aggregator", "camera_head", "depth_head"]
+    _assert_same(lean, {k: got[k] for k in lean})
+    assert "out_conv2a" not in got["track_head"]["feature_extractor"]
     _assert_same(got, FJ.vggt_params_from_jax(tree))
-    sd["track_head.tracker.fmap_norm.weight"] = np.ones(4, np.float32)
-    tracked = tcvggt.convert_vggt(
-        {k: torch.from_numpy(v) for k, v in sd.items()}, tcfg,
-        device="cpu")
-    assert "track_head" not in tracked
-    _assert_same(tracked, got)
+    untracked = tcvggt.convert_vggt(
+        {k: torch.from_numpy(v) for k, v in sd.items()
+         if not k.startswith("track_head.")}, tcfg, device="cpu")
+    assert "track_head" not in untracked
+    _assert_same(untracked, {k: v for k, v in got.items()
+                             if k != "track_head"})
 
 
 # ------------------------------------------------------------ SVD

@@ -27,8 +27,8 @@ def _imported_roots(path):
 def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
     LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar,
-    checkpoint, quantization, LoRA, training and runtime modules among
-    them."""
+    checkpoint, quantization, LoRA, training, runtime, VGGT track and SfM
+    modules among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -59,7 +59,12 @@ def test_isolation_covers_the_port_modules():
                 "training/step.py", "runtime/__init__.py",
                 "runtime/step_graph.py", "runtime/layouts.py",
                 "runtime/streaming.py", "runtime/subproc.py",
-                "core/consts.py"):
+                "core/consts.py", "models/vggt/track.py",
+                "sfm/__init__.py", "sfm/aliked.py", "sfm/colmap_export.py",
+                "sfm/distortion.py", "sfm/extractors.py",
+                "sfm/projection.py", "sfm/superpoint.py",
+                "sfm/track_predict.py", "sfm/tracker.py", "sfm/utils.py",
+                "io/convert_aliked.py", "io/convert_sfm_tracker.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 

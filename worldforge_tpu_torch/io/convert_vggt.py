@@ -1,11 +1,10 @@
 """VGGT (facebook/VGGT-1B) checkpoint conversion.
 
 Counterpart of ``worldforge_tpu/io/convert_vggt.py``: the aggregator with
-its DINOv2 backbone, the camera head, and the depth and (when the
-checkpoint has one) world-point DPT heads. The track head's converters
-(``convert_track_head`` / ``convert_track_predictor``, JAX :128 / :212)
-come with the port of ``models/vggt/track.py``; until then ``convert_vggt``
-ignores the ``track_head.*`` keys (JAX converts them when present).
+its DINOv2 backbone, the camera head, the depth head, and the world-point
+and track heads when the checkpoint has them (``convert_track_head`` :212:
+the feature-only DPT extractor and ``convert_track_predictor`` :128, the
+updateformer's ``virual_tracks`` (sic) and its four block lists).
 """
 
 from __future__ import annotations
@@ -71,10 +70,12 @@ def convert_vggt_aggregator(sd, cfg: VGGTConfig, dtype=torch.float32,
     }
 
 
-def _convert_dpt(sd, prefix: str, dtype, dev) -> dict:
+def _convert_dpt(sd, prefix: str, dtype, dev,
+                 feature_only: bool = False) -> dict:
     """A DPT head (JAX ``_convert_dpt``, :165): the resize deconvs in the
     flipped HWIO layout; refinenet4's missing first residual unit as
-    zeros."""
+    zeros; no ``output_conv2`` for a feature-only head (the track head's
+    extractor)."""
     def cv(name, bias=True):
         return conv(sd, name, dtype, dev,
                     bias=bias and f"{name}.bias" in sd)
@@ -93,9 +94,10 @@ def _convert_dpt(sd, prefix: str, dtype, dev) -> dict:
         "layer_rn": [cv(f"{prefix}.scratch.layer{i}_rn", bias=False)
                      for i in (1, 2, 3, 4)],
         "out_conv1": cv(f"{prefix}.scratch.output_conv1"),
-        "out_conv2a": cv(f"{prefix}.scratch.output_conv2.0"),
-        "out_conv2b": cv(f"{prefix}.scratch.output_conv2.2"),
     }
+    if not feature_only:
+        head["out_conv2a"] = cv(f"{prefix}.scratch.output_conv2.0")
+        head["out_conv2b"] = cv(f"{prefix}.scratch.output_conv2.2")
     f = head["layer_rn"][0]["w"].shape[-1]
     for i in range(1, 5):
         rn = f"{prefix}.scratch.refinenet{i}"
@@ -116,11 +118,11 @@ def _convert_dpt(sd, prefix: str, dtype, dev) -> dict:
 
 
 def convert_vggt(sd, cfg: VGGTConfig, dtype=torch.float32,
-                 device=None) -> dict:
+                 device=None, point_and_track: bool = True) -> dict:
     """A VGGT state dict -> the port's tree (JAX ``convert_vggt``, :83):
-    aggregator, camera head, depth head, and the point head when the
-    checkpoint has ``point_head.*``. ``track_head.*`` is not converted (the
-    track head waits for ``models/vggt/track.py``)."""
+    aggregator, camera head, depth head, and, unless ``point_and_track``
+    is false, the point head when the checkpoint has ``point_head.*`` and
+    the track head when it has ``track_head.*``."""
     dev = resolve_device(device)
     ch = "camera_head"
     camera = {
@@ -138,11 +140,88 @@ def convert_vggt(sd, cfg: VGGTConfig, dtype=torch.float32,
                                                  device=dev),
            "camera_head": camera,
            "depth_head": _convert_dpt(sd, "depth_head", dtype, dev)}
+    if not point_and_track:
+        return out
     if "point_head.norm.weight" in sd:
         out["point_head"] = _convert_dpt(sd, "point_head", dtype, dev)
+    if "track_head.tracker.fmap_norm.weight" in sd:
+        out["track_head"] = convert_track_head(sd, dtype=dtype, device=dev)
     return out
 
 
-def load_converted_vggt(path: str, cfg: VGGTConfig, device=None) -> dict:
+def _mha(sd, name, dtype, dev):
+    """torch nn.MultiheadAttention -> a fused in-projection [D, 3D] and an
+    out-projection."""
+    return {"in_proj": {"w": to_leaf(sd[f"{name}.in_proj_weight"], dtype,
+                                     dev, torch.t),
+                        "b": to_leaf(sd[f"{name}.in_proj_bias"], dtype,
+                                     dev)},
+            "out_proj": dense(sd, f"{name}.out_proj", dtype, dev)}
+
+
+def _attn_block(sd, prefix, dtype, dev, attn="attn"):
+    p = {"norm1": layer_norm(sd, f"{prefix}.norm1", dtype, dev),
+         "norm2": layer_norm(sd, f"{prefix}.norm2", dtype, dev),
+         "attn": _mha(sd, f"{prefix}.{attn}", dtype, dev),
+         "mlp": {"fc1": dense(sd, f"{prefix}.mlp.fc1", dtype, dev),
+                 "fc2": dense(sd, f"{prefix}.mlp.fc2", dtype, dev)}}
+    if f"{prefix}.norm_context.weight" in sd:
+        p["norm_ctx"] = layer_norm(sd, f"{prefix}.norm_context", dtype, dev)
+    return p
+
+
+def convert_track_predictor(sd, depth: int, prefix: str = "",
+                            dtype=torch.float32, device=None) -> dict:
+    """BaseTrackerPredictor weights -> ``models/vggt/track.py``'s tree
+    (JAX :128); ``prefix`` e.g. ``'track_head.tracker.'``."""
+    dev = resolve_device(device)
+    uf = f"{prefix}updateformer"
+
+    def blocks(name, attn="attn"):
+        return [_attn_block(sd, f"{uf}.{name}.{i}", dtype, dev, attn)
+                for i in range(depth)]
+
+    return {
+        "corr_mlp": {"fc1": dense(sd, f"{prefix}corr_mlp.fc1", dtype, dev),
+                     "fc2": dense(sd, f"{prefix}corr_mlp.fc2", dtype, dev)},
+        "query_ref_token": to_leaf(sd[f"{prefix}query_ref_token"], dtype,
+                                   dev),
+        "updateformer": {
+            "input_norm": layer_norm(sd, f"{uf}.input_norm", dtype, dev),
+            "input_transform": dense(sd, f"{uf}.input_transform", dtype,
+                                     dev),
+            "virtual": to_leaf(sd[f"{uf}.virual_tracks"], dtype, dev),
+            "time_blocks": blocks("time_blocks"),
+            "space_virtual": blocks("space_virtual_blocks"),
+            "v2p": blocks("space_virtual2point_blocks", "cross_attn"),
+            "p2v": blocks("space_point2virtual_blocks", "cross_attn"),
+            "output_norm": layer_norm(sd, f"{uf}.output_norm", dtype, dev),
+            "flow_head": dense(sd, f"{uf}.flow_head", dtype, dev),
+        },
+        "fmap_norm": layer_norm(sd, f"{prefix}fmap_norm", dtype, dev),
+        "ffeat_norm": layer_norm(sd, f"{prefix}ffeat_norm", dtype, dev),
+        "ffeat_updater": dense(sd, f"{prefix}ffeat_updater.0", dtype, dev),
+        "vis_predictor": dense(sd, f"{prefix}vis_predictor.0", dtype, dev),
+        "conf_predictor": dense(sd, f"{prefix}conf_predictor.0", dtype, dev),
+    }
+
+
+def convert_track_head(sd, depth: int = 6, dtype=torch.float32,
+                       device=None) -> dict:
+    """The track head (JAX :212): the feature-only DPT extractor and the
+    tracker."""
+    dev = resolve_device(device)
+    return {
+        "feature_extractor": _convert_dpt(sd, "track_head.feature_extractor",
+                                          dtype, dev, feature_only=True),
+        "tracker": convert_track_predictor(sd, depth,
+                                           prefix="track_head.tracker.",
+                                           dtype=dtype, device=dev),
+    }
+
+
+def load_converted_vggt(path: str, cfg: VGGTConfig, device=None,
+                        point_and_track: bool = True) -> dict:
     """``convert_vggt`` of a checkpoint file or directory (JAX :225)."""
-    return convert_vggt(load_state_dict(path), cfg, device=device)
+    return convert_vggt(load_state_dict(path), cfg, device=device,
+                        point_and_track=point_and_track)

@@ -105,13 +105,45 @@ def vggt_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """A ``worldforge_tpu`` VGGT tree (``init_vggt_full``) -> the port's
     (``models/vggt/inference.py``): the aggregator's stacked
     ``frame_blocks`` / ``global_blocks`` unstacked into lists; the DINO
-    blocks and the camera trunk are lists on both sides."""
+    blocks and the camera trunk are lists on both sides; the point head
+    as it is and the track head through ``track_head_params_from_jax``."""
     out = tree_from_numpy({k: v for k, v in tree.items()
-                           if k != "aggregator"}, device, dtype)
+                           if k not in ("aggregator", "track_head")},
+                          device, dtype)
     out["aggregator"] = _unstack_keys(tree["aggregator"],
                                       ("frame_blocks", "global_blocks"),
                                       device, dtype)
+    if "track_head" in tree:
+        out["track_head"] = track_head_params_from_jax(tree["track_head"],
+                                                       device, dtype)
     return out
+
+
+def track_head_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` VGGT track head (``init_track_head``) -> the
+    port's (``models/vggt/track.py``): same keys; the updateformer's four
+    block lists are lists on both sides, nothing is unstacked."""
+    return tree_from_numpy(tree, device, dtype)
+
+
+def sfm_tracker_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` VGGSfM tracker (``init_sfm_tracker``) -> the
+    port's (``sfm/tracker.py``): same keys, the block lists as they are."""
+    return tree_from_numpy(tree, device, dtype)
+
+
+def aliked_params_from_jax(tree: dict, device=None, dtype=None) -> dict:
+    """A ``worldforge_tpu`` ALIKED tree (``init_aliked``) -> the port's
+    (``sfm/aliked.py``): same keys, the BatchNorms' running ``mean`` and
+    ``var`` carried as they are."""
+    return tree_from_numpy(tree, device, dtype)
+
+
+def superpoint_params_from_jax(tree: dict, device=None,
+                               dtype=None) -> dict:
+    """A ``worldforge_tpu`` SuperPoint tree (``init_superpoint``) -> the
+    port's (``sfm/superpoint.py``): same keys."""
+    return tree_from_numpy(tree, device, dtype)
 
 
 def umt5_params_from_jax(tree: dict, device=None, dtype=None) -> dict:

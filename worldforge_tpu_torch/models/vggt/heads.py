@@ -4,8 +4,10 @@ Counterpart of ``worldforge_tpu/models/vggt/heads.py``
 (``camera_head_forward`` :56-86: 4 refinements through a 4-block trunk;
 ``dpt_head_forward`` :211 with ``_conv2d`` :110, ``_deconv2d`` :121,
 ``_fusion`` :180 and ``_uv_pos_embed`` :190), fp32, the same param tree;
-the DPT head as the depth head (the world-point and track heads' options
-come with those heads).
+the DPT head with every option of JAX's: the depth head (``exp`` /
+``expp1``), the world-point head (``inv_log``) and the track head's
+feature extractor (``feature_only``, ``down_ratio`` 2, no position
+embedding).
 
 Two layouts differ from PyTorch's habits and are handled here:
   - ``_deconv2d`` is ``jax.lax.conv_transpose`` with kernel = stride, VALID
@@ -104,9 +106,13 @@ class DPTHeadConfig:
     dim_in: int = 2048
     patch_size: int = 14
     output_dim: int = 2            # depth + conf
+    activation: str = "exp"        # or "inv_log" (the world-point head)
+    conf_activation: str = "expp1"  # or "expp0"
     features: int = 256
     out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
     pos_embed: bool = True
+    feature_only: bool = False     # full-width features, no output head
+    down_ratio: int = 1            # output at (H, W) / down_ratio
 
     @classmethod
     def tiny(cls, dim_in=64) -> "DPTHeadConfig":
@@ -152,10 +158,12 @@ def init_dpt_head(gen: torch.Generator, cfg: DPTHeadConfig,
         "resize3": _conv2d_init(gen, oc[3], oc[3], 3, dtype),
         "layer_rn": [_conv2d_init(gen, o, f, 3, dtype, bias=False)
                      for o in oc],
-        "out_conv1": _conv2d_init(gen, f, f // 2, 3, dtype),
-        "out_conv2a": _conv2d_init(gen, f // 2, 32, 3, dtype),
-        "out_conv2b": _conv2d_init(gen, 32, cfg.output_dim, 1, dtype),
+        "out_conv1": _conv2d_init(gen, f, f if cfg.feature_only else f // 2,
+                                  3, dtype),
     }
+    if not cfg.feature_only:
+        p["out_conv2a"] = _conv2d_init(gen, f // 2, 32, 3, dtype)
+        p["out_conv2b"] = _conv2d_init(gen, 32, cfg.output_dim, 1, dtype)
     for i in range(1, 5):
         rcu = {}
         for j in (1, 2):
@@ -209,9 +217,11 @@ def _uv_pos_embed(gh, gw, aspect, channels, device, ratio=0.1):
 def dpt_head_forward(params, cfg: DPTHeadConfig,
                      tapped_tokens: List[torch.Tensor],
                      img_hw: Tuple[int, int], patch_start_idx: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ):
     """tapped_tokens: 4 tensors [B, S, P, 2C] (taps in order). Returns
-    (pred [B, S, H, W, out-1], conf [B, S, H, W]) at image resolution."""
+    (pred [B, S, h, w, out-1], conf [B, S, h, w]) at (h, w) = image size /
+    ``down_ratio``, or with ``feature_only`` the features [B, S, h, w,
+    features]."""
     hh, ww = img_hw
     ps = cfg.patch_size
     gh, gw = hh // ps, ww // ps
@@ -239,12 +249,21 @@ def dpt_head_forward(params, cfg: DPTHeadConfig,
     out = _fusion(params["refine1"], out, rn[0],
                   (rn[0].shape[1] * 2, rn[0].shape[2] * 2))
     out = _conv2d(params["out_conv1"], out)
-    oh, ow = gh * ps, gw * ps
+    oh, ow = gh * ps // cfg.down_ratio, gw * ps // cfg.down_ratio
     out = resize_align_corners(out, oh, ow)
     if cfg.pos_embed:
         out = out + _uv_pos_embed(oh, ow, ww / hh, out.shape[3], dev)
+    if cfg.feature_only:
+        return out.reshape(b, s, oh, ow, -1)
     out = _conv2d(params["out_conv2b"],
                   F.relu(_conv2d(params["out_conv2a"], out)))
-    # the depth head's activations: exp for depth, 1 + exp for confidence
-    vals, conf = torch.exp(out[..., :-1]), 1.0 + torch.exp(out[..., -1])
+    vals, conf = out[..., :-1], out[..., -1]
+    if cfg.activation == "exp":
+        vals = torch.exp(vals)
+    elif cfg.activation == "inv_log":
+        vals = torch.sign(vals) * torch.expm1(vals.abs())
+    if cfg.conf_activation == "expp1":
+        conf = 1.0 + torch.exp(conf)
+    elif cfg.conf_activation == "expp0":
+        conf = torch.exp(conf)
     return vals.reshape(b, s, oh, ow, -1), conf.reshape(b, s, oh, ow)

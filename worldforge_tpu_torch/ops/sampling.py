@@ -1,6 +1,12 @@
-"""Resizes: align-corners linear (counterpart of the resize half of
-``worldforge_tpu/ops/sampling.py``) and the per-axis weights of
+"""Sampling and resizes: align-corners bilinear sampling at points and
+align-corners linear resizes (counterpart of
+``worldforge_tpu/ops/sampling.py``), and the per-axis weights of
 ``jax.image.resize`` (linear and bicubic).
+
+``bilinear_sample`` is JAX's four-corner gather, not ``F.grid_sample``:
+each corner is clamped into the grid and, with ``zeros`` padding, zeroed
+when it lies outside, which is how the VGGT track head, the VGGSfM
+tracker and SuperPoint's descriptors sample.
 
 ``F.interpolate(mode='trilinear', align_corners=True)`` is separable, so a
 3D resize composes from one 1D linear resample per axis. This is the
@@ -17,6 +23,40 @@ import numpy as np
 import torch
 
 from worldforge_tpu_torch.core.consts import device_constant
+
+
+def bilinear_sample(grid: torch.Tensor, xy: torch.Tensor,
+                    padding: str = "border") -> torch.Tensor:
+    """align_corners=True bilinear sampling: grid [M, H, W, C], xy [M, K, 2]
+    pixel (x, y) -> [M, K, C]. ``border`` clamps each corner into the grid,
+    ``zeros`` also zeroes the corners outside it."""
+    m, h, w, c = grid.shape
+    k = xy.shape[1]
+    flat = grid.reshape(m, h * w, c)
+    x, y = xy[..., 0], xy[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx, wy = x - x0, y - y0
+
+    def gather(xi, yi):
+        # a NaN coordinate reads pixel 0 (its weights are NaN anyway)
+        xc = xi.clamp(0, w - 1).nan_to_num(0.0).long()
+        yc = yi.clamp(0, h - 1).nan_to_num(0.0).long()
+        idx = (yc * w + xc).unsqueeze(-1).expand(m, k, c)
+        vals = torch.gather(flat, 1, idx)
+        if padding == "zeros":
+            ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+            vals = vals * ok.unsqueeze(-1).to(vals.dtype)
+        return vals
+
+    v00 = gather(x0, y0)
+    v01 = gather(x0 + 1, y0)
+    v10 = gather(x0, y0 + 1)
+    v11 = gather(x0 + 1, y0 + 1)
+    wx = wx.unsqueeze(-1)
+    wy = wy.unsqueeze(-1)
+    return ((v00 * (1 - wx) + v01 * wx) * (1 - wy)
+            + (v10 * (1 - wx) + v11 * wx) * wy)
 
 
 def interp1d_align_corners(x: torch.Tensor, n_out: int, axis: int

@@ -1,9 +1,10 @@
 """Z-buffer point splats of the warps: nearest in z wins.
 
-Counterpart of ``worldforge_tpu/warp/splat.py`` (:37-101,
-``_winner_take_all`` and ``splat_nearest``, the VGGT warp; :139-215,
-``_disk_offsets``, ``splat_disk`` and ``morph_open``, the DepthCrafter
-warp). JAX finds the winners with a
+Counterpart of ``worldforge_tpu/warp/splat.py`` (:37-95,
+``_winner_take_all`` and ``splat_nearest``, the VGGT warp, with both
+border rules; :98, ``render_points_nearest``, the numpy renderer's
+fallback; :139-215, ``_disk_offsets``, ``splat_disk`` and ``morph_open``,
+the DepthCrafter warp). JAX finds the winners with a
 deterministic two-pass ``segment_min``: the least z per pixel, then the
 least point index among the points at that z (a first-wins sequential
 z-buffer). Here both passes are ``scatter_reduce_(..., "amin")``, which is
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from worldforge_tpu_torch.core.dtypes import resolve_device
 from worldforge_tpu_torch.warp.geometry import _as_f32, _mat3
 
 _BIG = 3.0e38
@@ -61,15 +63,18 @@ def _winner_take_all(flat_idx: torch.Tensor, z: torch.Tensor,
 
 
 def splat_nearest(points_cam: torch.Tensor, colors: torch.Tensor, intrinsic,
-                  valid: torch.Tensor, *, h: int, w: int):
+                  valid: torch.Tensor, *, h: int, w: int,
+                  round_first: bool = False):
     """VGGT-style splat. points_cam [F, 3, N] (or [3, N]) in the target
     camera frames, colors [N, C], valid [N] bool. Returns (image
     [F, H, W, C], mask [F, H, W], depth [F, H, W] with NaN off the mask),
     without the frame axis for [3, N] points.
 
-    Borders as the JAX default (``round_first=False``): the float
-    coordinates are bounds-checked, then rounded (half to even) and
-    clipped, so a point at u = W - 0.4 lands in the last column."""
+    Borders, as JAX's two renderers: by default the float coordinates are
+    bounds-checked, then rounded (half to even) and clipped, so a point at
+    u = W - 0.4 lands in the last column; with ``round_first`` they are
+    rounded first and the integers bounds-checked (the DepthCrafter CPU
+    renderer), so u = -0.4 lands in column 0 and u = W - 0.4 falls out."""
     single = points_cam.dim() == 2
     pts = points_cam[None] if single else points_cam
     z = pts[:, 2]
@@ -78,6 +83,8 @@ def splat_nearest(points_cam: torch.Tensor, colors: torch.Tensor, intrinsic,
     safe_z = torch.where(near, z, torch.ones_like(z))
     uvw = _mat3(_as_f32(intrinsic, pts.device), pts / safe_z[:, None])
     uf, vf = uvw[:, 0], uvw[:, 1]
+    if round_first:
+        uf, vf = torch.round(uf), torch.round(vf)
     ok = ok & (uf >= 0) & (uf < w) & (vf >= 0) & (vf < h)
     u = torch.where(ok, torch.round(uf).clamp(0, w - 1), 0).long()
     v = torch.where(ok, torch.round(vf).clamp(0, h - 1), 0).long()
@@ -90,6 +97,48 @@ def splat_nearest(points_cam: torch.Tensor, colors: torch.Tensor, intrinsic,
     if single:
         return img[0], m[0], depth[0]
     return img, m, depth
+
+
+def render_points_nearest(points: np.ndarray, features: np.ndarray,
+                          extrinsic: np.ndarray, intrinsic: np.ndarray,
+                          h: int, w: int, device=None):
+    """The numpy renderer's fallback, as JAX's (``warp/splat.py:98``):
+    ``splat_nearest(round_first=True)`` of the world points on ``device``
+    (the card unless the CPU is asked for), a 3x3 morphological close of
+    the mask (cv2), and at the pixels the close adds, colours from a linear
+    ``griddata`` over the projected points (scipy) in float64 on the host.
+    Returns (image [H, W, C] float32, mask [H, W] uint8)."""
+    import cv2
+
+    dev = resolve_device(device)
+    pc = extrinsic[:3, :3] @ points.T + extrinsic[:3, 3][:, None]
+    img_t, mask0_t, _ = splat_nearest(
+        torch.as_tensor(pc, dtype=torch.float32, device=dev),
+        torch.as_tensor(features, dtype=torch.float32, device=dev),
+        np.asarray(intrinsic, np.float32),
+        torch.ones(points.shape[0], dtype=torch.bool, device=dev),
+        h=h, w=w, round_first=True)
+    mask0 = mask0_t.cpu().numpy()
+    mask = cv2.morphologyEx(mask0.astype(np.uint8), cv2.MORPH_CLOSE,
+                            np.ones((3, 3), np.uint8))
+    img = img_t.cpu().numpy().copy()
+    crack = (mask > 0) & ~mask0
+    if crack.any():
+        from scipy.interpolate import griddata
+        # the reference's pixel set: a float64 projection, np.round
+        z = pc[2]
+        u = np.round(intrinsic[0, 0] * (pc[0] / z) + intrinsic[0, 2]
+                     ).astype(int)
+        v = np.round(intrinsic[1, 1] * (pc[1] / z) + intrinsic[1, 2]
+                     ).astype(int)
+        ok = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        cy, cx = np.nonzero(crack)
+        vals = griddata(np.stack((u[ok], v[ok]), axis=-1), features[ok],
+                        np.stack((cx, cy), axis=-1).astype(np.float32),
+                        method="linear", fill_value=0)
+        img[cy, cx] = np.clip(vals, 0, 1).astype(np.float32)
+    img[mask == 0] = 0
+    return img, mask
 
 
 def _disk_offsets(radius_px: float):
