@@ -215,6 +215,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
    of 128x128 with its coordinate heads damped (random full-scale heads
    make tracks chaotic; see ``_damped_tracker``).
 
+22. vae_strips -- right after the vae phase: the streaming Wan2.1 VAE's
+   H-strip tiling (``spatial_chunks``) on the full-width VAE (random fp32
+   weights from a seed). Before it, a widened tiny VAE's tiled decode and
+   encode on the card against the CPU. Then the streaming decode and
+   encode at 17x480x832 with 1, 2 and 4 strips (seconds through
+   ``utils/profiling.phase``, peaks, kernel 4's launches; the tiled outputs
+   against the untiled: bit-equal or within STRIP_GATE of the largest
+   magnitude, with more launches), the refine's decode to 61x704x1280 at 1
+   and 4 strips (peaks), ``decode_in_subprocess(spatial_chunks=2)`` against
+   the in-process decode (bit-equal), and one tiled decode under
+   ``utils/profiling.trace``, whose trace must name kernel 4's CUDA kernel.
+23. depth_tools -- right after the depthcrafter phase: ``cli/depth_app``
+   with ``--random-init --device cuda`` at full width serving one ``POST
+   /run`` of a synthetic 8-frame clip over a localhost port, then
+   ``cli/visualize_pcd`` on the npz and input video it wrote (PLY frames),
+   then ``cli/depth_benchmark --device cuda`` on two synthetic sequences
+   through a checkpoint directory the phase writes (and deletes) from a
+   widened tiny DepthCrafter; its metrics must equal ``depth_metrics`` of
+   ``estimate_depth`` called directly.
+
 The line before the last holds the kernel table; the last line is the device
 summary.
 """
@@ -1519,7 +1539,7 @@ WARP_PATH_KERNELS = ENCODER_PATH_KERNELS = ("flash_attention",)
 
 
 def _require_launches(launches, names, phase):
-    idle = [k for k in names if launches[k] == 0]
+    idle = [k for k in names if launches.get(k, 0) == 0]
     if idle:
         raise SystemExit(f"chip_smoke: kernels not launched on the {phase} "
                          f"path: {idle}")
@@ -1727,13 +1747,14 @@ def phase_flf():
         raise SystemExit("chip_smoke: FLF on the card disagrees with the CPU")
 
 
-def phase_vae():
+def phase_vae(card):
     """Where the VAE's time goes, under ``torch.profiler`` (the vae_profile
     lines): one single-pass Wan2.1 VAE decode + encode at the generate
     phase's shape (5 x 60 x 104 latents <-> 17 x 480 x 832), and one
     streaming decode at the refine's (16 x 88 x 160 latents -> 61 x 704 x
     1280). Random fp32 weights from a seed, as the pipelines load them;
-    kernel 4's launches per run are counted beside the split."""
+    kernel 4's launches per run are counted beside the split. Then the
+    single-pass encode's resample routes (``_encode_resample_routes``)."""
     from worldforge_tpu_torch.core import params as P
     from worldforge_tpu_torch.models.wan.vae import (WanVAEConfig,
                                                      init_wan_vae,
@@ -1773,9 +1794,73 @@ def phase_vae():
         emit({"phase": "vae_launches", "what": what,
               "conv3d_causal_launches_per_run": count["launches"]})
     _conv2d_workspace()
+    _encode_resample_routes(params, cfg, z, card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _encode_resample_routes(params, cfg, z, card):
+    """The single-pass encode of 17 x 480 x 832 frames (the decode of
+    ``z``) with the encoder's three 3x3 stride-2 resample convs on kernel
+    4's one tap (``vae._conv2d``'s route on the card:
+    ``vae._conv2d_s2_one_tap``) and, beside it, on cuDNN with bf16 operands
+    (``vae._xla_conv``, the route they took before): a warm-up of each,
+    then each route's seconds in turns (one tap, cuDNN, cuDNN, one tap),
+    its peak above what was allocated before and kernel 4's one-tap
+    launches; the two encodes' relative L2 difference within
+    STRIP_SMALL_TOL (the same exact products summed in other orders, grown
+    by the later convs' bf16 roundings)."""
+    from worldforge_tpu_torch.models.wan import vae
+    from worldforge_tpu_torch.ops.conv3d import conv2d_3x3
+    one_tap = vae._conv2d
+
+    def cudnn(p, x, *, stride=1, padding=0):
+        if stride == 2:
+            return vae._xla_conv(p, x, stride=stride, padding=padding)
+        return one_tap(p, x, stride=stride, padding=padding)
+
+    routes = {"kernel 4 one tap": one_tap,
+              "cuDNN, bf16 operands (before)": cudnn}
+    rows = {name: {"route": name, "s": [], "peak_above_start_gb": []}
+            for name in routes}
+    video = vae.vae_decode(params, cfg, z)
+    outs = {}
+    try:
+        for i, name in enumerate((*routes, *routes, *reversed(routes))):
+            vae._conv2d = routes[name]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = conv2d_3x3.launches
+            t0 = time.perf_counter()
+            out = vae.vae_encode(params, cfg, video)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if i < len(routes):
+                outs[name] = out
+                continue
+            rows[name]["s"].append(dt)
+            rows[name]["peak_above_start_gb"].append(
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+            rows[name]["one_tap_launches"] = conv2d_3x3.launches - before
+            del out
+    finally:
+        vae._conv2d = one_tap
+    got, ref = outs.values()
+    rec = {"phase": "vae_encode_resample_route", "card": card,
+           "what": "single-pass Wan2.1 VAE encode, fp32, the encoder's "
+                   "stride-2 resample convs on two routes",
+           "video": list(video.shape), "latents": list(got.shape),
+           "rows": list(rows.values()), "rel_max": _rel_max(got, ref),
+           "rel_l2": _rel_l2(got, ref), "gate_rel_l2": STRIP_SMALL_TOL}
+    rec["ok"] = bool(torch.isfinite(got).all()) and (
+        rec["rel_l2"] <= STRIP_SMALL_TOL)
+    emit(rec)
+    del video, outs, got, ref
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: the encode's one-tap resample route "
+                         "differs from cuDNN's")
 
 
 def _conv2d_workspace():
@@ -6779,6 +6864,503 @@ def _parallel_nccl_longcat(pipe, latent_shape, pe, pmask):
         ("flash_attention", "rope_qk", "bsa"))
 
 
+# ------------------------------------------------ vae strips, depth tools
+
+STRIP_COUNTS = (1, 2, 4)
+STRIP_REPS = 1           # timed runs after the counted one (480p)
+STRIP_GATE = 1e-5        # tiled against untiled, of the output's max |value|
+# the card against the CPU: relative L2, tests/test_torch_vae_stream.py's
+# kernel-mode gate (as the small refine check gates its streaming VAE)
+STRIP_SMALL_TOL = 2e-2
+
+
+def _merge_launches(a, b):
+    """The sum of two runs' ``Launches``."""
+    out = Launches((k, a.get(k, 0) + b.get(k, 0)) for k in set(a) | set(b))
+    out.by_shape = {}
+    for src in (a, b):
+        for name, shapes in src.by_shape.items():
+            dst = out.by_shape.setdefault(name, {})
+            for key, n in shapes.items():
+                dst[key] = dst.get(key, 0) + n
+    return out
+
+
+def _small_vae_strips_check():
+    """``WanVAEConfig.tiny()`` widened to 32 (its mid attention one head of
+    64, which the card's kernel takes), the zero-initialised attention
+    projections randomised: the H-strip decode (3 latent frames of 4 x 4)
+    and encode (5 frames of 32 x 32) at 2 and 4 strips on the card against
+    the card's untiled run (within STRIP_GATE) and against the CPU's plain
+    path, tiled and untiled: relative L2 within STRIP_SMALL_TOL, the
+    largest relative difference recorded (one flipped bf16 rounding moves
+    single values by percents). The CPU computes the card's conv
+    arithmetic: kernel 4's plain version rounds its operands to bf16, and
+    for the run the convs the card gives bf16 operands (``vae._xla_conv``:
+    time convs, shortcuts; the CPU's stride-2 downsample, which the card
+    runs on kernel 4's one tap) get them on the CPU too."""
+    import dataclasses
+
+    import numpy as np
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan import vae as wvae
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig, init_wan_vae
+    from worldforge_tpu_torch.models.wan.vae_stream import (
+        vae_decode_streaming, vae_encode_streaming)
+    cfg = dataclasses.replace(WanVAEConfig.tiny(), dim=32)
+    cpu = init_wan_vae(P.make_generator(3), cfg)
+    gen = torch.Generator().manual_seed(5)
+    for part in ("encoder", "decoder"):
+        w = cpu[part]["mid"]["attn"]["proj"]["w"]
+        w.copy_(0.2 * torch.randn(w.shape, generator=gen))
+    card = P.tree_map(lambda t: t.cuda(), cpu)
+    rng = np.random.default_rng(7)
+    z = torch.from_numpy(rng.standard_normal((1, cfg.z_dim, 3, 4, 4)).astype(
+        np.float32))
+    video = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 5, 32, 32)).astype(
+        np.float32))
+    rec = {"phase": "vae_strips", "part": "small_vs_cpu",
+           "config": "WanVAEConfig.tiny() at dim 32",
+           "gate_card_vs_cpu_rel_l2": STRIP_SMALL_TOL,
+           "gate_tiled_vs_untiled": STRIP_GATE,
+           "errors (rel max, rel l2)": {}}
+    ok = True
+    for what, fn, x in (("decode", vae_decode_streaming, z),
+                        ("encode", vae_encode_streaming, video)):
+        xla_conv = wvae._xla_conv
+        wvae._xla_conv = lambda p, x, *, stride, padding: P.conv(
+            p, x, stride=stride, padding=padding, bf16_operands=True)
+        try:
+            want = {n: fn(cpu, cfg, x, spatial_chunks=n) for n in (1, 2)}
+        finally:
+            wvae._xla_conv = xla_conv
+        whole = fn(card, cfg, x.cuda()).cpu()
+        for n in (1, 2, 4):
+            got = fn(card, cfg, x.cuda(), spatial_chunks=n).cpu()
+            if n > 1:
+                err = _rel_max(got, whole)
+                rec["errors (rel max, rel l2)"][
+                    f"{what} card n{n} vs card n1"] = err
+                ok &= err <= STRIP_GATE
+            for ref_n, ref in want.items():
+                err = (_rel_max(got, ref), _rel_l2(got, ref))
+                rec["errors (rel max, rel l2)"][
+                    f"{what} card n{n} vs cpu n{ref_n}"] = err
+                ok &= err[1] <= STRIP_SMALL_TOL
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise SystemExit("chip_smoke: the small H-strip VAE differs between "
+                         "the card and the CPU")
+
+
+def phase_vae_strips(card, work_dir):
+    """The streaming Wan2.1 VAE's H-strip tiling (``spatial_chunks``) on the
+    full-width VAE (random fp32 weights from seed 1, the subprocess child's
+    seed), after the small check on the card against the CPU:
+
+    - the streaming decode of 5 x 60 x 104 latents and the streaming
+      encode of 17 x 480 x 832 frames at 1, 2 and 4 strips, each after a
+      warm-up call, then STRIP_REPS more times: seconds of each run
+      through ``utils/profiling.phase(sync_on=)``,
+      the peak (``max_memory_allocated`` after a reset; also above what
+      was allocated before), kernel 4's launches (3x3x3 and one-tap); the
+      tiled outputs against the untiled: bit-equal, else within
+      STRIP_GATE of the output's largest magnitude; more launches tiled;
+    - the refine's streaming decode to 61 x 704 x 1280 at 1 and 4 strips
+      (one run each, no warm-up): peaks and seconds;
+    - ``decode_in_subprocess(spatial_chunks=2)`` of the 480p latents,
+      bit-equal to the in-process decode (fp16, the child's output);
+    - one decode at 2 strips under ``utils/profiling.trace``: its Chrome
+      trace and its device events must name kernel 4's ``conv3d_kernel``.
+
+    Returns the tiled runs' launches (the ``vae_strips`` path)."""
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.models.wan.vae import WanVAEConfig, init_wan_vae
+    from worldforge_tpu_torch.models.wan.vae_stream import (
+        vae_decode_streaming, vae_encode_streaming)
+    from worldforge_tpu_torch.ops.conv3d import conv2d_3x3, conv3d_causal
+    from worldforge_tpu_torch.runtime.subproc import (decode_clip,
+                                                      decode_in_subprocess)
+    from worldforge_tpu_torch.utils import profiling
+
+    _small_vae_strips_check()
+    cfg = WanVAEConfig.wan_2_1()
+    params = init_wan_vae(P.make_generator(1, "cuda"), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    z = torch.randn((1, cfg.z_dim, GEN_FRAMES // 4 + 1, HEIGHT // 8,
+                     WIDTH // 8), generator=gen, device="cuda")
+    video = torch.rand((1, 3, GEN_FRAMES, HEIGHT, WIDTH), generator=gen,
+                       device="cuda") * 2 - 1
+    zr = torch.randn((1, cfg.z_dim, REFINE_GRID[0], REFINE_H // 8,
+                      REFINE_W // 8), generator=gen, device="cuda")
+    fns = {"decode": lambda n: vae_decode_streaming(params, cfg, z,
+                                                    spatial_chunks=n),
+           "encode": lambda n: vae_encode_streaming(params, cfg, video,
+                                                    spatial_chunks=n),
+           "decode_704x1280": lambda n: vae_decode_streaming(
+               params, cfg, zr, spatial_chunks=n)}
+    tiled = None
+    rec = {"phase": "vae_strips", "card": card,
+           "config": "WanVAEConfig.wan_2_1(), fp32, random (seed 1)",
+           "gate": STRIP_GATE, "runs": []}
+    ok = True
+    for what, fn in fns.items():
+        counts = STRIP_COUNTS if what != "decode_704x1280" else (1, 4)
+        whole = None
+        for n in counts:
+            if what != "decode_704x1280":
+                fn(n)                      # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            holder = []
+            with profiling.phase(f"{what} n{n}", sync_on=holder):
+                holder.append(fn(n))
+            launches = _read_counters()
+            out = holder[0]
+            run = {"what": what, "spatial_chunks": n,
+                   "shape": list(out.shape),
+                   "s": profiling.phase_report()[f"{what} n{n}"]["total_s"],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "peak_above_start_gb":
+                       (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                   "conv3d_causal_launches": launches["conv3d_causal"],
+                   "conv2d_3x3_launches": launches["conv2d_3x3"]}
+            if n == 1:
+                whole = out
+            else:
+                tiled = (launches if tiled is None
+                         else _merge_launches(tiled, launches))
+                diff = float((out - whole).abs().max())
+                scale = float(whole.abs().max())
+                run.update(bit_equal=torch.equal(out, whole),
+                           max_abs_diff=diff, rel_to_max=diff / scale)
+            del out, holder
+            for k in range(STRIP_REPS if what != "decode_704x1280" else 0):
+                again = []
+                with profiling.phase(f"{what} n{n} rep{k}", sync_on=again):
+                    again.append(fn(n))
+                del again
+            run["s_reps"] = [v["total_s"]
+                             for v in profiling.phase_report().values()]
+            rec["runs"].append(run)
+        ones = [r for r in rec["runs"] if r["what"] == what]
+        for r in ones[1:]:
+            r["more_launches"] = (r["conv3d_causal_launches"]
+                                  > ones[0]["conv3d_causal_launches"])
+            ok &= r["more_launches"] and (r["bit_equal"]
+                                          or r["rel_to_max"] <= STRIP_GATE)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    del zr, video
+
+    # the subprocess decode at 2 strips: the child draws the same VAE
+    lat = z.cpu().numpy()
+    got, child_s = decode_in_subprocess(
+        lat, cfg, params_seed=1, dtype="float32", spatial_chunks=2,
+        device="cuda", workdir=os.path.join(work_dir, "subproc_strips"),
+        verbose=False)
+    want = decode_clip(params, cfg, z, spatial_chunks=2).half().cpu()
+    got = torch.from_numpy(got)
+    rec["subprocess"] = {"spatial_chunks": 2, "s_child": child_s,
+                         "bit_equal": torch.equal(got, want),
+                         "max_abs_diff": float((got.float()
+                                                - want.float()).abs().max())}
+    ok &= rec["subprocess"]["bit_equal"]
+
+    # one tiled decode under the port's trace
+    trace_dir = os.path.join(work_dir, "vae_strips_trace")
+    with profiling.trace(trace_dir) as prof:
+        vae_decode_streaming(params, cfg, z, spatial_chunks=2)
+        torch.cuda.synchronize()
+    kernel_events = [e for e in prof.key_averages()
+                     if "conv3d_kernel" in e.key]
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        in_file = "conv3d_kernel" in f.read()
+    rec["trace"] = {"file": os.path.relpath(os.path.join(trace_dir,
+                                                         "trace.json"), HERE),
+                    "conv3d_kernel_in_file": in_file,
+                    "conv3d_kernel_events": sum(e.count
+                                                for e in kernel_events),
+                    "conv3d_kernel_device_ms": sum(
+                        getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0))
+                        for e in kernel_events) / 1e3}
+    ok &= in_file and bool(kernel_events)
+    rec["ok"] = ok
+    emit(rec)
+    del params, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("chip_smoke: the H-strip VAE failed a check")
+    return tiled
+
+
+DEPTH_APP_FRAMES = (8, 320, 512)         # the app's synthetic clip
+DEPTH_BENCH_FRAMES = (8, 128, 192)       # each benchmark sequence
+
+
+def _depth_clip(path, t, h, w, seed):
+    """``_dc_video`` frames as a directory of PNGs."""
+    import numpy as np
+    from PIL import Image
+    os.makedirs(path, exist_ok=True)
+    for i, f in enumerate(_dc_video(t, h, w, seed)):
+        Image.fromarray((f * 255).astype(np.uint8)).save(
+            os.path.join(path, f"f{i:03d}.png"))
+
+
+def phase_depth_tools(work_dir, card):
+    """The depth tools through their entry points:
+
+    - ``cli/depth_app`` with ``--random-init --device cuda`` at full width
+      (the SVD UNet bf16 from seed 0, the VAE fp32 from seed 1, as JAX's
+      app draws them), served on a localhost port: the form, one ``POST
+      /run`` of an 8-frame 320 x 512 synthetic clip (max_res 512, 2 steps),
+      the files it writes and ``/files/`` serving the depth npz;
+    - ``cli/visualize_pcd`` on that npz and ``_input.mp4``: one PLY a frame;
+    - ``cli/depth_benchmark --device cuda`` twice, each on two synthetic
+      sequences: first through a ``--checkpoint_dir`` this phase writes
+      with the script's ``svd_unet_state_dict`` / ``svd_vae_state_dict``
+      from the small DepthCrafter's widened tiny trees (the loader's
+      configs patched to them; the loader's route only, deleted
+      afterwards), then at full width on 8 frames of 320 x 512, with
+      ``load_converted_depthcrafter`` handing over the app's trees in
+      memory: a full-width checkpoint would write 3.4 GB, past what a call
+      may write to the card machine's disk beside the checkpoints phase's
+      Wan set. The full-width pass is timed and counted. In both, each
+      sequence's metrics must equal ``depth_metrics`` of ``estimate_depth``
+      called directly, within 1e-6.
+
+    Returns the app's and the full-width benchmark's launches by path."""
+    import dataclasses
+    import shutil
+    import threading
+    import urllib.parse
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from worldforge_tpu_torch.cli import (depth_app, depth_benchmark,
+                                          visualize_pcd)
+    from worldforge_tpu_torch.core import params as P
+    from worldforge_tpu_torch.io.frames import load_frames
+    from worldforge_tpu_torch.models.depthcrafter import inference
+    from worldforge_tpu_torch.models.depthcrafter.unet import (SVDUNetConfig,
+                                                               init_svd_unet)
+    from worldforge_tpu_torch.models.depthcrafter.vae import (SVDVAEConfig,
+                                                              init_svd_vae)
+    from worldforge_tpu_torch.utils.depth_metrics import depth_metrics
+    from worldforge_tpu_torch.warp.pcd import read_ply
+
+    root = os.path.join(work_dir, "depth_tools")
+    shutil.rmtree(root, ignore_errors=True)
+    t, h, w = DEPTH_APP_FRAMES
+    _depth_clip(os.path.join(root, "clip"), t, h, w, seed=3)
+    rec = {"phase": "depth_tools", "card": card, "part": "depth_app",
+           "clip": [t, h, w], "max_res": 512, "steps": 2}
+    paths = {}
+    args = depth_app.build_parser().parse_args(
+        ["--random-init", "--device", "cuda", "--port", "0",
+         "--output-dir", os.path.join(root, "app_out")])
+    t0 = time.time()
+    pipe = depth_app._build_pipeline(args)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.time() - t0
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              depth_app.make_handler(pipe, args))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            form_ok = "num denoising steps" in r.read().decode()
+        body = urllib.parse.urlencode({
+            "video": os.path.join(root, "clip"), "steps": "2", "cfg": "1.0",
+            "max_res": "512", "length": str(t), "fps": "8"}).encode()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.time()
+        with urllib.request.urlopen(base + "/run", data=body,
+                                    timeout=600) as r:
+            page = r.read().decode()
+        rec["post_run_s"] = time.time() - t0
+        paths["depth_app"] = _read_counters()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs = sorted(os.listdir(args.output_dir))
+        npz = [n for n in outs if n.endswith("_depth.npz")]
+        with urllib.request.urlopen(base + "/files/" + npz[0],
+                                    timeout=60) as r:
+            served = r.read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    npz_path = os.path.join(args.output_dir, npz[0])
+    depth = np.load(npz_path)["depth"]
+    with open(npz_path, "rb") as f:
+        served_equal = served == f.read()
+    rec.update(form_ok=form_ok, result_page_ok="Generated depth" in page,
+               files=outs, depth_shape=list(depth.shape),
+               depth_finite=bool(np.isfinite(depth).all()),
+               depth_range=[float(depth.min()), float(depth.max())],
+               served_equal=served_equal,
+               launches=dict(paths["depth_app"]))
+    rec["ok"] = (form_ok and rec["result_page_ok"] and rec["served_equal"]
+                 and rec["depth_finite"] and depth.shape == (t, h, w)
+                 and 0.0 <= depth.min() and depth.max() <= 1.0
+                 and any(n.endswith("_vis.mp4") for n in outs)
+                 and any(n.endswith("_input.mp4") for n in outs))
+    emit(rec)
+    if not rec["ok"]:
+        raise SystemExit("chip_smoke: depth_app failed a check")
+    _require_launches(paths["depth_app"], ("flash_attention", "conv2d_3x3"),
+                      "depth_app")
+
+    # visualize_pcd on the app's npz and input video
+    tag = npz[0][:-len("_depth.npz")]
+    pcd_in = os.path.join(root, "pcd_in")
+    os.makedirs(pcd_in)
+    os.symlink(os.path.join(args.output_dir, npz[0]),
+               os.path.join(pcd_in, "clip.npz"))
+    os.symlink(os.path.join(args.output_dir, f"{tag}_input.mp4"),
+               os.path.join(pcd_in, "clip_input.mp4"))
+    t0 = time.time()
+    visualize_pcd.main(["--data-path", pcd_in, "--vid-name", "clip",
+                        "--out-dir", os.path.join(root, "pcd")])
+    plys = sorted(os.listdir(os.path.join(root, "pcd")))
+    pts, cols = read_ply(os.path.join(root, "pcd", plys[0]))
+    pcd = {"phase": "depth_tools", "card": card, "part": "visualize_pcd",
+           "s": time.time() - t0, "ply_frames": len(plys),
+           "points_per_frame": len(pts)}
+    pcd["ok"] = (len(plys) == t and len(pts) == -(-h * w // 8)
+                 and cols.dtype == np.uint8)
+    emit(pcd)
+    if not pcd["ok"]:
+        raise SystemExit("chip_smoke: visualize_pcd failed a check")
+
+    # depth_benchmark on the card: the checkpoint route through a widened
+    # tiny checkpoint, then the timed pass at full width on the app's trees
+    ucfg = dataclasses.replace(SVDUNetConfig.tiny(),
+                               block_out_channels=(64, 64, 128, 128),
+                               num_attention_heads=(1, 1, 2, 2),
+                               cross_attention_dim=64)
+    vcfg = dataclasses.replace(SVDVAEConfig.tiny(),
+                               block_out_channels=(32, 32, 64, 512))
+    ckpt = os.path.join(root, "checkpoint")
+    for which, sd in (
+            ("unet", svd_unet_state_dict(init_svd_unet(
+                P.make_generator(51, "cuda"), ucfg))),
+            ("vae", svd_vae_state_dict(init_svd_vae(
+                P.make_generator(52, "cuda"), vcfg)))):
+        os.makedirs(os.path.join(ckpt, which))
+        write_safetensors(os.path.join(ckpt, which, "model.safetensors"), sd)
+    rng = np.random.default_rng(9)
+
+    def sequences(name, frames, seed):
+        seqs = []
+        bt, bh, bw = frames
+        for i in range(2):
+            seq = os.path.join(root, f"{name}{i}")
+            _depth_clip(os.path.join(seq, "frames"), bt, bh, bw,
+                        seed=seed + i)
+            np.save(os.path.join(seq, "depth.npy"),
+                    rng.uniform(0.5, 4.0, (bt, bh, bw)).astype(np.float32))
+            seqs.append(seq)
+        with open(os.path.join(root, f"{name}.csv"), "w") as f:
+            f.write("".join(s + "\n" for s in seqs))
+        return seqs
+
+    def bench_pass(name, seqs, max_res, checkpoint):
+        """The CLI over the sequences (seconds, launches), then
+        ``depth_metrics(estimate_depth(...))`` of each called directly."""
+        out = os.path.join(root, f"{name}_eval.json")
+        _reset_counters()
+        t0 = time.time()
+        depth_benchmark.main([
+            "--csv", os.path.join(root, f"{name}.csv"), "--checkpoint_dir",
+            checkpoint, "--num-inference-steps", "2", "--max_res",
+            str(max_res), "--device", "cuda", "--output", out])
+        cli_s = time.time() - t0
+        launches = _read_counters()
+        with open(out) as f:
+            got = json.load(f)["per_sequence"]
+        diffs = []
+        for seq in seqs:
+            pred = inference.estimate_depth(
+                load_frames(os.path.join(seq, "frames")),
+                num_inference_steps=2, max_res=max_res,
+                checkpoint=checkpoint, device="cuda")
+            want = depth_metrics(pred, np.load(os.path.join(seq,
+                                                            "depth.npy")))
+            diffs.append(max(abs(got[seq][k] - v) for k, v in want.items()))
+        return {"cli_s": cli_s, "max_metric_diff": max(diffs),
+                "abs_rel": [got[s]["abs_rel"] for s in seqs]}, launches
+
+    bt, bh, bw = DEPTH_BENCH_FRAMES
+    small = sequences("seq", DEPTH_BENCH_FRAMES, 10)
+    saved = SVDUNetConfig.svd, SVDVAEConfig.svd
+    SVDUNetConfig.svd = classmethod(lambda cls: ucfg)
+    SVDVAEConfig.svd = classmethod(lambda cls: vcfg)
+    load = {"phase": "depth_tools", "card": card,
+            "part": "depth_benchmark_checkpoint_route",
+            "what": "the loader's route only: a toy model, its seconds "
+                    "are no finding", "sequences": [bt, bh, bw], "steps": 2,
+            "checkpoint": "SVDUNetConfig.tiny() widened to (64, 64, 128, "
+                          "128), SVDVAEConfig.tiny() to (32, 32, 64, 512)"}
+    try:
+        res, _ = bench_pass("seq", small, bw, ckpt)
+    finally:
+        SVDUNetConfig.svd, SVDVAEConfig.svd = saved
+        shutil.rmtree(ckpt, ignore_errors=True)
+    load.update(res, checkpoint_deleted=not os.path.exists(ckpt))
+    load["ok"] = load["max_metric_diff"] <= 1e-6
+    emit(load)
+    if not load["ok"]:
+        raise SystemExit("chip_smoke: depth_benchmark's metrics through a "
+                         "checkpoint differ from estimate_depth's")
+
+    # full width: the loader hands over the app's trees, in memory (a
+    # full-width checkpoint would write 3.4 GB to a disk the checkpoints
+    # phase nearly fills)
+    from worldforge_tpu_torch.io import convert_depthcrafter
+    loads = []
+
+    def app_trees(checkpoint, device=None, **kw):
+        loads.append(str(device))
+        return pipe
+
+    ft, fh, fw = DEPTH_APP_FRAMES
+    full = sequences("full", DEPTH_APP_FRAMES, 20)
+    bench = {"phase": "depth_tools", "card": card, "part": "depth_benchmark",
+             "sequences": [ft, fh, fw], "max_res": 512, "steps": 2,
+             "weights": "the app's full-width random trees (SVD UNet bf16 "
+                        "seed 0, VAE fp32 seed 1), handed to the CLI by "
+                        "the loader"}
+    saved_load = convert_depthcrafter.load_converted_depthcrafter
+    convert_depthcrafter.load_converted_depthcrafter = app_trees
+    try:
+        res, paths["depth_benchmark"] = bench_pass("full", full, 512,
+                                                   "in-memory")
+    finally:
+        convert_depthcrafter.load_converted_depthcrafter = saved_load
+    bench.update(res, loads=loads, launches=dict(paths["depth_benchmark"]))
+    bench["ok"] = (bench["max_metric_diff"] <= 1e-6
+                   and loads == ["cuda"] * 4)
+    emit(bench)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not bench["ok"]:
+        raise SystemExit("chip_smoke: depth_benchmark's metrics differ from "
+                         "estimate_depth's")
+    _require_launches(paths["depth_benchmark"], DEPTHCRAFTER_PATH_KERNELS,
+                      "depth_benchmark")
+    return paths
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -6786,7 +7368,9 @@ def main() -> int:
     main_recs = phase_kernels()
     by_path = {"parallel_bodies": phase_parallel_bodies()}
     phase_flf()
-    phase_vae()
+    phase_vae(card)
+    by_path["vae_strips"] = phase_vae_strips(
+        card, os.path.join(HERE, "build", "chip_smoke"))
     by_path["parallel_nccl_wan"], by_path["runtime_streaming"] = phase_dit()
     warp_dir, by_path["warp"] = phase_warp(
         os.path.join(HERE, "build", "chip_smoke"))
@@ -6796,6 +7380,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(phase_depthcrafter(
         os.path.join(HERE, "build", "chip_smoke")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(phase_depth_tools(
+        os.path.join(HERE, "build", "chip_smoke"), card))
     frames, _ = _frames_480p(warp_dir)
     ctx, by_path["encoders"] = phase_encoders(
         frames[0, :, 0].transpose(1, 2, 0),

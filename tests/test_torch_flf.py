@@ -11,6 +11,7 @@ device masks and the channel replacement exactly equal.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +117,8 @@ def _mask_list(mask):
 
 
 def test_device_masks_match_host_lists():
+    # JAX's device mask jitted once: one dispatch per call, not its ops'
+    jmask = jax.jit(jcs.select_mask_wan_device)
     sizes = set()
     for scores in _score_vectors(60):
         ts = torch.from_numpy(scores)
@@ -125,8 +128,8 @@ def test_device_masks_match_host_lists():
             assert _mask_list(tcs.select_mask_wan_device(ts, step)) == host
             assert _mask_list(tcs.select_mask_wan_device(
                 ts, torch.tensor(step))) == host
-            assert _mask_list(jcs.select_mask_wan_device(
-                jnp.asarray(scores), jnp.asarray(step))) == host
+            assert _mask_list(jmask(jnp.asarray(scores),
+                                    jnp.asarray(step))) == host
             for distill in (True, False):
                 for mr in (None, 2):
                     host = tcs.select_channels_longcat(scores, step,

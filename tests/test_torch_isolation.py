@@ -28,7 +28,8 @@ def test_isolation_covers_the_port_modules():
     """The JAX-import check walks every module of the package, the FLF,
     LongCat guided, warp, encoder, DepthCrafter, Wan facade, avatar,
     checkpoint, quantization, LoRA, training, runtime, VGGT track and SfM
-    modules among them."""
+    modules and the last slice's profiling, depth tools, dataset extractor
+    and prompt extender among them."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("ops/farneback.py", "ops/flow.py",
                 "sampling/channel_select.py", "sampling/guidance.py",
@@ -64,7 +65,13 @@ def test_isolation_covers_the_port_modules():
                 "sfm/distortion.py", "sfm/extractors.py",
                 "sfm/projection.py", "sfm/superpoint.py",
                 "sfm/track_predict.py", "sfm/tracker.py", "sfm/utils.py",
-                "io/convert_aliked.py", "io/convert_sfm_tracker.py"):
+                "io/convert_aliked.py", "io/convert_sfm_tracker.py",
+                "utils/profiling.py", "utils/buckets.py",
+                "utils/depth_metrics.py", "utils/depth_vis.py",
+                "cli/visualize_pcd.py", "cli/depth_benchmark.py",
+                "cli/depth_app.py", "benchmark/__init__.py",
+                "benchmark/dataset_extract.py", "cli/extract_dataset.py",
+                "utils/prompt_extend.py"):
         assert f"worldforge_tpu_torch/{rel}" in names, rel
 
 
@@ -160,6 +167,29 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_depth_tools_default_to_the_card(monkeypatch, tmp_path):
+    """``depth_app`` and ``depth_benchmark`` build their model on the card
+    unless ``--device cpu`` is passed: with no card they stop, and never
+    carry on on the CPU."""
+    from worldforge_tpu_torch.cli import depth_app, depth_benchmark
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = depth_app.build_parser().parse_args(["--random-init", "--tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        depth_app._build_pipeline(args)
+    seq = tmp_path / "seq"
+    (seq / "frames").mkdir(parents=True)
+    import numpy as np
+    from PIL import Image
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
+        seq / "frames" / "f0.png")
+    np.save(seq / "depth.npy", np.ones((1, 8, 8), np.float32))
+    (tmp_path / "seqs.csv").write_text(f"{seq}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        depth_benchmark.main(["--csv", str(tmp_path / "seqs.csv"),
+                              "--checkpoint_dir", str(tmp_path),
+                              "--output", str(tmp_path / "e.json")])
 
 
 def test_cpu_launch_counters_stay_zero():

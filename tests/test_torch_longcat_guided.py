@@ -65,8 +65,10 @@ def fp32_conv3d(x, w, b=None, *, out_dtype=None):
 
 @pytest.fixture(scope="module")
 def pipes():
-    jdp = jax.tree_util.tree_map(np.asarray, init_longcat_dit(
-        jax.random.key(0), JCfg(**CFG_KW), dtype=jnp.float32))
+    # JAX's init jitted: one compile, not op by op
+    jdp = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k: init_longcat_dit(k, JCfg(**CFG_KW), dtype=jnp.float32))(
+            jax.random.key(0)))
     # a non-zero output head, so the velocity is not the trivial zero field
     lin = jdp["final"]["linear"]
     lin["w"] = 0.05 * np.random.default_rng(9).standard_normal(

@@ -137,18 +137,21 @@ def test_generate_pixels_and_unguided(pipes):
 
 @pytest.mark.parametrize("what", ["flf", "fused", "streaming"])
 def test_later_slices_raise(pipes, what, monkeypatch):
-    """'streaming': the streaming VAE is ported; its H-strip tiling
-    (``spatial_chunks`` > 1) is a later slice. 'fused': the whole-loop
+    """'streaming': the streaming VAE and its H-strip tiling are ported:
+    ``spatial_chunks=2`` decodes the pipeline's VAE as the untiled
+    streaming decode does (1e-5). 'fused': the whole-loop
     runner is ported: ``fused=True`` holds the host loop's latents (fp32
     convs, the same noise stream) at the fp32 gate, and ``exec_chunk=2``
     equals ``fused=True`` bit for bit. 'flf': FLF is ported, and the guided
     generate with the default ``GuidanceConfig()`` (FLF on) runs."""
     tp, _ = pipes
     if what == "streaming":
-        z = torch.zeros((1, tp.vae_cfg.z_dim, 2, 2, 2))
-        with pytest.raises(NotImplementedError, match="H-strip"):
-            vae_decode_streaming(tp.vae_params, tp.vae_cfg, z,
-                                 spatial_chunks=2)
+        z = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (1, tp.vae_cfg.z_dim, 2, 2, 2)).astype(np.float32))
+        whole = vae_decode_streaming(tp.vae_params, tp.vae_cfg, z).numpy()
+        tiled = vae_decode_streaming(tp.vae_params, tp.vae_cfg, z,
+                                     spatial_chunks=2).numpy()
+        assert np.abs(tiled - whole).max() <= 1e-5 * np.abs(whole).max()
         return
     x = _inputs()
     kw = dict(height=16, width=16, num_frames=5, num_inference_steps=2,

@@ -651,7 +651,66 @@ def _w4a8_generate_setup(monkeypatch):
     return run_jax, run_torch, sel
 
 
-def test_w4a8_guided_generate_with_flf_matches_jax(monkeypatch):
+@pytest.fixture(scope="module")
+def w4a8_runs():
+    """The W4A8 guided generates both tests below hold, each computed once
+    for the module: JAX's (its activation codes recorded call by call
+    through an ordered ``io_callback`` inside its jitted DiT step), the
+    port's on the W4A8 tree (its codes recorded), on the fp32 tree, and on
+    the W4A8 tree fed JAX's codes and scales in place of its own
+    quantization; with the channel sets FLF handed back on each run."""
+    from jax.experimental import io_callback
+
+    from worldforge_tpu_torch.models.wan import dit as tdit_mod
+
+    with pytest.MonkeyPatch.context() as mp:
+        run_jax, run_torch, sel = _w4a8_generate_setup(mp)
+        jcodes = []
+        jquant = jq.quantize_activations
+
+        def jrecord(x):
+            x8, sx = jquant(x)
+            io_callback(lambda a, b: jcodes.append((np.asarray(a),
+                                                    np.asarray(b))),
+                        None, x8, sx, ordered=True)
+            return x8, sx
+
+        mp.setattr(jq, "quantize_activations", jrecord)
+        want = run_jax()
+
+        tquant = tq.quantize_activations
+        tcodes = []
+
+        def trecord(x):
+            x8, sx = tquant(x)
+            tcodes.append((x8.numpy().copy(), sx.numpy().copy()))
+            return x8, sx
+
+        for mod in (tq, tdit_mod):
+            mp.setattr(mod, "quantize_activations", trecord)
+        got = run_torch("w4a8", "torch")
+        for mod in (tq, tdit_mod):
+            mp.setattr(mod, "quantize_activations", tquant)
+        fp32 = run_torch("fp32")
+
+        fed = iter(jcodes)
+        fed_shapes_ok = []
+
+        def tfeed(x):
+            x8, sx = next(fed)
+            fed_shapes_ok.append(x8.shape == tuple(x.shape))
+            return torch.from_numpy(x8.copy()), torch.from_numpy(sx.copy())
+
+        for mod in (tq, tdit_mod):
+            mp.setattr(mod, "quantize_activations", tfeed)
+        same = run_torch("w4a8", "fed")
+        left = next(fed, None)
+    return dict(want=want, got=got, fp32=fp32, same=same, sel=sel,
+                jcodes=jcodes, tcodes=tcodes, fed_all=left is None,
+                fed_shapes_ok=all(fed_shapes_ok))
+
+
+def test_w4a8_guided_generate_with_flf_matches_jax(w4a8_runs):
     """The tiny guided Wan generate with FLF (8 steps, CFG, IRR, the fuse,
     DSG; fp32 convs) on a W4A8 tree (FFN int4 in groups of 32, W8A8
     elsewhere) quantized on each side from one fp32 tree: the channel sets
@@ -659,10 +718,8 @@ def test_w4a8_guided_generate_with_flf_matches_jax(monkeypatch):
     ``TOL_W4A8_GENERATE`` of JAX's, and the port's drift from its own fp32
     generate within the JAX quality test's 0.04
     (``tests/test_int4_quality.py``)."""
-    run_jax, run_torch, sel = _w4a8_generate_setup(monkeypatch)
-    want = run_jax()
-    got = run_torch("w4a8", "torch")
-    fp32 = run_torch("fp32")
+    r = w4a8_runs
+    want, got, fp32, sel = r["want"], r["got"], r["fp32"], r["sel"]
     assert got.shape == want.shape == (1, 4, 3, 8, 8)
     assert _rel(got, want) < TOL_W4A8_GENERATE
     assert sel["torch"] == sel["jax"] == sel["fp32"]
@@ -686,41 +743,15 @@ def test_w4a8_guided_generate_with_flf_matches_jax(monkeypatch):
 # sets equal. So the 8.9e-3 gap is the flipped codes, not a port fault.
 
 
-def test_w4a8_generate_gap_is_flipped_activation_codes(monkeypatch):
+def test_w4a8_generate_gap_is_flipped_activation_codes(w4a8_runs):
     """ROADMAP Queue C item 3: the W4A8 generate's gap to JAX is activation
     codes that flip on last-bit fp32 differences. No code differs at the
     first step (its inputs are equal), some do at later steps, and fed
     JAX's codes and scales the port's generate comes within the unguided
     quantized forwards' gate ``TOL_FORWARD`` of JAX's."""
-    from jax.experimental import io_callback
-
-    from worldforge_tpu_torch.models.wan import dit as tdit_mod
-
-    run_jax, run_torch, sel = _w4a8_generate_setup(monkeypatch)
-    jcodes = []
-    jquant = jq.quantize_activations
-
-    def jrecord(x):
-        x8, sx = jquant(x)
-        io_callback(lambda a, b: jcodes.append((np.asarray(a),
-                                                np.asarray(b))),
-                    None, x8, sx, ordered=True)
-        return x8, sx
-
-    monkeypatch.setattr(jq, "quantize_activations", jrecord)
-    want = run_jax()
-
-    tquant = tq.quantize_activations
-    tcodes = []
-
-    def trecord(x):
-        x8, sx = tquant(x)
-        tcodes.append((x8.numpy().copy(), sx.numpy().copy()))
-        return x8, sx
-
-    for mod in (tq, tdit_mod):
-        monkeypatch.setattr(mod, "quantize_activations", trecord)
-    got = run_torch("w4a8", "torch")
+    r = w4a8_runs
+    want, got, same = r["want"], r["got"], r["same"]
+    jcodes, tcodes = r["jcodes"], r["tcodes"]
     assert len(tcodes) == len(jcodes) and len(jcodes) % 8 == 0
     per_step = len(jcodes) // 8
     flips = [0] * 8
@@ -730,16 +761,6 @@ def test_w4a8_generate_gap_is_flipped_activation_codes(monkeypatch):
     assert flips[0] == 0 and sum(flips) > 0, flips
     assert _rel(got, want) < TOL_W4A8_GENERATE
 
-    fed = iter(jcodes)
-
-    def tfeed(x):
-        x8, sx = next(fed)
-        assert x8.shape == tuple(x.shape)
-        return torch.from_numpy(x8.copy()), torch.from_numpy(sx.copy())
-
-    for mod in (tq, tdit_mod):
-        monkeypatch.setattr(mod, "quantize_activations", tfeed)
-    same = run_torch("w4a8", "fed")
-    assert next(fed, None) is None
-    assert sel["fed"] == sel["jax"]
+    assert r["fed_shapes_ok"] and r["fed_all"]
+    assert r["sel"]["fed"] == r["sel"]["jax"]
     assert _rel(same, want) < TOL_FORWARD, (_rel(same, want), flips)

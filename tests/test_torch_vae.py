@@ -111,9 +111,11 @@ def test_vae_dispatch_truncates_to_causal(rng, tiny_vae):
     cfg = tvae.WanVAEConfig.tiny()
     torch.testing.assert_close(enc(tp, cfg, video),
                                tvae.vae_encode(tp, cfg, video[:, :, :5]))
-    # the streaming VAE is ported; its H-strip tiling is a later slice
-    with pytest.raises(NotImplementedError, match="H-strip"):
-        vae_encode_streaming(tp, cfg, video[:, :, :5], spatial_chunks=2)
+    # the streaming VAE and its H-strip tiling are ported: the tiled
+    # streaming encode of the causal frames is the single pass's
+    torch.testing.assert_close(
+        vae_encode_streaming(tp, cfg, video[:, :, :5], spatial_chunks=2),
+        tvae.vae_encode(tp, cfg, video[:, :, :5]), rtol=1e-5, atol=1e-6)
 
 
 def test_random_init_matches_jax_tree():
@@ -125,3 +127,30 @@ def test_random_init_matches_jax_tree():
     shapes_j = jax.tree_util.tree_map(lambda a: tuple(a.shape), jp)
     assert (jax.tree_util.tree_leaves_with_path(shapes_t)
             == jax.tree_util.tree_leaves_with_path(shapes_j))
+
+
+@pytest.mark.parametrize("shape", [(3, 17, 23, 8, 8), (2, 16, 10, 4, 12)])
+def test_stride2_one_tap_route_matches_strided_conv(rng, shape):
+    """The card's route for the encoder's 3x3 stride-2 VALID conv
+    (``_conv2d_s2_one_tap``: the stride-1 SAME conv of kernel 4's one tap,
+    odd rows and columns kept), run here through the kernel's plain
+    version, against ``P.conv(stride=2)`` and JAX's XLA conv on the same
+    bf16-rounded operands (the kernel's contract), at odd and even H and
+    W."""
+    n, h, w, cin, cout = shape
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    p = {"w": rng.standard_normal((3, 3, cin, cout)).astype(np.float32),
+         "b": rng.standard_normal((cout,)).astype(np.float32)}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    got = tvae._conv2d_s2_one_tap(tp, torch.from_numpy(x)).numpy()
+    want = TP.conv(tp, torch.from_numpy(x), stride=2,
+                   bf16_operands=True).numpy()
+    r16 = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    jax_want = np.asarray(jax.lax.conv_general_dilated(
+        r16(x), r16(p["w"]), (2, 2), "VALID",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)) + p["b"]
+    assert got.shape == want.shape == ((n, (h - 1) // 2, (w - 1) // 2, cout))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(got, jax_want, rtol=0, atol=1e-6 * scale)

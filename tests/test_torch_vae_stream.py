@@ -105,24 +105,118 @@ def test_decode_streaming_matches(rng, tiny_vae, conv_mode, chunk):
     _check(got, want, conv_mode)
 
 
-def test_dispatch_streams_and_spatial_chunks_raise(rng, tiny_vae):
+def test_dispatch_streams_and_spatial_chunks_raise(rng, tiny_vae,
+                                                   fp32_convs):
     """The streaming pair truncates T = 10 to the causal 9 frames, as the
-    single pass does; the H-strip tiling is a later slice and raises."""
+    single pass does, and ``vae_fn_pair(True, chunk=2, spatial_chunks=2)``
+    (H-strips, 2 latent frames a step) equals JAX's pair, which no longer
+    raises: the encode and the decode at the fp32 gates."""
+    from worldforge_tpu.pipelines.vae_dispatch import \
+        vae_fn_pair as jvae_fn_pair
+    jcfg, jp, tp = tiny_vae
+    cfg = tvae.WanVAEConfig.tiny()
+    video = rng.uniform(-1, 1, (1, 3, 10, 16, 16)).astype(np.float32)
+    dec, enc = vae_fn_pair(True, chunk=2, spatial_chunks=2)
+    jdec, jenc = jvae_fn_pair(True, chunk=2, spatial_chunks=2)
+    lat = enc(tp, cfg, torch.from_numpy(video))
+    _check(lat.numpy(), tvae.vae_encode(tp, cfg, torch.from_numpy(
+        video[:, :, :9])).numpy(), "fp32")
+    _check(lat.numpy(), np.asarray(_jit(jenc, jcfg)(jp, jnp.asarray(video))),
+           "fp32")
+    _check(dec(tp, cfg, lat).numpy(), np.asarray(
+        _jit(jdec, jcfg)(jp, jnp.asarray(lat.numpy()))), "fp32")
+
+
+def _jit(fn, cfg, **kw):
+    """JAX's streaming fn jitted whole: one compile instead of the first
+    chunk's op-by-op dispatch (about a quarter of the time on the CPU)."""
+    return jax.jit(lambda p, x: fn(p, cfg, x, **kw))
+
+
+@pytest.fixture
+def fp32_convs(monkeypatch):
+    """The 'fp32' conv mode alone: JAX's strips are XLA fp32 convs."""
+    old = jvae._CONV3D_MODE
+    jvae._CONV3D_MODE = "3d"
+    monkeypatch.setattr(tvae, "conv3d_causal", fp32_conv3d)
+    try:
+        yield
+    finally:
+        jvae._CONV3D_MODE = old
+
+
+# the H-strip cases of tests/test_vae_stream.py: latent (T, H, W) or video
+# (T, H, W), and the streaming arguments
+STRIP_DECODES = {
+    "n2": ((3, 4, 2), dict(spatial_chunks=2)),
+    "n4": ((3, 4, 2), dict(spatial_chunks=4)),
+    "n_not_dividing_h": ((3, 5, 2), dict(spatial_chunks=3)),
+    "chunk2": ((5, 4, 2), dict(chunk=2, spatial_chunks=2)),
+}
+STRIP_ENCODES = {
+    "n2": ((9, 32, 16), 2),
+    "n4": ((9, 32, 16), 4),
+    "n_not_dividing_h": ((5, 24, 16), 5),
+}
+
+
+@pytest.mark.parametrize("case", list(STRIP_DECODES))
+def test_decode_strips_match_jax(rng, tiny_vae, fp32_convs, case):
+    """The port's H-strip decode against JAX's strips (and against its own
+    untiled decode) at the fp32 gates; a stage whose H the strip count
+    does not divide runs whole on both sides."""
+    jcfg, jp, tp = tiny_vae
+    cfg = tvae.WanVAEConfig.tiny()
+    shape, kw = STRIP_DECODES[case]
+    z = rng.standard_normal((1, cfg.z_dim, *shape)).astype(np.float32)
+    got = tvs.vae_decode_streaming(tp, cfg, torch.from_numpy(z),
+                                   **kw).numpy()
+    whole = tvs.vae_decode_streaming(tp, cfg, torch.from_numpy(z)).numpy()
+    want = np.asarray(_jit(jvs.vae_decode_streaming, jcfg, **kw)(
+        jp, jnp.asarray(z)))
+    assert got.shape == want.shape == (1, 3, 4 * shape[0] - 3,
+                                       8 * shape[1], 8 * shape[2])
+    _check(got, want, "fp32")
+    _check(got, whole, "fp32")
+
+
+@pytest.mark.parametrize("case", list(STRIP_ENCODES))
+def test_encode_strips_match_jax(rng, tiny_vae, fp32_convs, case):
+    """The encoder twin: the res cells' convs and the stride-2 downsample
+    (no top halo, the bottom zero row at the last strip) in H-strips."""
+    jcfg, jp, tp = tiny_vae
+    cfg = tvae.WanVAEConfig.tiny()
+    shape, n = STRIP_ENCODES[case]
+    video = (0.5 * rng.standard_normal((1, 3, *shape))).astype(np.float32)
+    got = tvs.vae_encode_streaming(tp, cfg, torch.from_numpy(video),
+                                   spatial_chunks=n).numpy()
+    whole = tvs.vae_encode_streaming(tp, cfg, torch.from_numpy(video)).numpy()
+    want = np.asarray(_jit(jvs.vae_encode_streaming, jcfg,
+                           spatial_chunks=n)(jp, jnp.asarray(video)))
+    assert got.shape == want.shape == (1, cfg.z_dim, 1 + (shape[0] - 1) // 4,
+                                       shape[1] // 8, shape[2] // 8)
+    _check(got, want, "fp32")
+    _check(got, whole, "fp32")
+
+
+def test_strips_equal_whole_with_the_kernels_plain_conv(rng, tiny_vae):
+    """With the kernel's own plain version (bf16-rounded operands, fp32
+    sums), the tiled decode and encode hold the untiled ones at 1e-5: the
+    strips feed every conv the same rounded operands."""
     _, _, tp = tiny_vae
     cfg = tvae.WanVAEConfig.tiny()
-    video = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 10, 16, 16)).astype(
+    z = torch.from_numpy(rng.standard_normal((1, cfg.z_dim, 3, 4, 2)).astype(
         np.float32))
-    dec, enc = vae_fn_pair(True, chunk=2)
-    lat = enc(tp, cfg, video)
-    torch.testing.assert_close(lat, tvae.vae_encode(tp, cfg, video[:, :, :9]),
-                               rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(dec(tp, cfg, lat), tvae.vae_decode(tp, cfg,
-                                                                  lat),
-                               rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="H-strip"):
-        tvs.vae_encode_streaming(tp, cfg, video[:, :, :9], spatial_chunks=2)
-    with pytest.raises(NotImplementedError, match="H-strip"):
-        tvs.vae_decode_streaming(tp, cfg, lat, spatial_chunks=2)
+    video = torch.from_numpy((0.5 * rng.standard_normal((1, 3, 5, 32, 16))
+                              ).astype(np.float32))
+    for run in (lambda n: tvs.vae_decode_streaming(tp, cfg, z,
+                                                   spatial_chunks=n),
+                lambda n: tvs.vae_encode_streaming(tp, cfg, video,
+                                                   spatial_chunks=n)):
+        whole = run(1).numpy()
+        for n in (2, 4):
+            rel_max, rel_l2 = _rel(run(n).numpy(), whole)
+            assert rel_max < 1e-5 and rel_l2 < 1e-5, (n, rel_max, rel_l2)
 
 
 def test_caches_match_jax_tree(tiny_vae):

@@ -52,8 +52,10 @@ def _gammas(tree, rng):
 @pytest.fixture(scope="module")
 def vggt():
     cfg = jmodel.VGGTConfig.tiny()
-    p = _gammas(jinf.init_vggt_full(jax.random.key(0), cfg),
-                np.random.default_rng(1))
+    # the JAX init jitted (here and in the DPT head test): one compile,
+    # not op by op
+    p = _gammas(jax.jit(lambda k: jinf.init_vggt_full(k, cfg))(
+        jax.random.key(0)), np.random.default_rng(1))
     rng = np.random.default_rng(2)
     images = rng.random((1, 2, 3, 28, 56)).astype(np.float32)
     return cfg, p, vggt_params_from_jax(jax.tree_util.tree_map(np.asarray, p)
@@ -79,10 +81,25 @@ def test_rope2d_matches_jax(rng):
            jmodel.rope2d_rotate(jnp.asarray(x), pos), 1e-6)
 
 
-def test_aggregator_taps_match_jax(vggt):
+@pytest.fixture(scope="module")
+def jax_outputs(vggt):
+    """JAX's aggregator taps and ``vggt_forward`` on the fixture's tree and
+    images, in one jitted program computed once for the tests that hold
+    the port against them."""
+    cfg, p, _, images = vggt
+    return jax.jit(lambda q, im: (
+        jmodel.vggt_aggregator_forward(q["aggregator"], cfg, im),
+        jinf.vggt_forward(q, cfg, im)))(p, jnp.asarray(images))
+
+
+@pytest.fixture(scope="module")
+def jax_forward(jax_outputs):
+    return jax_outputs[1]
+
+
+def test_aggregator_taps_match_jax(vggt, jax_outputs):
     cfg, p, tp, images = vggt
-    want = jmodel.vggt_aggregator_forward(p["aggregator"], cfg,
-                                          jnp.asarray(images))
+    want = jax_outputs[0]
     got = tmodel.vggt_aggregator_forward(tp["aggregator"],
                                          tmodel.VGGTConfig.tiny(),
                                          torch.from_numpy(images))
@@ -116,7 +133,7 @@ def test_deconv_matches_jax(rng, stride):
 
 def test_dpt_head_matches_jax(rng):
     jcfg = jheads.DPTHeadConfig.tiny(dim_in=64)
-    p = jheads.init_dpt_head(jax.random.key(4), jcfg)
+    p = jax.jit(lambda k: jheads.init_dpt_head(k, jcfg))(jax.random.key(4))
     taps = [rng.standard_normal((1, 2, 3 + 8, 64)).astype(np.float32)
             for _ in range(4)]
     want = jax.jit(lambda p, t: jheads.dpt_head_forward(
@@ -129,9 +146,9 @@ def test_dpt_head_matches_jax(rng):
         _close(g.numpy(), w)
 
 
-def test_vggt_forward_matches_jax(vggt):
+def test_vggt_forward_matches_jax(vggt, jax_forward):
     cfg, p, tp, images = vggt
-    want = jinf.vggt_forward(p, cfg, jnp.asarray(images))
+    want = jax_forward
     got = tinf.vggt_forward(tp, tmodel.VGGTConfig.tiny(),
                             torch.from_numpy(images))
     assert got["depth"].shape == (1, 2, 28, 56, 1)
@@ -139,7 +156,7 @@ def test_vggt_forward_matches_jax(vggt):
         _close(got[key].numpy(), want[key])
 
 
-def test_pose_encoding_and_depth_and_camera(vggt):
+def test_pose_encoding_and_depth_and_camera(vggt, jax_forward):
     cfg, p, tp, images = vggt
     enc = np.random.default_rng(5).standard_normal((1, 2, 9)).astype(
         np.float32)
@@ -149,7 +166,7 @@ def test_pose_encoding_and_depth_and_camera(vggt):
     depth, conf, e44, k = tinf.depth_and_camera(
         tp, tmodel.VGGTConfig.tiny(), images[0], camera_index=1,
         device="cpu")
-    out = jinf.vggt_forward(p, cfg, jnp.asarray(images))
+    out = jax_forward
     extr, intr = jutils.pose_encoding_to_extri_intri(
         np.asarray(out["pose_enc"]), (28, 56))
     _close(depth, np.asarray(out["depth"])[0, 1, :, :, 0])

@@ -10,20 +10,21 @@ kernel's plain version):
   - every 3x3x3 stride-1 causal conv -> ``ops/conv3d.conv3d_causal``
     (kernel 4), exactly where the JAX ``_causal_conv3d`` takes its
     ``"pallas"`` branch: inputs rounded to bf16, fp32 accumulation;
-  - on the card, the decoder's stride-1 3x3 resample convs (after the
-    nearest x2) -> ``ops/conv3d.conv2d_3x3``, kernel 4 with one temporal
-    tap;
+  - on the card, the 3x3 resample convs -> ``ops/conv3d.conv2d_3x3``,
+    kernel 4 with one temporal tap: the decoder's stride-1 convs (after
+    the nearest x2), and the encoder's stride-2 VALID convs as the stride-1
+    SAME conv's odd rows and columns (``_conv2d_s2_one_tap``), so that the
+    single pass and the streaming encoder's H-strips share one route;
   - the mid-block single-head attention -> flash attention (kernel 1), fp32.
-The other convs (the 3x1x1 time convs, 1x1x1 shortcuts and projections, the
-encoder's stride-2 convs) stay XLA convs in JAX, which passes them no
-precision: on its chip they run bf16 operands with fp32 sums. On the card
-they run so here too (``_xla_conv``: cuDNN's TF32 algorithms on operands
-rounded to bf16, exact products, fp32 sums and result), which also keeps
-cuDNN off the fp32 algorithm that took a 36.77 GB workspace and 280-358
-ms a call for one 480p resample conv (``chip_smoke.py``'s
-vae_conv2d_workspace line, NVIDIA H100 80GB HBM3 at 700 W). On the CPU they, and the
-resample convs, stay full fp32 (TF32 off), as the JAX package's CPU tests
-run them.
+The other convs (the 3x1x1 time convs, 1x1x1 shortcuts and projections)
+stay XLA convs in JAX, which passes them no precision: on its chip they
+run bf16 operands with fp32 sums. On the card they run so here too
+(``_xla_conv``: cuDNN's TF32 algorithms on operands rounded to bf16, exact
+products, fp32 sums and result), which also keeps cuDNN off the fp32
+algorithm that took a 36.77 GB workspace and 280-358 ms a call for one
+480p resample conv (``chip_smoke.py``'s vae_conv2d_workspace line, NVIDIA
+H100 80GB HBM3 at 700 W). On the CPU they, and the resample convs, stay
+full fp32 (TF32 off), as the JAX package's CPU tests run them.
 
 The streaming encoder and decoder are in ``vae_stream.py``.
 """
@@ -96,11 +97,28 @@ def _causal_conv3d(p, x, *, stride_t: int = 1, spatial_same: bool = True,
 
 
 def _conv2d(p, x, *, stride: int = 1, padding: int = 0):
-    """x: [N,H,W,C], kernel [kh,kw,in,out]."""
-    if (x.device.type == "cuda" and stride == 1 and padding == 1
-            and tuple(p["w"].shape[:2]) == (3, 3)):
-        return conv2d_3x3(x, p["w"], p.get("b"), out_dtype=x.dtype)
+    """x: [N,H,W,C], kernel [kh,kw,in,out]. On the card a 3x3 conv at
+    stride 1 SAME or stride 2 VALID runs on kernel 4's one tap."""
+    if x.device.type == "cuda" and tuple(p["w"].shape[:2]) == (3, 3):
+        if stride == 1 and padding == 1:
+            return conv2d_3x3(x, p["w"], p.get("b"), out_dtype=x.dtype)
+        if stride == 2 and padding == 0:
+            return _conv2d_s2_one_tap(p, x)
     return _xla_conv(p, x, stride=stride, padding=padding)
+
+
+def _conv2d_s2_one_tap(p, x):
+    """The 3x3 stride-2 VALID conv of x [N, H, W, C] through
+    ``conv2d_3x3`` (kernel 4's one tap on the card, its plain version on
+    the CPU): output row o reads input rows 2o .. 2o+2, the window of the
+    SAME conv's row 2o+1, so the odd rows and columns of the stride-1 SAME
+    conv are the stride-2 conv. It does 4x that conv's products, and its
+    sums per output do not depend on the input's height, so H-strips of
+    the input give the whole conv's values bit for bit (cuDNN picks its
+    algorithm per shape, and strips then differ in their last bits)."""
+    ho, wo = (x.shape[1] - 1) // 2, (x.shape[2] - 1) // 2
+    y = conv2d_3x3(x, p["w"], p.get("b"), out_dtype=x.dtype)
+    return y[:, 1:2 * ho:2, 1:2 * wo:2]
 
 
 def _xla_conv(p, x, *, stride, padding):

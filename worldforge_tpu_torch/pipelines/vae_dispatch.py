@@ -29,16 +29,20 @@ def _truncate_to_causal(video):
     return video[:, :, : 1 + 4 * ((t - 1) // 4)]
 
 
-def vae_fn_pair(streaming: bool, chunk: int = 1):
+def vae_fn_pair(streaming: bool, chunk: int = 1, spatial_chunks: int = 1):
     """(decode_fn, encode_fn) with signature f(params, cfg, x); the encode
     fn is shape-aware (see module docstring). ``chunk`` is the streaming
-    decoder's latent frames per step."""
+    decoder's latent frames per step; ``spatial_chunks`` > 1 runs the
+    streaming encoder's and decoder's spatial convs in that many H strips
+    (the same result; ``vae_stream.py``)."""
     if not streaming:
         return vae_decode, (lambda p, cfg, v:
                             vae_encode(p, cfg, _truncate_to_causal(v)))
-    dec = functools.partial(vae_decode_streaming, chunk=chunk)
+    dec = functools.partial(vae_decode_streaming, chunk=chunk,
+                            spatial_chunks=spatial_chunks)
 
     def enc(params, cfg, video):
-        return vae_encode_streaming(params, cfg, _truncate_to_causal(video))
+        return vae_encode_streaming(params, cfg, _truncate_to_causal(video),
+                                    spatial_chunks=spatial_chunks)
 
     return dec, enc

@@ -23,3 +23,10 @@ class TorchCompatibleRNG:
     def randn(self, *shape: int, dtype=np.float32) -> np.ndarray:
         t = torch.randn(shape, generator=self._gen)
         return t.numpy().astype(dtype)
+
+
+def seed_torch_global(seed: int) -> None:
+    """Seed torch's global generators (the CPU's and every card's), as
+    ``transformers`` sampling reads them (``utils/prompt_extend.py``'s
+    ``TransformersPromptExpander``)."""
+    torch.manual_seed(seed % (2 ** 31))
