@@ -352,7 +352,15 @@ AVATAR_NOISE_FRAMES = (AVATAR_CLI_FRAMES - 1) // 4
 AVATAR_AUDIO_TOKENS = 32
 AVATAR_SECONDS, AUDIO_RATE = 3.72, 16000
 
+_T0 = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's records carry ``script_s``, the seconds
+    since the script started, so a run's time can be read phase by
+    phase."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": round(time.time() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -460,6 +468,49 @@ def phase_build():
              for n, log in logs.items()}
     emit({"phase": "build", "sources": list(_build.CUDA_SOURCES),
           "seconds": round(time.time() - t0, 3), "ptxas": ptxas})
+    emit({"phase": "build", "part": "fa_f32_wgmma_ptxas",
+          "instantiations": _ptxas_functions(logs.get("flash_attention", ""),
+                                             "fa_f32_wgmma_kernel")})
+
+
+def _ptxas_functions(log, needle):
+    """``nvcc -Xptxas -v``'s registers, spills and static shared memory for
+    each entry function whose mangled name holds ``needle``, with the
+    dynamic shared memory of kernel 1's fp32 plan for its head dim and
+    variant (the template arguments, ``ILi64ELi0E``). Empty when the
+    library was built before (no log)."""
+    import re
+    from worldforge_tpu_torch.ops.flash_attention import _fwd_plan
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            cur = None
+            if needle in name:
+                cur = next((f for f in out if f["function"] == name), None)
+                if cur is None:
+                    t = re.search(r"ILi(\d+)ELi(\d+)E", name)
+                    cur = {"function": name}
+                    if t:
+                        d, variant = int(t.group(1)), int(t.group(2))
+                        cur.update(head_dim=d, variant=variant,
+                                   dynamic_smem_bytes=_fwd_plan(
+                                       1, 1, 1, 1, d, variant).smem_bytes)
+                    out.append(cur)
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("spill_stores_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_loads_bytes", r"(\d+) bytes spill loads"),
+                         ("stack_frame_bytes", r"(\d+) bytes stack frame"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
 
 
 def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
@@ -516,21 +567,26 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
 
 
 def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
-                        kv_lens=(0, 77, 300)):
+                        kv_lens=(0, 77, 300), variant=None):
     """Kernel 1's kv_lens masking and return_lse outputs at a small shape:
     by default batch rows with kv_len 0, a ragged length (not a multiple of
     any kv tile) and the full length; with B = 2 and Sq = Sk = 333, a ragged
     last query and key tile in every batch row, which TMA must zero-fill
     without reading the next batch row. o, m and l are held against the
     plain version; a kv_len = 0 row must be exactly zero with m = -1e30,
-    l = 0."""
+    l = 0. ``variant``: the fp32 wgmma kernel's variant to launch (0 long
+    rows, 1 short; default the wrapper's choice)."""
     from worldforge_tpu_torch.ops.flash_attention import (
-        NEG_INF, flash_attention, flash_attention_plain)
+        NEG_INF, _fwd_plan, _launch, flash_attention, flash_attention_plain)
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     kv_lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-    o, m, l = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
+    if variant is None:
+        o, m, l = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
+    else:
+        o, m, l = _launch(q, k, v, kv_lens, 1.0 / math.sqrt(d), True,
+                          plan=_fwd_plan(b, sq, sk, h, d, variant))
     ro, rm, rl = flash_attention_plain(q, k, v, kv_lens=kv_lens,
                                        return_lse=True)
     torch.cuda.synchronize()
@@ -547,7 +603,8 @@ def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
     tol_ml = 1e-4
     ok = (zero_row and bool(torch.isfinite(o).all()) and o_rel <= tol_o
           and m_err <= tol_ml and l_rel <= tol_ml)
-    rec = {"check": f"flash_attention kv_lens+lse {dtype} d{d}",
+    label = f"flash_attention kv_lens+lse {dtype} d{d}"
+    rec = {"check": label if variant is None else f"{label} variant {variant}",
            "shape": [b, sq, sk, h, d], "kv_lens": kv_lens.tolist(),
            "zero_row_exact": zero_row, "o_max_rel_err": o_rel,
            "tol_o_rel": tol_o, "m_err": m_err, "l_rel_err": l_rel,
@@ -556,16 +613,21 @@ def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
     return rec
 
 
-def _check_flash_f32_precision(gen, records, b, s, d):
+def _check_flash_f32_precision(gen, records, b, s, d, h=1, variant=None):
     """Kernel 1's fp32 path on inputs scaled x8 (scores 64x larger), where
     one TF32 pass misses the 1e-4 gate: the kernel's error beside that of
     the plain version run with TF32 matmuls (one pass) on the same inputs,
-    both against the plain version in full fp32."""
+    both against the plain version in full fp32. ``variant``: as in
+    ``_check_flash_masked``."""
     from worldforge_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain)
-    q, k, v = (torch.randn((b, s, 1, d), generator=gen, device="cuda") * 8.0
+        _fwd_plan, _launch, flash_attention, flash_attention_plain)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda") * 8.0
                for _ in range(3))
-    out = flash_attention(q, k, v)
+    if variant is None:
+        out = flash_attention(q, k, v)
+    else:
+        out = _launch(q, k, v, None, 1.0 / math.sqrt(d), False,
+                      plan=_fwd_plan(b, s, s, h, d, variant))
     ref = flash_attention_plain(q, k, v)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -577,10 +639,70 @@ def _check_flash_f32_precision(gen, records, b, s, d):
     top = max(float(ref.abs().max()), 1e-12)
     rel = float((out - ref).abs().max()) / top
     tf32_rel = float((one_pass - ref).abs().max()) / top
-    rec = {"check": f"flash_attention fp32 d{d} inputs x8 (3xTF32)",
-           "shape": [b, s, s, 1, d], "max_rel_err": rel, "tol_rel": 1e-4,
+    label = f"flash_attention fp32 d{d} inputs x8 (3xTF32)"
+    rec = {"check": label if variant is None else f"{label} variant {variant}",
+           "shape": [b, s, s, h, d], "max_rel_err": rel, "tol_rel": 1e-4,
            "one_pass_tf32_matmul_max_rel_err": tf32_rel,
            "ok": bool(torch.isfinite(out).all()) and rel <= 1e-4}
+    records.append(rec)
+    return rec
+
+
+def _check_flash_variants(gen, records, b, sq, sk, h, d, label, iters):
+    """Both variants of kernel 1's fp32 wgmma kernel at head dim 64 (0:
+    long rows, 1: short) timed one after the other on the same inputs, each
+    held against the plain version at the 1e-4 gate, beside the variant
+    ``_fwd_plan`` chooses."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        _fwd_plan, _launch, flash_attention_plain)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda") for s in
+               ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d)))
+    ref = flash_attention_plain(q, k, v)
+    top = max(float(ref.abs().max()), 1e-12)
+    scale = 1.0 / math.sqrt(d)
+    calls = {vr: (lambda plan=_fwd_plan(b, sq, sk, h, d, vr):
+                  _launch(q, k, v, None, scale, False, plan=plan))
+             for vr in (0, 1)}
+    errs = {vr: float((fn() - ref).abs().max()) / top
+            for vr, fn in calls.items()}
+    rec = {"check": f"flash_attention fp32 variants {label}",
+           "shape": [b, sq, sk, h, d],
+           "variant_ms": {str(vr): cuda_ms(fn, iters)
+                          for vr, fn in calls.items()},
+           "chosen": _fwd_plan(b, sq, sk, h, d).variant,
+           "max_rel_err": errs, "tol_rel": 1e-4,
+           "ok": max(errs.values()) <= 1e-4}
+    records.append(rec)
+    return rec
+
+
+def _check_flash_plan_refusals(records):
+    """The fp32 entry point refuses, before it launches anything, a plan
+    its instantiation was not compiled for (16 more bytes of shared memory)
+    and a variant it does not have (1 at head dim 80); no launch is
+    counted."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        _fwd_plan, _launch, flash_attention)
+    q80 = torch.zeros((1, 64, 1, 80), device="cuda")
+    q64 = torch.zeros((1, 64, 1, 64), device="cuda")
+    plan = _fwd_plan(1, 64, 64, 1, 64)
+    cases = {"smem_bytes + 16": (q64, plan._replace(
+                 smem_bytes=plan.smem_bytes + 16), "invalid configuration"),
+             "variant 1 at d 80": (q80, _fwd_plan(1, 64, 64, 1, 80)._replace(
+                 variant=1), "invalid argument")}
+    before = flash_attention.launches
+    errors = {}
+    for name, (x, bad, _) in cases.items():
+        try:
+            _launch(x, x, x, None, 0.125, False, plan=bad)
+            errors[name] = None
+        except RuntimeError as e:
+            errors[name] = str(e)
+    torch.cuda.synchronize()
+    rec = {"check": "flash_attention fp32 plan refusals", "errors": errors,
+           "ok": flash_attention.launches == before and all(
+               errors[name] is not None and want in errors[name]
+               for name, (_, _, want) in cases.items())}
     records.append(rec)
     return rec
 
@@ -933,9 +1055,10 @@ def phase_kernels():
     main[CLIP_ROW] = _check_flash(
         gen, records, 1, s, 257, 40, 128, torch.bfloat16, 2e-2, 1e-2,
         "flash_attention clip cross-attn", 10)
-    _check_flash(gen, records, GEN_FRAMES // 4 + 1, (HEIGHT // 8) *
-                 (WIDTH // 8), (HEIGHT // 8) * (WIDTH // 8), 1, 384,
-                 torch.float32, 1e-4, 1e-4, "flash_attention vae fp32 d384", 3)
+    main[WAN_VAE_ROW] = _check_flash(
+        gen, records, GEN_FRAMES // 4 + 1, (HEIGHT // 8) * (WIDTH // 8),
+        (HEIGHT // 8) * (WIDTH // 8), 1, 384, torch.float32, 1e-4, 1e-4,
+        "flash_attention vae fp32 d384", 3)
     for dtype, dims in ((torch.bfloat16, (64, 128)),
                         (torch.float32, (64, 80, 128, 384, 512))):
         for d in dims:
@@ -952,8 +1075,9 @@ def phase_kernels():
                  10)
     _check_flash(gen, records, 1, 1, 1, 16, 128, torch.float32, 1e-4, 1e-4,
                  "flash_attention vggt camera trunk fp32 d128 S=1", 10)
-    _check_flash(gen, records, 1, 257, 257, 16, 80, torch.float32, 1e-4,
-                 1e-4, "flash_attention clip-h fp32 d80", 10)
+    main[CLIP_H_ROW] = _check_flash(
+        gen, records, 1, 257, 257, 16, 80, torch.float32, 1e-4, 1e-4,
+        "flash_attention clip-h fp32 d80", 10)
     # the same three with kv_lens and m / l: a second batch row with a
     # ragged key length (none at S = 1: an empty row)
     for d, s_, kl in ((64, VGGT_TOKENS, 500), (128, 1, 0), (80, 257, 200)):
@@ -962,6 +1086,17 @@ def phase_kernels():
     _check_flash_f32_precision(gen, records, 1, 257, 80)
     _check_flash_f32_precision(gen, records, 1, (HEIGHT // 8) * (WIDTH // 8),
                                384)
+    # the fp32 wgmma kernel's variants (both at d 64, the long one at d 80)
+    # at small ragged shapes with kv_lens and m / l, and on inputs x8
+    for d, variants in ((64, (0, 1)), (80, (0,))):
+        for variant in variants:
+            _check_flash_masked(gen, records, d, torch.float32,
+                                variant=variant)
+            _check_flash_masked(gen, records, d, torch.float32, b=2, sq=333,
+                                sk=333, kv_lens=(333, 129), variant=variant)
+            _check_flash_f32_precision(gen, records, 1, 1000, d, h=4,
+                                       variant=variant)
+    _check_flash_plan_refusals(records)
     main["rope_qk"] = _check_rope(
         gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16, WIDTH // 16), 40,
         128, 20)
@@ -1058,6 +1193,9 @@ def phase_kernels():
     main[SFM_GLOBAL_ROW] = _check_flash(
         gen, records, 1, SFM_FRAMES * SFM_TOKENS, SFM_FRAMES * SFM_TOKENS,
         16, 64, torch.float32, 1e-4, 1e-4, SFM_GLOBAL_ROW, 5)
+    main[SFM_FRAME_ROW] = _check_flash(
+        gen, records, SFM_FRAMES, SFM_TOKENS, SFM_TOKENS, 16, 64,
+        torch.float32, 1e-4, 1e-4, SFM_FRAME_ROW, 10)
     main.update(_dc_kernel_checks(gen, records))
     main.update(_backward_kernel_checks(gen, records))
     for rec in records:
@@ -1131,6 +1269,12 @@ def _dc_kernel_checks(gen, records):
     rows["flash_attention fp32 d64 (svd unet spatial)"] = _check_flash(
         gen, records, w, DC_TOKENS, DC_TOKENS, DC_HEADS, 64, torch.float32,
         1e-4, 1e-4, "flash_attention svd unet spatial fp32 d64", 2)
+    for level in (2, 3):
+        tokens, heads = DC_TOKENS >> 2 * (level - 1), DC_HEADS << (level - 1)
+        rows[DC_LEVEL_ROW.format(level)] = _check_flash(
+            gen, records, w, tokens, tokens, heads, 64, torch.float32, 1e-4,
+            1e-4, f"flash_attention svd unet spatial level {level} fp32 d64",
+            3)
     rows["flash_attention fp32 d64 (svd unet temporal)"] = _check_flash(
         gen, records, DC_TOKENS, w, w, DC_HEADS, 64, torch.float32, 1e-4,
         1e-4, "flash_attention svd unet temporal fp32 d64", 3)
@@ -1144,6 +1288,11 @@ def _dc_kernel_checks(gen, records):
                 (64, torch.float32, "fp32", 1e-4, 1e-4),
                 (64, torch.bfloat16, "bf16", 2e-2, 1e-2),
                 (128, torch.bfloat16, "bf16", 2e-2, 1e-2))]
+    # the fp32 wgmma kernel's two variants where the choice is close
+    for shape, label in (((w, DC_TOKENS, 1, DC_HEADS, 64), "svd unet cross"),
+                         ((DC_TOKENS, w, w, DC_HEADS, 64), "svd unet temporal"),
+                         ((GRID_ROWS, 16, 16, 1, 64), "B*H 70000")):
+        _check_flash_variants(gen, records, *shape, label, 3)
     rows["flash_attention fp32 d64 (B*H > 65535)"] = {
         **grid[0], "grid_checks": [
             {k: r[k] for k in ("check", "shape", "dtype", "max_abs_err",
@@ -1545,6 +1694,9 @@ def _require_launches(launches, names, phase):
                          f"path: {idle}")
 
 
+# the SVD UNet's spatial attention at its second and third levels (the
+# tokens / 4 and / 16, the heads x 2 and x 4)
+DC_LEVEL_ROW = "flash_attention fp32 d64 (svd unet spatial level {})"
 # the table's rows at the DepthCrafter stage's shapes: (row, wrapper, which
 # keys of the wrapper's ``launches_by_shape`` the row counts). A row counts
 # the launches at its own shape, in the runs that give it that shape: the
@@ -1561,6 +1713,11 @@ DC_ROWS = (
     ("flash_attention fp32 d64 (svd unet temporal)", "flash_attention",
      lambda k: k == ("fp32 d64", DC_TOKENS * DC_HEADS, DC_PUBLISHED_WINDOW,
                      DC_PUBLISHED_WINDOW)),
+    *((DC_LEVEL_ROW.format(lv), "flash_attention",
+       lambda k, lv=lv: k == ("fp32 d64", DC_PUBLISHED_WINDOW * DC_HEADS
+                              << (lv - 1), DC_TOKENS >> 2 * (lv - 1),
+                              DC_TOKENS >> 2 * (lv - 1)))
+      for lv in (2, 3)),
     ("flash_attention fp32 d64 (svd unet cross Sk=1)", "flash_attention",
      lambda k: k == ("fp32 d64", DC_PUBLISHED_WINDOW * DC_HEADS, DC_TOKENS,
                      1)),
@@ -1603,11 +1760,42 @@ WAN_ROWS = (
 # 8 x 1,374 = 10,992 tokens), counted at its own shape
 SFM_GLOBAL_ROW = (f"flash_attention fp32 d64 (vggt global attn, "
                   f"{SFM_FRAMES} x {SFM_TOKENS} tokens)")
+SFM_FRAME_ROW = (f"flash_attention fp32 d64 (vggt frame attn, "
+                 f"{SFM_FRAMES} frames of {SFM_TOKENS} tokens)")
 SFM_ROWS = (
     (SFM_GLOBAL_ROW, "flash_attention",
      lambda k: k == ("fp32 d64", 16, SFM_FRAMES * SFM_TOKENS,
                      SFM_FRAMES * SFM_TOKENS)),
+    (SFM_FRAME_ROW, "flash_attention",
+     lambda k: k == ("fp32 d64", SFM_FRAMES * 16, SFM_TOKENS, SFM_TOKENS)),
 )
+# the fp32 rows of the Wan2.1 VAE's mid attention (the generate's decode,
+# 5 latent frames at 480 x 832) and CLIP-H (16 heads of 80), counted at
+# their own shapes on every path
+WAN_VAE_ROW = "flash_attention fp32 d384 (wan vae mid, 5 x 6240)"
+CLIP_H_ROW = "flash_attention fp32 d80 (clip-h, 257 tokens)"
+F32_ROWS = (
+    (WAN_VAE_ROW, "flash_attention",
+     lambda k: k == ("fp32 d384", GEN_FRAMES // 4 + 1,
+                     (HEIGHT // 8) * (WIDTH // 8),
+                     (HEIGHT // 8) * (WIDTH // 8))),
+    (CLIP_H_ROW, "flash_attention",
+     lambda k: k == ("fp32 d80", 16, 257, 257)),
+)
+# kernel 1's instantiations: the kernel each runs
+KERNEL1_INSTANTIATIONS = {
+    "bf16 d64": "sm90::attn_sm90_kernel<64, DenseTiles> (wgmma, TMA; "
+                "csrc/attention_sm90.cuh)",
+    "bf16 d128": "sm90::attn_sm90_kernel<128, DenseTiles> (wgmma, TMA; "
+                 "csrc/attention_sm90.cuh)",
+    "fp32 d64": "sm90f32::fa_f32_wgmma_kernel<64, V> (3xTF32 wgmma, TMA "
+                "ring; V 0 long rows, 1 short; csrc/attention_f32_sm90.cuh)",
+    **{f"fp32 d{d}": f"sm90f32::fa_f32_wgmma_kernel<{d}, 0> (3xTF32 "
+                     f"wgmma, TMA ring; csrc/attention_f32_sm90.cuh)"
+       for d in (80, 128)},
+    **{f"fp32 d{d}": f"fa_f32_tf32_kernel<{d}> (3xTF32 mma.sync, cp.async; "
+                     f"csrc/flash_attention.cu)" for d in (384, 512)},
+}
 SFM_PATH_KERNELS = ("flash_attention",)
 
 
@@ -2485,6 +2673,12 @@ def phase_sfm(work_dir, card):
     inference.vggt_forward(params, cfg, images, qp)
     torch.cuda.synchronize()
     rec["vggt_first_call_s"] = time.time() - t0
+    # one forward under torch.profiler, before the counted window: kernel
+    # 1's device time beside the rest and the device's idle share
+    _profile_forward(lambda: inference.vggt_forward(params, cfg, images, qp),
+                     "sfm_vggt_profile", "one VGGT-1B forward with the point "
+                     "and track heads on 8 frames of 518 x 518 under "
+                     "torch.profiler", {"card": card}, warmup=lambda: None)
     _reset_counters()
     t0 = time.time()
     with timed_calls(inference, "track_head_forward", []) as th:
@@ -4879,7 +5073,8 @@ def _profile_longcat_guided_forward(pipe, pe, pmask):
 
 KERNEL_GROUPS = (
     ("bsa (kernel 5)", ("bsatiles",)),
-    ("flash attention (kernel 1)", ("densetiles", "fa_f32_tf32_kernel")),
+    ("flash attention (kernel 1)", ("densetiles", "fa_f32_tf32_kernel",
+                                    "fa_f32_wgmma_kernel")),
     ("rope (kernel 2)", ("rope_qk_kernel",)),
     ("modulated LN (kernel 3)", ("mod_ln_kernel",)),
     ("conv3d (kernel 4)", ("conv3d_kernel",)),
@@ -7429,7 +7624,7 @@ def main() -> int:
     rows += [(row, {**KERNEL_META[counter], "launches_counted":
                     "the launches at this row's shape"}, counter, shape)
              for row, counter, shape in DC_ROWS + FACADE_ROWS + WAN_ROWS
-             + SFM_ROWS]
+             + SFM_ROWS + F32_ROWS]
 
     def count(counts, counter, shape):
         if shape is None:
@@ -7453,6 +7648,9 @@ def main() -> int:
             row["launches_by_instantiation"] = {
                 k[len("flash_attention "):]: n for k, n in launches.items()
                 if k.startswith("flash_attention ")}
+            row["instantiations"] = {
+                inst: KERNEL1_INSTANTIATIONS[inst]
+                for inst in row["launches_by_instantiation"]}
         if "grid_checks" in rec:
             row["grid_checks"] = rec["grid_checks"]
         table.append(row)

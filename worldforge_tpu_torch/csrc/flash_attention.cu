@@ -13,34 +13,69 @@
 // What bounds it on the H100: operations. At the Wan2.1-14B 480p shape
 // (20,280 tokens, 40 heads of 128) one self-attention is 4*S^2*D*H = 8.4
 // TFLOP against 0.83 GB of q/k/v/o, far above the card's ~295 FLOP/byte
-// ridge; the VAE's fp32 single-head attention (d = 384) likewise, where
-// plain FMAs run at a seventh of the TF32 tensor-core rate. So both dtypes
-// run on the tensor cores:
+// ridge; the SVD UNet's fp32 spatial attention ([110, 6656, 5, 64]) is 3 x
+// 6.2 TFLOP of TF32 products against 1.9 GB. So both dtypes run on the
+// tensor cores:
 //   * bf16 (d = 64, 128): the shared wgmma / TMA main loop of
 //     attention_sm90.cuh with the dense tile source: 128 query rows per
 //     block, a producer warp keeping two 128-key K/V stages in flight with
 //     TMA, S and O += P.V as wgmma from shared memory and registers. The
 //     tensor maps are 4D (D, H, S, B), so the ragged last tile of a batch
 //     row is zero-filled by TMA instead of reading the next batch row.
-//   * fp32 (d = 64, 80, 128, 384, 512): the tensor cores through 3xTF32:
-//     every fp32 product is three TF32 mma.sync m16n8k8 products hi.hi +
-//     hi.lo + lo.hi (hi = the input rounded to TF32, lo = the rest rounded
-//     again), summed in fp32, which keeps fp32 accuracy (one TF32 pass keeps
-//     about three decimal digits). mma.sync, not wgmma: TF32 wgmma takes only
-//     K-major operands and V [keys, D] is not K-major for P.V. A 16x384 fp32
-//     accumulator would be 192 registers a thread in one warp, so each
-//     16-row group has WPG warps, each owning 1/WPG of O's columns and
-//     computing 1/WPG of S's depth; the parts of S meet in shared memory,
-//     which also turns S from the accumulator layout into P's A-operand
-//     layout. d <= 384 runs 64 query rows a block with two warps a group;
-//     d = 512 (the SVD VAE's single head) 32 rows with four warps a group:
-//     64 rows would need 283 KB of shared memory for Q, K, V and S against
-//     the 227 KB a block may have, and two warps a group 128 accumulators a
-//     thread. Both are 256 threads. K and V tiles of 32 keys are loaded
-//     with cp.async, each while the other one is in use. The tensor cores
-//     truncate as they add into an fp32 accumulator, a bias that grows with
-//     the count of products, so each product is summed in short runs (a few
-//     k-steps of S, one kv tile of O) that are then added in fp32.
+//   * fp32 keeps fp32 accuracy through 3xTF32: every product is three TF32
+//     products hi.hi + hi.lo + lo.hi (hi = the input rounded to TF32 with
+//     cvt.rna, lo = the rest rounded again; lo.lo is below fp32 rounding).
+//     One TF32 pass keeps about three decimal digits. The bound is the
+//     three products at the card's 495 TFLOP/s TF32 rate.
+//   * fp32 d = 64, 80, 128 (the SVD UNet, VGGT, CLIP-H, VGGT's camera
+//     trunk): attention_f32_sm90.cuh, both products as wgmma m64nNk8 .tf32.
+//     A producer warp fills Q once and a ring of two K/V stages (64 keys at
+//     d 64, 32 at d 80 and 128) with TMA over the same 4D maps, each stage
+//     behind mbarriers. Every operand is split once: three splitter warps
+//     split each K tile in place into a TF32 hi plane with a lo plane beside
+//     it (the split is elementwise, so TMA's swizzled layout carries over)
+//     and V into hi / lo planes of V^T; Q is split once a block, in the
+//     consumers' registers at d 64 and 80 (S's A operand from registers,
+//     which halves S's shared-memory reads), in shared memory by the
+//     splitter at d 128 (its fragments would take 128 registers a thread).
+//     TF32 wgmma reads only K-major operands from shared memory, and V
+//     [keys, D] is not K-major for P.V: the splitter writes V^T [D, keys]
+//     with keys inner, in the 128-byte swizzle, and with the keys of each
+//     8-key step in the order 0 2 4 6 1 3 5 7. That order puts P in
+//     wgmma's register A layout as it is: S's accumulator holds keys 2t,
+//     2t + 1 of a step in a thread where the A fragment reads k-columns t,
+//     t + 4, and the softmax and the P.V sum do not depend on key order. So
+//     S, P and O stay in registers; P is split in registers. Two consumer
+//     warpgroups of 64 query rows (one at d 128) run S = Q.K^T and O +=
+//     P.V (A from registers), taking turns to issue S so one's softmax
+//     overlaps the other's products. The tensor cores truncate as they add
+//     into an fp32 accumulator, a bias that grows with the count of
+//     products summed: S is summed in runs of at most 8 k-steps, each run's
+//     cross terms first and hi.hi last, the runs added in fp32; each tile's
+//     P.V is summed in a fresh accumulator and added to O in fp32. At d 64 a
+//     second variant for short rows (at most 64 keys, or a grid of
+//     long-variant blocks below one wave) has one consumer warpgroup and
+//     32-key tiles in 97 KB, so two blocks share an SM and one's loads and
+//     split overlap another's epilogue. The host's plan (ops/
+//     flash_attention.py::_fwd_plan) picks the variant and is passed to the
+//     entry point, which runs only the plan its instantiation was compiled
+//     for. No scratch in device memory: the split planes live in shared
+//     memory (193 KB at d 64 and 128, 141 KB at d 80).
+//   * fp32 d = 384, 512 (the Wan2.1 and SVD VAEs' single-head mid
+//     attention) stay on the mma.sync kernel below (fa_f32_tf32_kernel),
+//     chosen by head dim in wf_flash_attention_f32: a 64-row O accumulator
+//     of 384 or 512 columns is 192 or 256 fp32 registers a thread in one
+//     warpgroup, and Q's hi / lo planes alone are 196 or 262 KB, so the
+//     wgmma layout above does not fit them. That kernel runs 3xTF32
+//     mma.sync m16n8k8 products: each 16-row group has WPG warps, each
+//     owning 1/WPG of O's columns and computing 1/WPG of S's depth; the
+//     parts of S meet in shared memory, which also turns S from the
+//     accumulator layout into P's A-operand layout. d = 384 runs 64 query
+//     rows a block with two warps a group; d = 512 32 rows with four warps a
+//     group: 64 rows would need 283 KB of shared memory for Q, K, V and S.
+//     Both are 256 threads. K and V tiles of 32 keys are loaded with
+//     cp.async, each while the other one is in use. Its products are summed
+//     in short runs (a few k-steps of S, one kv tile of O) added in fp32.
 //   * Blocks are numbered on gridDim.x alone (x = bh * qtiles + query tile),
 //     whose limit is 2^31 - 1: on gridDim.y, B*H would stop at 65,535, and
 //     the SVD UNet's temporal attention has B*H = (H/8)(W/8) x 5 rows at its
@@ -50,7 +85,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "attention_sm90.cuh"
+#include "attention_f32_sm90.cuh"
 
 namespace {
 
@@ -185,7 +223,7 @@ fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rg = warp / WPG, part = warp % WPG;
   const int r0 = rg * 16 + g, r1 = r0 + 8;       // this thread's rows
   const long rs = (long)H * D;                   // token stride
-  const int kv_len = max(0, min(kv_lens[b], Sk));
+  const int kv_len = kv_lens != nullptr ? max(0, min(kv_lens[b], Sk)) : Sk;
   const int ntiles = (kv_len + kFK - 1) / kFK;   // tiles past kv_len skip
   const float* qb = q + ((long)b * Sq + q0) * rs + (long)h * D;
   const float* kb = k + (long)b * Sk * rs + (long)h * D;
@@ -423,33 +461,95 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The mma.sync kernel's plan: query rows a block, keys a tile, stages (one
+// K and one V tile, each loaded while the other is in use), threads,
+// dynamic shared-memory bytes.
+template <int D>
+void plan_mma_sync(int* out) {
+  out[0] = F32Tile<D>::QB;
+  out[1] = kFK;
+  out[2] = 1;
+  out[3] = kFThreads;
+  out[4] = (int)F32Smem<D>::bytes;
+}
+
+// The compiled plan of fp32 head dim D, variant V into out[5] (query rows a
+// block, keys a tile, ring stages, threads, dynamic shared-memory bytes):
+// the wgmma kernel at d 64 (variants 0, long rows, and 1, short rows), 80
+// and 128 (variant 0), the mma.sync kernel at d 384 and 512 (variant 0).
+// False when there is no such instantiation.
+bool f32_plan(int D, int V, int* out) {
+  if (V == 1 && D == 64) {
+    sm90f32::plan_of<64, 1>(out);
+    return true;
+  }
+  if (V != 0) return false;
+  switch (D) {
+    case 64: sm90f32::plan_of<64, 0>(out); return true;
+    case 80: sm90f32::plan_of<80, 0>(out); return true;
+    case 128: sm90f32::plan_of<128, 0>(out); return true;
+    case 384: plan_mma_sync<384>(out); return true;
+    case 512: plan_mma_sync<512>(out); return true;
+  }
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. m/l may be null (no return_lse).
-// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// (dtype, head_dim) pair that has no instantiation or a tensor the TMA
-// descriptors refuse.
+// bf16 with head dim 64 or 128; m/l may be null (no return_lse). Returns
+// cudaGetLastError() after the launch; cudaErrorInvalidValue for a head dim
+// that has no instantiation or a tensor the TMA descriptors refuse. fp32
+// launches through wf_flash_attention_f32.
 int wf_flash_attention(const void* q, const void* k, const void* v,
                        const void* kv_lens, void* o, void* m, void* l, int B,
-                       int Sq, int Sk, int H, int D, float scale, int dtype,
+                       int Sq, int Sk, int H, int D, float scale,
                        void* stream) {
   const int* kl = static_cast<const int*>(kv_lens);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (D == 64) return launch_bf16<64>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-    if (D == 128) return launch_bf16<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-  } else if (dtype == 0) {
-    if (D == 64) return launch_f32<64>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-    if (D == 80) return launch_f32<80>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-    if (D == 128) return launch_f32<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-    if (D == 384) return launch_f32<384>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-    if (D == 512) return launch_f32<512>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-  }
+  if (D == 64) return launch_bf16<64>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
+  if (D == 128) return launch_bf16<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// fp32 flash attention laid out by the host's plan (variant V, rows,
+// key_tile, stages, threads, smem_bytes: ops/flash_attention.py::_fwd_plan),
+// run by the instantiation of head dim D and variant V, which must have been
+// compiled for exactly that plan. Refused before anything runs:
+// cudaErrorInvalidValue for a head dim and variant with no instantiation,
+// cudaErrorInvalidConfiguration for another plan. kv_lens may be null:
+// every batch row then has Sk keys.
+int wf_flash_attention_f32(const void* q, const void* k, const void* v,
+                           const void* kv_lens, void* o, void* m, void* l,
+                           int B, int Sq, int Sk, int H, int D, float scale,
+                           int V, int rows, int key_tile, int stages,
+                           int threads, int smem_bytes, void* stream) {
+  int own[5];
+  if (!f32_plan(D, V, own)) return (int)cudaErrorInvalidValue;
+  const int plan[5] = {rows, key_tile, stages, threads, smem_bytes};
+  if (!std::equal(own, own + 5, plan))
+    return (int)cudaErrorInvalidConfiguration;
+  const int* kl = static_cast<const int*>(kv_lens);
+  float* op = static_cast<float*>(o);
+  float* mp = static_cast<float*>(m);
+  float* lp = static_cast<float*>(l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using sm90f32::launch;
+  switch (D) {
+    case 64:
+      return V ? launch<64, 1>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s)
+               : launch<64, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
+    case 80:
+      return launch<80, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
+    case 128:
+      return launch<128, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
+    case 384:
+      return launch_f32<384>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
+  }
+  return launch_f32<512>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
 }
 
 const char* wf_flash_attention_error_string(int err) {

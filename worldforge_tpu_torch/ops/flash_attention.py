@@ -2,8 +2,16 @@
 
 Counterpart of ``worldforge_tpu/ops/flash_attention.py::flash_attention``;
 the Pallas TPU kernel ``_fa_kernel`` (:34, ``pallas_call`` :124) becomes the
-CUDA C++ kernel in ``csrc/flash_attention.cu`` (the design note and what
-bounds it on the H100 are at the top of that file).
+CUDA C++ kernels in ``csrc/flash_attention.cu`` (the design note and what
+bounds them on the H100 are at the top of that file): bf16 on the shared
+``wgmma`` / TMA loop of ``csrc/attention_sm90.cuh``; fp32 with head dim 64,
+80 or 128 on ``csrc/attention_f32_sm90.cuh`` (every product three TF32
+``wgmma`` products fed by a TMA ring, each tile split into TF32 hi / lo
+planes once in shared memory); fp32 with head dim 384 or 512 on the
+``mma.sync`` kernel ``fa_f32_tf32_kernel``. The fp32 launch is laid out by
+the host-side ``_fwd_plan`` (variant, rows, key tile, ring stages, threads,
+shared memory; no device scratch), which the kernel refuses if it is not
+the plan compiled for that head dim and variant.
 
 ``flash_attention`` launches the kernel for CUDA tensors and uses
 ``flash_attention_plain`` only for tensors on the CPU. Both follow the
@@ -25,6 +33,7 @@ and a ``kv_len = 0`` row, whose output is zeros, gets zero dQ.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from fractions import Fraction
 from typing import NamedTuple, Optional
@@ -85,7 +94,94 @@ def flash_attention_plain(q, k, v, *, kv_lens=None, scale=None,
     return o
 
 
-def _launch(q, k, v, kv_lens, scale, return_lse):
+class FwdPlan(NamedTuple):
+    """How the fp32 forward kernel cuts one call: ``variant`` 0 (long rows)
+    or 1 (short rows, head dim 64 only), ``rows`` query rows a block,
+    ``key_tile`` keys a ring stage, ``stages`` ring stages, ``threads`` a
+    block, ``smem_bytes`` of dynamic shared memory, ``blocks`` in the grid
+    (on ``gridDim.x`` alone). The call allocates no device scratch: the
+    TF32 hi / lo planes of Q, K and V^T live in shared memory."""
+    variant: int
+    rows: int
+    key_tile: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+_H100_SMS = 132
+_SHORT_KEYS = 64           # at or below this many keys: the short variant
+
+
+def _fwd_variant(b, sq, sk, h, d, num_sms=_H100_SMS):
+    """The wgmma route's variant for q [b, sq, h, d] and ``sk`` keys: at
+    head dim 64, 1 (short: one consumer warpgroup of 64 rows, 32-key tiles,
+    Q in shared memory; two blocks share an SM) where a row's keys fit one
+    long-variant tile, so a block's loads, split and epilogue are most of
+    its time, or where the long variant's 128-row blocks would not fill one
+    wave of SMs; else 0. ``chip_smoke.py``'s kernels phase times both
+    variants at the SVD UNet's cross-attention to 1 key, its temporal
+    attention (110 keys) and 16-key rows at B*H 70,000 (``variant_ms``)."""
+    if d != 64:
+        return 0
+    return int(sk <= _SHORT_KEYS or -(-sq // 128) * b * h < num_sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _fwd_plan(b, sq, sk, h, d, variant=None):
+    """The fp32 forward kernel's plan for q [b, sq, h, d] and k [b, sk, h,
+    d], as ``csrc/flash_attention.cu`` compiles it for head dim ``d`` and
+    ``variant`` (default: ``_fwd_variant``'s). The wrapper passes it to the
+    kernel, which runs no other.
+
+    wgmma route: two consumer warpgroups of 64 query rows (one at d 128,
+    whose Q planes and O accumulator are twice as wide, and in the short
+    variant) plus a producer and splitter warpgroup; ring stages of 64 keys
+    at d 64 (variant 0), else 32; shared memory Q as it lands (split in the
+    consumers' registers with two consumer warpgroups) or Q hi / lo, then
+    per stage K hi / lo (K lands in the hi plane, split in place) and V^T
+    hi / lo, then, with two consumer warpgroups, raw V of each stage as it
+    lands (with one, V lands in the V^T lo plane), then 4 mbarriers a stage
+    and 2 for Q, and 1 KB to align the base to the 128-byte swizzle's
+    1024-byte atom. mma_sync route: 64 rows (d 384) or 32 (d 512), 32-key
+    tiles, 256 threads, row strides padded against bank conflicts."""
+    if d in (64, 80, 128):
+        if variant is None:
+            variant = _fwd_variant(b, sq, sk, h, d)
+        if variant not in (0, 1) or (variant and d != 64):
+            raise ValueError(f"flash_attention fp32 kernel: no variant "
+                             f"{variant} at head dim {d}")
+        consumers = 1 if d == 128 or variant else 2
+        rows = 64 * consumers
+        key_tile = 64 if d == 64 and not variant else 32
+        stages = 2
+        threads = 128 * (consumers + 1)
+        # Q raw only (split in the consumers' registers) and a stage's K hi
+        # / lo, V^T hi / lo and raw V; with one consumer warpgroup Q's hi /
+        # lo planes and a stage without raw V
+        q_planes, planes = (1, 5) if consumers == 2 else (2, 4)
+        smem = (q_planes * rows * d * 4 + stages * planes * key_tile * d * 4
+                + 8 * (4 * stages + 2) + 1024)
+    elif d in (384, 512):
+        if variant not in (None, 0):
+            raise ValueError(f"flash_attention fp32 kernel: no variant "
+                             f"{variant} at head dim {d}")
+        variant = 0
+        rows, wpg, key_tile, stages, threads = ((64, 2) if d == 384 else
+                                                (32, 4)) + (32, 1, 256)
+        smem = 4 * (rows * (d + 4) + key_tile * (d + 4) + key_tile * (d + 8)
+                    + wpg * rows * (key_tile + 4))
+    else:
+        raise ValueError(f"flash_attention fp32 kernel: no instantiation for "
+                         f"head dim {d}")
+    return FwdPlan(variant, rows, key_tile, stages, threads, smem,
+                   -(-sq // rows) * b * h)
+
+
+def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
+    """The kernel on CUDA tensors; fp32 cut as ``plan`` says (default
+    ``_fwd_plan``'s; a timing harness may pass another compiled variant)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if q.dtype not in _KERNEL_HEAD_DIMS or d not in _KERNEL_HEAD_DIMS[q.dtype]:
@@ -103,26 +199,37 @@ def _launch(q, k, v, kv_lens, scale, return_lse):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention kernel: q, k and v must be 16-byte "
                          "aligned (the kernel copies 16-byte vectors)")
-    if q.dtype == torch.bfloat16 and any(
-            st * t.element_size() % 16 for t in (q, k, v)
-            for st in t.stride()[:-1]):
+    if any(st * t.element_size() % 16 for t in (q, k, v)
+           for st in t.stride()[:-1]):
         raise ValueError("flash_attention kernel: every stride of q, k and v "
                          "must be a multiple of 16 bytes (TMA)")
-    if kv_lens is None:
+    if q.dtype == torch.float32 and plan is None:
+        plan = _fwd_plan(b, sq, sk, h, d)
+    if plan is not None and not 0 < plan.blocks < 2 ** 31:
+        raise ValueError(f"flash_attention kernel: {plan.blocks} blocks "
+                         f"(gridDim.x holds 1 to 2^31 - 1)")
+    if kv_lens is not None:
+        kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    elif plan is None:   # bf16 reads a length per batch row; fp32 takes none
         kv_lens = torch.full((b,), sk, dtype=torch.int32, device=q.device)
-    kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty_like(q)
     m = l = None
     if return_lse:
         m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     lib = _lib()
-    err = lib.wf_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
-        o.data_ptr(), m.data_ptr() if m is not None else None,
-        l.data_ptr() if l is not None else None, b, sq, sk, h, d,
-        float(scale), 1 if q.dtype == torch.bfloat16 else 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_lens.data_ptr() if kv_lens is not None else None,
+            o.data_ptr(), m.data_ptr() if m is not None else None,
+            l.data_ptr() if l is not None else None, b, sq, sk, h, d,
+            float(scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan is None:
+        err = lib.wf_flash_attention(*ptrs, stream)
+    else:
+        err = lib.wf_flash_attention_f32(
+            *ptrs, plan.variant, plan.rows, plan.key_tile, plan.stages,
+            plan.threads, plan.smem_bytes, stream)
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.wf_flash_attention_error_string(err).decode())
@@ -139,8 +246,9 @@ def _launch(q, k, v, kv_lens, scale, return_lse):
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("flash_attention", {
-        "wf_flash_attention": ([p, p, p, p, p, p, p, i, i, i, i, i,
-                                ctypes.c_float, i, p], i),
+        "wf_flash_attention": ([p] * 7 + [i] * 5 + [ctypes.c_float, p], i),
+        "wf_flash_attention_f32": ([p] * 7 + [i] * 5 + [ctypes.c_float]
+                                   + [i] * 6 + [p], i),
         "wf_flash_attention_error_string": ([i], ctypes.c_char_p),
     })
 
@@ -176,7 +284,6 @@ class BwdPlan(NamedTuple):
 
 
 _BWD_KEY_TILE, _BWD_Q_TILE = 128, 64
-_H100_SMS = 132
 _BWD_WAVES = 4   # at or above this many key-tile blocks per SM: no split
 
 
