@@ -378,6 +378,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(calls: dict, iters: int) -> dict:
+    """``cuda_ms`` of each of ``calls`` ({name: fn}) in turns on the same
+    inputs, in order and then back (A, B, B, A): {name: [ms, ms]}, so that
+    clocks and cache state that drift through a run fall on all alike."""
+    ms = {name: [] for name in calls}
+    for name in list(calls) + list(reversed(calls)):
+        ms[name].append(cuda_ms(calls[name], iters))
+    return ms
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -460,17 +470,52 @@ def phase_device():
 def phase_build():
     from worldforge_tpu_torch.ops import _build
     t0 = time.time()
-    logs = _build.build(_build.CUDA_SOURCES)
-    for name in _build.CUDA_SOURCES:
+    sources = _build.CUDA_SOURCES + _build.HOST_SOURCES
+    logs = _build.build(sources)
+    for name in sources:
         _build.load(name)
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    emit({"phase": "build", "sources": list(_build.CUDA_SOURCES),
+    emit({"phase": "build", "sources": list(sources),
           "seconds": round(time.time() - t0, 3), "ptxas": ptxas})
     emit({"phase": "build", "part": "fa_f32_wgmma_ptxas",
           "instantiations": _ptxas_functions(logs.get("flash_attention", ""),
                                              "fa_f32_wgmma_kernel")})
+    emit({"phase": "build", "part": "short_and_conv_ptxas",
+          "instantiations": [
+              f for source, needle in (
+                  ("flash_attention", "attn_short_kernel"),
+                  ("conv3d", "conv3d_kernelILi160E"))
+              for f in _ptxas_registers(logs.get(source, ""), needle)]})
+
+
+def _ptxas_registers(log, needle):
+    """``nvcc -Xptxas -v``'s registers and spills of each entry function
+    whose mangled name holds ``needle``, with ptxas's C75xx notes on it
+    (a serialised ``wgmma`` or an injected wait). Empty when the library
+    was built before (no log)."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)", ln)
+        if m:
+            cur = m.group(1) if needle in m.group(1) else None
+            if cur is not None:
+                out.setdefault(cur, {"function": cur, "notes": []})
+        for name, rec in out.items():
+            if "C75" in ln and name in ln:
+                rec["notes"].append(ln.strip()[:200])
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_loads_bytes", r"(\d+) bytes spill loads")):
+            m = re.search(pat, ln)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return list(out.values())
 
 
 def _ptxas_functions(log, needle):
@@ -513,6 +558,21 @@ def _ptxas_functions(log, needle):
     return out
 
 
+def _flash_plan(b, sq, sk, h, d, dtype):
+    """The plan the wrapper hands kernel 1 for this call, as a record:
+    bf16 route, key tiles, resident K / V, buffers, walk and grid; fp32
+    variant, rows, key tile and blocks."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        _bf16_plan, _fwd_plan, _num_sms)
+    if dtype == torch.float32:
+        return {"dtype": "fp32", **_fwd_plan(b, sq, sk, h, d)._asdict()}
+    plan = _bf16_plan(b, sq, sk, h, d, num_sms=_num_sms(torch.device("cuda")))
+    return {"dtype": "bf16", "route": ("short (csrc/attention_short_sm90.cuh)"
+                                       if plan.route else
+                                       "long (csrc/attention_sm90.cuh)"),
+            **plan._asdict(), "key_tiles": list(plan.key_tiles)}
+
+
 def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
                  label, iters, kv_len=None):
     """Kernel 1 against its plain version. The gates scale with the output:
@@ -520,7 +580,9 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
     within 2^-8 of itself on both sides) and the relative L2 error (leaving
     out one 64-key tile of 20,280 moves the self-attention output by about
     8 / sqrt(20280) = 6% in L2). ``kv_len``: every batch row's key length
-    (``kv_lens``); the bound and the SDPA yardstick count those keys."""
+    (``kv_lens``); the bound and the SDPA yardstick count those keys. The
+    kernel and SDPA are timed in turns (``in_turns``); ``ms`` and
+    ``library_ms`` are the means of their two turns."""
     from worldforge_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
@@ -537,7 +599,14 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
     rel_l2 = float(diff.norm() / ref.float().norm().clamp_min(1e-12))
     ok = (bool(torch.isfinite(out).all()) and rel <= tol_rel
           and rel_l2 <= tol_l2)
-    ms = cuda_ms(lambda: flash_attention(q, k, v, kv_lens=kl), iters)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None if kv_len is None else (
+        torch.arange(sk, device="cuda") < kv_len)[None, None, None, :]
+    turns = in_turns({
+        "kernel": lambda: flash_attention(q, k, v, kv_lens=kl),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)}, iters)
+    ms, lib_ms = (sum(turns[n]) / 2 for n in ("kernel", "sdpa"))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens=kl), 1)
     keys = sk if kv_len is None else kv_len
     flops = 4.0 * b * h * sq * keys * d
@@ -551,17 +620,13 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
         bms, by = bound(3 * flops, io_bytes, PEAK_TF32_FLOPS)
         extra = {"bound_basis": "3 TF32 products at 495 TFLOP/s",
                  "fma_bound_ms": bound(flops, io_bytes, PEAK_FP32_FLOPS)[0]}
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = None if kv_len is None else (
-        torch.arange(sk, device="cuda") < kv_len)[None, None, None, :]
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), iters)
     rec = {"check": label, "shape": [b, sq, sk, h, d], "dtype": str(dtype),
-           "kv_len": kv_len,
+           "kv_len": kv_len, "plan": _flash_plan(b, sq, sk, h, d, dtype),
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol_rel,
            "rel_l2_err": rel_l2, "tol_rel_l2": tol_l2,
            "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-           "bound_by": by, **extra, "library_ms": lib_ms}
+           "bound_by": by, **extra, "library_ms": lib_ms,
+           "turns_ms": turns}
     records.append(rec)
     return rec
 
@@ -606,6 +671,8 @@ def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
     label = f"flash_attention kv_lens+lse {dtype} d{d}"
     rec = {"check": label if variant is None else f"{label} variant {variant}",
            "shape": [b, sq, sk, h, d], "kv_lens": kv_lens.tolist(),
+           "plan": (_flash_plan(b, sq, sk, h, d, dtype) if variant is None
+                    else _fwd_plan(b, sq, sk, h, d, variant)._asdict()),
            "zero_row_exact": zero_row, "o_max_rel_err": o_rel,
            "tol_o_rel": tol_o, "m_err": m_err, "l_rel_err": l_rel,
            "tol_m_l": tol_ml, "ok": ok}
@@ -613,12 +680,25 @@ def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
     return rec
 
 
+def _attention_fp64(q, k, v):
+    """softmax(q k^T / sqrt(d)) v in float64 for q [B, Sq, H, D] and k / v
+    [B, Sk, H, D]: the function kernel 1 and its plain version compute, as
+    the exact yardstick of both."""
+    qd, kd, vd = (x.double().transpose(1, 2) for x in (q, k, v))
+    s = (qd @ kd.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return (torch.softmax(s, -1) @ vd).transpose(1, 2)
+
+
 def _check_flash_f32_precision(gen, records, b, s, d, h=1, variant=None):
     """Kernel 1's fp32 path on inputs scaled x8 (scores 64x larger), where
-    one TF32 pass misses the 1e-4 gate: the kernel's error beside that of
-    the plain version run with TF32 matmuls (one pass) on the same inputs,
-    both against the plain version in full fp32. ``variant``: as in
-    ``_check_flash_masked``."""
+    one TF32 pass misses the 1e-4 gate: the kernel's error beside those of
+    the plain version in full fp32 and run with TF32 matmuls (one pass) on
+    the same inputs, each against the same function in float64. The gate
+    is on the kernel's error against float64: at these scores the plain
+    version's own fp32 error reaches 1e-4 (logits of ~256 keep ~1e-5 of
+    fp32 rounding), so a kernel as exact as float64 would still differ
+    from it by that much; ``max_rel_err_vs_plain_fp32`` records that
+    difference. ``variant``: as in ``_check_flash_masked``."""
     from worldforge_tpu_torch.ops.flash_attention import (
         _fwd_plan, _launch, flash_attention, flash_attention_plain)
     q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda") * 8.0
@@ -635,14 +715,22 @@ def _check_flash_f32_precision(gen, records, b, s, d, h=1, variant=None):
         one_pass = flash_attention_plain(q, k, v)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+    exact = _attention_fp64(q, k, v)
     torch.cuda.synchronize()
-    top = max(float(ref.abs().max()), 1e-12)
-    rel = float((out - ref).abs().max()) / top
-    tf32_rel = float((one_pass - ref).abs().max()) / top
+    top = max(float(exact.abs().max()), 1e-12)
+
+    def err(x):
+        return float((x.double() - exact).abs().max()) / top
+
+    rel = err(out)
     label = f"flash_attention fp32 d{d} inputs x8 (3xTF32)"
     rec = {"check": label if variant is None else f"{label} variant {variant}",
            "shape": [b, s, s, h, d], "max_rel_err": rel, "tol_rel": 1e-4,
-           "one_pass_tf32_matmul_max_rel_err": tf32_rel,
+           "yardstick": "the same function in float64",
+           "plain_fp32_max_rel_err": err(ref),
+           "one_pass_tf32_matmul_max_rel_err": err(one_pass),
+           "max_rel_err_vs_plain_fp32": float((out - ref).abs().max()) / max(
+               float(ref.abs().max()), 1e-12),
            "ok": bool(torch.isfinite(out).all()) and rel <= 1e-4}
     records.append(rec)
     return rec
@@ -703,6 +791,84 @@ def _check_flash_plan_refusals(records):
            "ok": flash_attention.launches == before and all(
                errors[name] is not None and want in errors[name]
                for name, (_, _, want) in cases.items())}
+    records.append(rec)
+    return rec
+
+
+def _check_flash_bf16_routes(gen, records, b, sq, sk, h, label, iters,
+                             kv_len=None):
+    """Kernel 1 bf16 at head dim 128 on its long-row loop (route 0) and on
+    the short-key kernel walking its items head by head (walk 0) and heads
+    fastest (walk 1), timed in turns on the same inputs (route 0, walk 0,
+    walk 1, then back), each held against the plain version at the bf16
+    gates of ``_check_flash``, beside the plan ``_bf16_plan`` chooses."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        _bf16_plan, _launch, _num_sms, flash_attention_plain)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16() for s
+               in ((b, sq, h, 128), (b, sk, h, 128), (b, sk, h, 128)))
+    kl = None if kv_len is None else torch.full(
+        (b,), kv_len, dtype=torch.int32, device="cuda")
+    ref = flash_attention_plain(q, k, v, kv_lens=kl).float()
+    sms = _num_sms(torch.device("cuda"))
+    plans = {"long": _bf16_plan(b, sq, sk, h, 128, 0, sms),
+             "short walk 0": _bf16_plan(b, sq, sk, h, 128, 1, sms, 0),
+             "short walk 1": _bf16_plan(b, sq, sk, h, 128, 1, sms, 1)}
+    calls = {name: (lambda plan=plan: _launch(q, k, v, kl,
+                                              1.0 / math.sqrt(128), False,
+                                              plan=plan))
+             for name, plan in plans.items()}
+    errs = {}
+    for name, fn in calls.items():
+        diff = fn().float() - ref
+        errs[name] = (float(diff.abs().max() / ref.abs().max()),
+                      float(diff.norm() / ref.norm()))
+    ms = in_turns(calls, iters)
+    chosen = _bf16_plan(b, sq, sk, h, 128, num_sms=sms)
+    rec = {"check": f"flash_attention bf16 routes {label}",
+           "shape": [b, sq, sk, h, 128], "kv_len": kv_len, "variant_ms": ms,
+           "chosen": {"route": chosen.route, "walk": chosen.walk},
+           "max_rel_err": {n: e[0] for n, e in errs.items()},
+           "rel_l2_err": {n: e[1] for n, e in errs.items()},
+           "tol_rel": 2e-2, "tol_rel_l2": 1e-2,
+           "ok": all(e[0] <= 2e-2 and e[1] <= 1e-2 for e in errs.values())}
+    records.append(rec)
+    return rec
+
+
+def _check_flash_bf16_plan_refusals(records):
+    """The bf16 entry point refuses, before it launches anything, a plan it
+    does not compile: a third walk, one block more than there are items,
+    the short route at head dim 64, and on the long route walk 1 or one
+    block fewer than its tiles and heads; no launch is counted."""
+    from worldforge_tpu_torch.ops.flash_attention import (
+        _bf16_plan, _launch, flash_attention)
+    q = torch.zeros((1, 300, 2, 128), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 257, 2, 128), device="cuda", dtype=torch.bfloat16)
+    q64 = torch.zeros((1, 300, 2, 64), device="cuda", dtype=torch.bfloat16)
+    k64 = torch.zeros((1, 257, 2, 64), device="cuda", dtype=torch.bfloat16)
+    plan = _bf16_plan(1, 300, 257, 2, 128)
+    long = _bf16_plan(1, 300, 257, 2, 128, route=0)
+    cases = {"walk 2": (q, k, plan._replace(walk=2), "invalid configuration"),
+             "grid items + 1": (q, k, plan._replace(grid=plan.items + 1),
+                                "invalid configuration"),
+             "route 1 at d 64": (q64, k64, plan, "invalid argument"),
+             "route 0 walk 1": (q, k, long._replace(walk=1),
+                                "invalid configuration"),
+             "route 0 grid items - 1": (q, k, long._replace(
+                 grid=long.items - 1), "invalid configuration")}
+    before = flash_attention.launches
+    errors = {}
+    for name, (x, y, bad, _) in cases.items():
+        try:
+            _launch(x, y, y, None, 0.1, False, plan=bad)
+            errors[name] = None
+        except RuntimeError as e:
+            errors[name] = str(e)
+    torch.cuda.synchronize()
+    rec = {"check": "flash_attention bf16 plan refusals", "errors": errors,
+           "ok": flash_attention.launches == before and all(
+               errors[name] is not None and want in errors[name]
+               for name, (_, _, _, want) in cases.items())}
     records.append(rec)
     return rec
 
@@ -1030,12 +1196,17 @@ CONV_RAGGED = (
     (1, 2, 5, 7, 3, 96, _BF16, _BF16),
     (1, 1, 13, 103, 384, 32, _F32, _F32),
 )
-# (N, H, W, Cin, Cout, x dtype, out dtype) for the one-tap instantiation
+# (N, H, W, Cin, Cout, x dtype, out dtype) for the one-tap instantiation;
+# Cout 320 on N 160 in bf16 and fp32, 1280 on N 128 where the wave model
+# takes it (24 frames of 8 x 13)
 CONV2D_RAGGED = (
     (1, 13, 103, 16, 32, _F32, _F32),
     (3, 13, 103, 3, 3, _F32, _F32),
     (2, 17, 33, 32, 16, _BF16, _BF16),
     (2, 17, 33, 384, 192, _F32, _BF16),
+    (24, 17, 33, 320, 320, _BF16, _BF16),
+    (1, 13, 103, 16, 320, _F32, _F32),
+    (24, 7, 13, 64, 1280, _F32, _F32),
 )
 
 
@@ -1158,10 +1329,9 @@ def phase_kernels():
     _check_flash(gen, records, 1, LC_COND_TOKENS, LC_COND_TOKENS, LC_HEADS,
                  128, torch.bfloat16, 2e-2, 1e-2,
                  "flash_attention longcat guided cond->cond", 10)
-    _check_flash(gen, records, 1, LC_TOKENS - LC_COND_TOKENS, TEXT_LEN,
-                 LC_HEADS, 128, torch.bfloat16, 2e-2, 1e-2,
-                 "flash_attention longcat guided text cross-attn kv_lens",
-                 10, kv_len=LC_KV_LEN)
+    main[LC_TEXT_ROW] = _check_flash(
+        gen, records, 1, LC_TOKENS - LC_COND_TOKENS, TEXT_LEN, LC_HEADS, 128,
+        torch.bfloat16, 2e-2, 1e-2, LC_TEXT_ROW, 10, kv_len=LC_KV_LEN)
     _check_rope(gen, records, (DIT_FRAMES // 4 + 1, HEIGHT // 16,
                                WIDTH // 16), LC_HEADS, 128, 20,
                 in_dtype=torch.float32, label="rope_qk longcat guided fp32 in")
@@ -1180,14 +1350,40 @@ def phase_kernels():
         gen, records, AVATAR_NOISE_FRAMES, LC_COND_TOKENS,
         AVATAR_AUDIO_TOKENS, LC_HEADS, 128, torch.bfloat16, 2e-2, 1e-2,
         AUDIO_ROW, 10)
-    _check_flash(gen, records, AVATAR_NOISE_FRAMES, LC_COND_TOKENS,
-                 2 * AVATAR_AUDIO_TOKENS, LC_HEADS, 128, torch.bfloat16,
-                 2e-2, 1e-2, "flash_attention avatar multitalk audio "
-                 "cross-attn 64 keys", 10)
+    main[MULTITALK_ROW] = _check_flash(
+        gen, records, AVATAR_NOISE_FRAMES, LC_COND_TOKENS,
+        2 * AVATAR_AUDIO_TOKENS, LC_HEADS, 128, torch.bfloat16, 2e-2, 1e-2,
+        MULTITALK_ROW, 10)
     _check_flash_masked(gen, records, 128, torch.bfloat16, sk=32,
                         kv_lens=(32, 17, 0))
     _check_flash_masked(gen, records, 64, torch.float32, b=2, sq=100, sk=8,
                         kv_lens=(8, 5))
+    # kernel 1's short-key route (bf16 d 128): key counts at and around its
+    # tile edges (the last tile 16, 32, 64 or 128 wide; K / V resident up to
+    # 320 keys, streamed past it), each with a ragged and an empty row, m /
+    # l, B = 3 and a ragged last query tile; then its routes and walks timed
+    # at the cross-attention rows and at its reach's edge, and a wrong plan
+    # refused
+    for sk in (1, 16, 17, 129, 257, 272, 513, 514):
+        _check_flash_masked(gen, records, 128, torch.bfloat16, sk=sk,
+                            kv_lens=(sk, max(1, 2 * sk // 3), 0))
+    # the same at 3 x 32 query tiles x 40 heads: 3,840 items, about 29 for
+    # each persistent block, so a block crosses heads and batch rows,
+    # reuses its Q buffers, keeps stores in flight behind its loads, and
+    # runs the empty row's items: walk 1 with K / V resident in two buffers
+    # (32 keys), walk 0 with one resident buffer (257) and streamed (514)
+    for sk in (32, 257, 514):
+        _check_flash_masked(gen, records, 128, torch.bfloat16, b=3, sq=4096,
+                            sk=sk, h=40, kv_lens=(sk, 2 * sk // 3, 0))
+    for label, shape in (("text 512", (1, s, 512, 40)),
+                         ("clip 257", (1, s, 257, 40)),
+                         ("audio 32", (AVATAR_NOISE_FRAMES, LC_COND_TOKENS,
+                                       AVATAR_AUDIO_TOKENS, LC_HEADS)),
+                         ("longcat cond 1560", (1, LC_COND_TOKENS,
+                                                LC_COND_TOKENS, LC_HEADS)),
+                         ("2048 keys", (1, s, 2048, 40))):
+        _check_flash_bf16_routes(gen, records, *shape, label, 5)
+    _check_flash_bf16_plan_refusals(records)
     # the sfm phase's new shape: VGGT-1B's global attention over 8 frames
     # of 518 x 518
     main[SFM_GLOBAL_ROW] = _check_flash(
@@ -1298,12 +1494,57 @@ def _dc_kernel_checks(gen, records):
             {k: r[k] for k in ("check", "shape", "dtype", "max_abs_err",
                                "rel_l2_err", "ok", "ms", "plain_ms")}
             for r in grid]}
+    conv_rows = {i: row for row, _, i in DC_CONV_ROWS}
     for i, (n, hh, ww, cin, cout) in enumerate(DC_CONV2D):
         rec = _check_conv2d(gen, records, n, hh, ww, cin, cout, 3,
                             f"conv2d_3x3 svd {cin}->{cout} {n}x{hh}x{ww}")
-        if i == 0:
-            rows["conv2d_3x3 (svd unet 320->320)"] = rec
+        if i in conv_rows:
+            rows[conv_rows[i]] = rec
+    _check_conv2d_slice_widths(gen, records)
     return rows
+
+
+def _check_conv2d_slice_widths(gen, records, iters=3):
+    """Kernel 4's slice width at every ``DC_CONV2D`` pair against the one
+    it had before N 160 (the widest of 128, 96, 32, 16 that divides the
+    padded Cout). Where the plans differ, both are held against
+    ``conv2d_3x3_plain`` at ``_check_conv``'s gate and timed in turns on
+    the same inputs, fp32 in and out as the UNet calls them; the other
+    pairs run the same plan as before, which the record lists."""
+    from worldforge_tpu_torch.ops import conv3d as cv
+    same, rec_pairs = [], []
+    for n, hh, ww, cin, cout in DC_CONV2D:
+        blocks = n * -(-hh // cv.TILE_H) * -(-ww // cv.TILE_W)
+        cout_p = -(-cout // 16) * 16
+        old_n = next(w for w in (128, 96, 32, 16) if cout_p % w == 0)
+        new = cv.conv_plan(cin, cout, blocks=blocks)
+        if new == cv.conv_plan(cin, cout, n=old_n):
+            same.append([n, hh, ww, cin, cout])
+            continue
+        x = torch.randn((n, hh, ww, cin), generator=gen, device="cuda")
+        w = torch.randn((3, 3, cin, cout), generator=gen,
+                        device="cuda") / math.sqrt(9 * cin)
+        bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+        ref = cv.conv2d_3x3_plain(x, w, bias, out_dtype=torch.float32)
+        calls = {f"n{width}": (lambda width=width: cv._launch(
+                     x[None], w, bias, torch.float32, 1, n=width)[0])
+                 for width in (new.n, old_n)}
+        errs = {name: _conv_errors(fn(), ref)[1] for name, fn in calls.items()}
+        turns = in_turns(calls, iters)
+        mean = {name: sum(t) / 2 for name, t in turns.items()}
+        rec_pairs.append({
+            "shape": [n, hh, ww, cin, cout], "new_n": new.n, "old_n": old_n,
+            "turns_ms": turns, "new_ms": mean[f"n{new.n}"],
+            "old_ms": mean[f"n{old_n}"],
+            "new_over_old": mean[f"n{new.n}"] / mean[f"n{old_n}"],
+            "max_rel_err": errs})
+    torch.cuda.synchronize()
+    rec = {"check": "conv2d_3x3 svd slice widths (new vs before N 160)",
+           "pairs": rec_pairs, "same_plan_pairs": same, "tol_rel": 1e-3,
+           "ok": all(e <= 1e-3 for p in rec_pairs
+                     for e in p["max_rel_err"].values())}
+    records.append(rec)
+    return rec
 
 
 # ------------------------------------------------------------ backward kernels
@@ -1694,6 +1935,14 @@ def _require_launches(launches, names, phase):
                          f"path: {idle}")
 
 
+# kernel 4's one-tap rows at the SVD UNet's Cout-320 level and its 640 /
+# 1280 convs: (row, its (Cin, Cout), index in ``DC_CONV2D``), each counted
+# at its own shape
+DC_CONV_ROWS = tuple(
+    (f"conv2d_3x3 (svd unet {cin}->{cout})", (cin, cout), i)
+    for i, (cin, cout) in ((0, (320, 320)), (1, (8, 320)), (2, (640, 320)),
+                           (3, (960, 320)), (4, (640, 640)),
+                           (10, (1280, 1280))))
 # the SVD UNet's spatial attention at its second and third levels (the
 # tokens / 4 and / 16, the heads x 2 and x 4)
 DC_LEVEL_ROW = "flash_attention fp32 d64 (svd unet spatial level {})"
@@ -1723,20 +1972,29 @@ DC_ROWS = (
                      1)),
     ("flash_attention fp32 d64 (B*H > 65535)", "flash_attention",
      lambda k: k[0] == "fp32 d64" and k[1] > 65535),
-    ("conv2d_3x3 (svd unet 320->320)", "conv2d_3x3",
-     lambda k: k == DC_CONV2D[0]),
+    *((row, "conv2d_3x3", lambda k, i=i: k == DC_CONV2D[i])
+      for row, _, i in DC_CONV_ROWS),
 )
 
 # the table's rows at the Wan facades' and the avatar's new kernel-1
 # shapes, counted at their own shape on the paths that give it
 FLF2V_ROW = "flash_attention bf16 d128 (flf2v image cross-attn, 514 keys)"
 AUDIO_ROW = "flash_attention bf16 d128 (avatar audio cross-attn, 32 keys)"
+MULTITALK_ROW = ("flash_attention bf16 d128 (avatar multitalk audio "
+                 "cross-attn, 64 keys)")
+LC_TEXT_ROW = ("flash_attention bf16 d128 (longcat text cross-attn, 512 "
+               "keys, kv_lens)")
 FACADE_ROWS = (
     (FLF2V_ROW, "flash_attention",
      lambda k: k == ("bf16 d128", 40, FACADE_TOKENS, FLF2V_IMAGE_TOKENS)),
     (AUDIO_ROW, "flash_attention",
      lambda k: k == ("bf16 d128", AVATAR_NOISE_FRAMES * LC_HEADS,
                      LC_COND_TOKENS, AVATAR_AUDIO_TOKENS)),
+    (MULTITALK_ROW, "flash_attention",
+     lambda k: k[0] == "bf16 d128" and k[3] == 2 * AVATAR_AUDIO_TOKENS),
+    (LC_TEXT_ROW, "flash_attention",
+     lambda k: k[0] == "bf16 d128" and k[1] == LC_HEADS
+     and k[3] == TEXT_LEN),
 )
 AVATAR_PATH_KERNELS = ("flash_attention", "rope_qk", "conv3d_causal",
                        "conv2d_3x3")
@@ -1786,8 +2044,10 @@ F32_ROWS = (
 KERNEL1_INSTANTIATIONS = {
     "bf16 d64": "sm90::attn_sm90_kernel<64, DenseTiles> (wgmma, TMA; "
                 "csrc/attention_sm90.cuh)",
-    "bf16 d128": "sm90::attn_sm90_kernel<128, DenseTiles> (wgmma, TMA; "
-                 "csrc/attention_sm90.cuh)",
+    "bf16 d128": "up to 2,048 keys sm90short::attn_short_kernel<resident> "
+                 "(persistent, wgmma, TMA; csrc/attention_short_sm90.cuh), "
+                 "past it sm90::attn_sm90_kernel<128, DenseTiles> (wgmma, "
+                 "TMA; csrc/attention_sm90.cuh)",
     "fp32 d64": "sm90f32::fa_f32_wgmma_kernel<64, V> (3xTF32 wgmma, TMA "
                 "ring; V 0 long rows, 1 short; csrc/attention_f32_sm90.cuh)",
     **{f"fp32 d{d}": f"sm90f32::fa_f32_wgmma_kernel<{d}, 0> (3xTF32 "
@@ -5073,7 +5333,8 @@ def _profile_longcat_guided_forward(pipe, pe, pmask):
 
 KERNEL_GROUPS = (
     ("bsa (kernel 5)", ("bsatiles",)),
-    ("flash attention (kernel 1)", ("densetiles", "fa_f32_tf32_kernel",
+    ("flash attention (kernel 1)", ("densetiles", "attn_short_kernel",
+                                    "fa_f32_tf32_kernel",
                                     "fa_f32_wgmma_kernel")),
     ("rope (kernel 2)", ("rope_qk_kernel",)),
     ("modulated LN (kernel 3)", ("mod_ln_kernel",)),

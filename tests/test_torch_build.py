@@ -19,7 +19,7 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-@pytest.mark.parametrize("name", _build.CUDA_SOURCES)
+@pytest.mark.parametrize("name", _build.CUDA_SOURCES + _build.HOST_SOURCES)
 def test_header_edit_changes_target(csrc, name):
     before = _build._target(name)
     header = csrc / "attention_sm90.cuh"

@@ -266,27 +266,39 @@ def test_conv3d_causal_dtypes_match_pallas(rng, x_dtype, out_dtype):
 # 0/1), as its config builds them.
 VAE_CONV_SHAPES = [(3, 96), (96, 96), (96, 192), (192, 192), (192, 384),
                    (384, 384), (384, 32), (16, 384), (96, 3)]
+# Every (Cin, Cout) of kernel 4's one-tap instantiation in the DepthCrafter
+# stage (``chip_smoke.py::DC_CONV2D``): the SVD UNet's 3x3 convs at its four
+# levels (320, 640, 1280, 1280 channels; the skip concatenations' Cin) and
+# the SVD VAE's at 128 / 256 / 512 channels.
+DC_CONV2D_PAIRS = [(320, 320), (8, 320), (640, 320), (960, 320), (640, 640),
+                   (320, 4), (320, 640), (960, 640), (1280, 640),
+                   (1920, 640), (1280, 1280), (640, 1280), (1920, 1280),
+                   (2560, 1280), (3, 128), (128, 128), (256, 128),
+                   (256, 256), (128, 3), (128, 256), (512, 256), (512, 512),
+                   (256, 512), (512, 8), (4, 512)]
 
 
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("cin,cout", VAE_CONV_SHAPES)
+@pytest.mark.parametrize("cin,cout", VAE_CONV_SHAPES + DC_CONV2D_PAIRS)
 def test_conv3d_plan_fits_the_kernel(cin, cout, x_dtype):
     """The tile plan the wrapper hands the kernel: 256 output pixels a
-    block, N slices that divide the padded Cout (the whole Cout up to 128),
-    a Cin chunk that divides the padded Cin, 2 to 4 stages, x by TMA unless
-    its rows are no multiple of 16 bytes (Cin = 3), fp32 x through one or
-    two fp32 staging buffers, and shared memory that holds the ring, the
-    staging and the epilogue's tile within 227 KB."""
+    block, N slices that divide the padded Cout (the whole Cout where it is
+    one of the kernel's widths, 160 for a multiple of 160), a Cin chunk
+    that divides the padded Cin, 2 to 4 stages, x by TMA unless its rows
+    are no multiple of 16 bytes (Cin = 3 in either type, Cin = 4 in bf16),
+    fp32 x through one or two fp32 staging buffers, and shared memory that
+    holds the ring, the staging and the epilogue's tile within 227 KB."""
     dtype = getattr(torch, x_dtype)
     p = tconv.conv_plan(cin, cout, dtype)
     assert p.tile[0] * p.tile[1] == 256
     assert p.cin_p % 16 == 0 and p.cin_p - cin < 16
     assert p.cout_p % 16 == 0 and p.cout_p - cout < 16
-    assert p.n in (16, 32, 96, 128) and p.n * p.nslices == p.cout_p
+    assert p.n in (16, 32, 96, 128, 160) and p.n * p.nslices == p.cout_p
     assert p.nslices == 1 or p.cout_p > 128
+    assert p.n == 160 if p.cout_p % 160 == 0 else p.n <= 128
     assert p.ck in (16, 32) and p.cin_p % p.ck == 0
     assert 2 <= p.stages <= 4
-    assert p.manual == (cin == 3)
+    assert p.manual == (cin * dtype.itemsize % 16 != 0)
     fp32_tma = x_dtype == "float32" and not p.manual
     assert (p.staging in (1, 2)) if fp32_tma else p.staging == 0
     assert p.n % (p.swizzle_bytes // 2) == 0
@@ -318,6 +330,74 @@ def test_conv3d_plan_main_shapes():
     assert (p.cin_p, p.ck, p.stages, p.staging, p.manual) == (16, 16, 4, 0,
                                                               True)
     assert tconv.conv_plan(96, 96, x_aligned=False).manual
+    # the SVD UNet's 320 -> 320 as two slices of 160 (64-byte swizzle),
+    # three 16-channel stages and two staging buffers on fp32 x, at any
+    # block count; 1280 as ten slices of 128 at the UNet's 8 x 13 level,
+    # with the same 16-channel stages
+    p = tconv.conv_plan(320, 320)
+    assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
+            p.smem_bytes) == (160, 2, 16, 3, 2, 64, 218176)
+    assert tconv.conv_plan(320, 320, blocks=768) == p
+    assert tconv.conv_plan(320, 320, blocks=8) == p
+    p, q = tconv.conv_plan(1280, 1280), tconv.conv_plan(1280, 1280,
+                                                        blocks=24)
+    assert (p.n, p.nslices, q.n, q.nslices) == (160, 8, 128, 10)
+    assert (p.ck, p.stages, p.staging) == (q.ck, q.stages, q.staging)
+
+
+# (CoutP, frames, H, W, N): the wave model's choice at the SVD UNet's 3x3
+# convs on a 24-frame window of 64 x 104 latents (its four levels), the SVD
+# VAE's on 8-frame chunks at 512 x 832, and the Wan2.1 VAE's (also on a
+# 17-row strip, which must keep the whole frame's N); on the H100 each is
+# the fastest slice width measured there
+WAVE_CHOICES = [(320, 24, 64, 104, 160), (640, 24, 64, 104, 160),
+                (640, 24, 32, 52, 160), (1280, 24, 32, 52, 160),
+                (1280, 24, 16, 26, 160), (1280, 24, 8, 13, 128),
+                (128, 8, 512, 832, 128), (256, 8, 256, 416, 128),
+                (512, 8, 64, 104, 128), (96, 17, 480, 832, 96),
+                (192, 9, 120, 208, 96), (384, 5, 60, 104, 128),
+                (384, 1, 17, 104, 128), (192, 1, 17, 208, 96),
+                (320, 1, 13, 103, 160), (16, 8, 64, 104, 16)]
+
+
+@pytest.mark.parametrize("cout_p,frames,h,w,n", WAVE_CHOICES)
+def test_conv3d_slice_width_by_waves(cout_p, frames, h, w, n):
+    """With the launch's block count the plan takes 160 or 128, where Cout
+    is a multiple of both, by the fewest waves of one block an SM, each as
+    long as N + 80 columns: 160 except where 8 slices of 160 leave the
+    second wave emptier than 10 of 128 (the UNet's 8 x 13 level); every
+    other width, the VAE's on strips too, is the widest that divides Cout,
+    as without a block count."""
+    blocks = frames * -(-h // tconv.TILE_H) * -(-w // tconv.TILE_W)
+    assert tconv._slice_width(cout_p, blocks) == n
+    cin = 320
+    assert tconv.conv_plan(cin, cout_p, blocks=blocks).n == n
+    assert tconv._slice_width(cout_p) == next(
+        s for s in (160, 128, 96, 32, 16) if s <= cout_p and
+        cout_p % s == 0)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin,cout", VAE_CONV_SHAPES + DC_CONV2D_PAIRS)
+def test_conv3d_plan_off_160_is_the_narrower_sets(cin, cout, x_dtype):
+    """Where the padded Cout is no multiple of 160, the plan is the one the
+    slice widths 128, 96, 32, 16 alone give (the widest that divides it):
+    the same N, Cin chunk, stages, staging and shared memory, so those
+    pairs launch the same instantiation as before N 160 was added. A slice
+    width the kernel lacks or that does not divide Cout raises."""
+    dtype = getattr(torch, x_dtype)
+    cout_p = -(-cout // 16) * 16
+    narrow = next(s for s in (128, 96, 32, 16) if cout_p % s == 0)
+    forced = tconv.conv_plan(cin, cout, dtype, n=narrow)
+    assert forced.n == narrow and forced.n * forced.nslices == cout_p
+    if cout_p % 160:
+        assert tconv.conv_plan(cin, cout, dtype) == forced
+        for frames, h, w in ((24, 64, 104), (8, 13, 103), (1, 17, 208)):
+            blocks = frames * -(-h // tconv.TILE_H) * -(-w // tconv.TILE_W)
+            assert tconv.conv_plan(cin, cout, dtype, blocks=blocks) == forced
+    for bad in (64, 48) + ((160,) if cout_p % 160 else ()):
+        with pytest.raises(ValueError, match=f"no N {bad} slices"):
+            tconv.conv_plan(cin, cout, dtype, n=bad)
 
 
 def test_conv3d_prepared_weight_cache(rng):

@@ -65,7 +65,7 @@ struct Layout {
 };
 
 struct Params {
-  const int* kv_lens;   // dense: [B] key lengths
+  const int* kv_lens;   // dense: [B] key lengths (null: every row has Sk)
   const int* indices;   // block-sparse: [BH, Sq / 128, Kmax] chunk indices
   const int* counts;    // block-sparse: [BH, Sq / 128] selected chunks
   __nv_bfloat16* o;
@@ -95,7 +95,7 @@ struct DenseTiles {
     b = bh / p.H;
     h = bh % p.H;
     q0 = (blockIdx.x % qtiles) * kRows;
-    kv_len = max(0, min(p.kv_lens[b], p.Sk));
+    kv_len = p.kv_lens != nullptr ? max(0, min(p.kv_lens[b], p.Sk)) : p.Sk;
     n = (kv_len + kKeys - 1) / kKeys;
   }
   __device__ int key0(int t) const { return t * kKeys; }

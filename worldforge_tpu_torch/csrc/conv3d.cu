@@ -25,10 +25,14 @@
 // every M FLOP, so the block tile sets the L2 traffic:
 //   * A block computes 256 output pixels, an 8-row x 32-pixel tile of one
 //     output frame, for an N-wide slice of Cout. N is the whole of CoutP up
-//     to 128 (96, 32 and 16 whole), else the widest of 128, 96, 32, 16 that
-//     divides it (192 as two slices of 96, 384 as three of 128): the
-//     accumulator of two 64-row wgmma tiles is N fp32 registers a thread,
-//     and at N = 192 that leaves no room for the operands under setmaxnreg.
+//     to 128 (96, 32 and 16 whole), else the widest of 160, 128, 96, 32,
+//     16 that divides it (192 as two slices of 96, 384 as three of 128,
+//     the SVD UNet's 320 as two of 160), or 128 in place of 160 where the
+//     host's wave model finds it faster: each slice stages the input slab
+//     and loads its A fragments again, so fewer, wider slices do less of
+//     that work. The accumulator of two 64-row wgmma tiles is N fp32
+//     registers a thread: 160 at N = 160 under setmaxnreg's 216 (no
+//     spills); at N = 192 that left no room for the operands.
 //     8 x 32 rather than 16 x 16: the widths of the VAE (832, 416, 1280,
 //     640, 160) are multiples of 32 and its heights of 8, and one warp's
 //     A operand is 16 pixels of one row.
@@ -506,6 +510,7 @@ cudaError_t launch_n(int N, const void* w, const Args& a, int CoutP,
     case 32: return launch<32, CK>(w, a, CoutP, smem_bytes, s);
     case 96: return launch<96, CK>(w, a, CoutP, smem_bytes, s);
     case 128: return launch<128, CK>(w, a, CoutP, smem_bytes, s);
+    case 160: return launch<160, CK>(w, a, CoutP, smem_bytes, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -518,7 +523,7 @@ extern "C" {
 // aligned); bias fp32 [Cout] or null; y [B, Tp - taps + 1, H, W, Cout] of
 // out_dtype (dtypes: 0 = float32, 1 = bfloat16); taps: the temporal taps,
 // 3 (the causal 3x3x3 conv) or 1 (a 3x3 conv of every frame). The plan
-// comes from ops/conv3d.py::conv_plan: N (16, 32, 96 or 128, dividing
+// comes from ops/conv3d.py::conv_plan: N (16, 32, 96, 128 or 160, dividing
 // CoutP), CK (16 or 32, dividing CinP), stages, manual (stage x with the
 // producer's threads instead of TMA, which needs rows of Cin elements that
 // are a multiple of 16 bytes and a 16-byte aligned x), staging (fp32 staging

@@ -22,6 +22,18 @@
 //     TMA, S and O += P.V as wgmma from shared memory and registers. The
 //     tensor maps are 4D (D, H, S, B), so the ragged last tile of a batch
 //     row is zero-filled by TMA instead of reading the next batch row.
+//   * bf16 d = 128 at short key runs (the text, CLIP, FLF2V-image and
+//     audio cross-attention): attention_short_sm90.cuh, persistent blocks
+//     walking (head, query tile) items head by head, Q in 2-4 buffers
+//     loaded ahead by TMA, K / V resident for a head where they fit (else
+//     streamed through a two-stage ring), key tiles cut to the keys (the
+//     last one 16, 32, 64 or 128 wide), O stored by TMA from shared
+//     memory while the next items compute. The host (ops/
+//     flash_attention.py::_bf16_plan) picks the route by key count, the
+//     walk and the grid, and passes them to the entry point, which refuses
+//     any it does not compile; the layout follows from the route and the
+//     key count (attention_bf16_plan.cuh, which the host reads through
+//     flash_plan.cpp).
 //   * fp32 keeps fp32 accuracy through 3xTF32: every product is three TF32
 //     products hi.hi + hi.lo + lo.hi (hi = the input rounded to TF32 with
 //     cvt.rna, lo = the rest rounded again; lo.lo is below fp32 rounding).
@@ -88,6 +100,7 @@
 #include <algorithm>
 
 #include "attention_sm90.cuh"
+#include "attention_short_sm90.cuh"
 #include "attention_f32_sm90.cuh"
 
 namespace {
@@ -441,6 +454,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                            dim3((unsigned)blocks), stream);
 }
 
+// The long-row loop's layout is the one the host's plan reports for route
+// 0 (attention_bf16_plan.cuh::long_plan).
+static_assert(sm90::Layout<64>::bytes == sm90short::long_bytes(64) &&
+                  sm90::Layout<128>::bytes == sm90short::long_bytes(128) &&
+                  sm90::kStages == sm90short::kStages,
+              "route 0's layout and long_plan disagree");
+
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* kv_lens, void* o, float* m, float* l,
@@ -498,21 +518,37 @@ bool f32_plan(int D, int V, int* out) {
 
 extern "C" {
 
-// bf16 with head dim 64 or 128; m/l may be null (no return_lse). Returns
-// cudaGetLastError() after the launch; cudaErrorInvalidValue for a head dim
-// that has no instantiation or a tensor the TMA descriptors refuse. fp32
-// launches through wf_flash_attention_f32.
+// bf16 flash attention on the host's route and walk (route 0: the
+// long-row loop at head dim 64 or 128, walk 0, `grid` one block per
+// 128-query tile and head; 1: the short-key kernel at head dim 128 on
+// `grid` persistent blocks, 1 to that many, walk 0 or 1; ops/
+// flash_attention.py::_bf16_plan). The layout follows from the route and Sk
+// (attention_bf16_plan.cuh). Refused before anything runs:
+// cudaErrorInvalidValue for a route and head dim with no instantiation,
+// cudaErrorInvalidConfiguration for another walk or grid. kv_lens may be
+// null: every batch row then has Sk keys; m / l may be null (no
+// return_lse). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a tensor the TMA descriptors refuse.
 int wf_flash_attention(const void* q, const void* k, const void* v,
                        const void* kv_lens, void* o, void* m, void* l, int B,
-                       int Sq, int Sk, int H, int D, float scale,
-                       void* stream) {
+                       int Sq, int Sk, int H, int D, float scale, int route,
+                       int walk, int grid, void* stream) {
   const int* kl = static_cast<const int*>(kv_lens);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    sm90short::Plan pl;
+    if (D != sm90short::kD || !sm90short::make_plan(Sk, &pl))
+      return (int)cudaErrorInvalidValue;
+    return sm90short::launch(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, pl,
+                             walk, grid, s);
+  }
+  if (route != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  if (walk != 0 || grid != (long)((Sq + 127) / 128) * B * H)
+    return (int)cudaErrorInvalidConfiguration;
   if (D == 64) return launch_bf16<64>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-  if (D == 128) return launch_bf16<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_bf16<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
 }
 
 // fp32 flash attention laid out by the host's plan (variant V, rows,

@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/kernels/<name>-<hash>.so`` at the repository root; the hash
 covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
-edited source or header is never served by a stale library. Nothing is built when a module is imported: the CPU tests
-import every module on a host without ``nvcc``.
+edited source or header is never served by a stale library. A
+``csrc/<name>.cpp`` (host code the wrappers and the CPU tests read, such as
+kernel 1's bf16 layout) is built the same way by the host's C++ compiler.
+Nothing is built when a module is imported: the CPU tests import every
+module on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 CUDA_SOURCES = ("flash_attention", "conv3d", "bsa", "flash_attention_bwd")
+HOST_SOURCES = ("flash_plan",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,24 +47,37 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "c++")) or shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) found")
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256(_source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(HOST_FLAGS if name in HOST_SOURCES
+                      else NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for one source; returns (process, tmp path, target) or
-    None when the library is already built."""
+    """Start the compiler for one source; returns (process, tmp path,
+    target) or None when the library is already built."""
     out = _target(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = ([_cxx(), *HOST_FLAGS] if name in HOST_SOURCES else
+           [_nvcc(), *NVCC_FLAGS]) + ["-o", tmp, str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -72,13 +90,14 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"{os.path.basename(proc.args[0])} failed for "
+                           f"{_source(name).name}:\n{log}")
     os.replace(tmp, out)
     return log
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named sources, all nvcc processes started together.
+    """Compile the named sources, all compilers started together.
     Returns each source's compiler log (``-Xptxas -v``: registers, shared
     memory and spills of every kernel); empty where it was already built."""
     names = list(names)
@@ -88,7 +107,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes handle of ``csrc/<name>.cu`` (or ``.cpp``), built on first
+    use."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

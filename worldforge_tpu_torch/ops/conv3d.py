@@ -71,7 +71,7 @@ def _round1024(n: int) -> int:
 
 TILE_H, TILE_W = 8, 32              # output rows x pixels of one block
 SMEM_LIMIT = 232448                 # shared memory a block may use (227 KB)
-_SLICES = (128, 96, 32, 16)         # N instantiations of the kernel
+_SLICES = (160, 128, 96, 32, 16)     # N instantiations of the kernel
 _MAX_STAGES = 4
 
 
@@ -99,18 +99,50 @@ class ConvPlan:
     smem_bytes: int
 
 
+_H100_SMS = 132
+_SLICE_OVERHEAD = 80   # a block's slab staging and fragment loads, in columns
+
+
+def _slice_width(cout_p: int, blocks: Optional[int] = None) -> int:
+    """N of a Cout padded to ``cout_p``: the widest instantiation at most
+    ``cout_p`` that divides it (``cout_p`` itself where it is one). Where
+    that is 160, Cout is a multiple of 128 too and the launch's ``blocks``
+    of one slice (frames x tiles of 8 x 32 pixels) are given, 160 or 128 by
+    a wave model: ceil(slices x blocks / SMs) waves of one block an SM,
+    each as long as N + 80 columns (each slice stages the halo'd input
+    slab and loads every A fragment again). On the H100 (``chip_smoke.py``'s
+    one-tap timings at every SVD UNet pair) that keeps 160 except at the
+    UNet's 8 x 13 level, where 1280 as 10 slices of 128 fills the second
+    wave better than 8 of 160. Both widths stage the same channel chunk a
+    step (16 on fp32 x, 32 on bf16), so the sums run in the same order
+    either way; other widths could change it, and a tiled VAE's strips
+    must sum as the whole frame does."""
+    n = next(s for s in _SLICES if s <= cout_p and cout_p % s == 0)
+    if n != 160 or blocks is None or cout_p % 128:
+        return n
+    return min((160, 128), key=lambda s: (
+        -(-cout_p // s * blocks // _H100_SMS) * (s + _SLICE_OVERHEAD), -s))
+
+
 def conv_plan(cin: int, cout: int, x_dtype=torch.float32,
-              x_aligned: bool = True) -> ConvPlan:
-    """The tile plan for Cin -> Cout on x of ``x_dtype``. N is CoutP itself
-    up to 128, else the widest of 128, 96, 32, 16 that divides it (the two
-    64-row accumulators are N fp32 registers a consumer thread). TMA reads
+              x_aligned: bool = True, blocks: Optional[int] = None,
+              n: Optional[int] = None) -> ConvPlan:
+    """The tile plan for Cin -> Cout on x of ``x_dtype``. N is ``n`` where
+    given (an instantiation that divides CoutP: a timing harness's other
+    slice width), else ``_slice_width(CoutP, blocks)``'s: the widest of
+    160, 128, 96, 32, 16 that divides CoutP, 128 in place of 160 where the
+    launch's ``blocks`` of one slice make it the faster (the two 64-row
+    accumulators are N fp32 registers a consumer thread). TMA reads
     x where a row of Cin elements is a multiple of 16 bytes and x is
     16-byte aligned, else the producer's threads stage it (``manual``); an
     fp32 x goes through fp32 staging buffers, two where they fit, else one.
     CK is 32 where it divides CinP and fits with two stages, else 16; the
     ring takes as many stages (2 to 4) as fit in 227 KB."""
     cin_p, cout_p = _round16(cin), _round16(cout)
-    n = next(s for s in _SLICES if cout_p % s == 0)
+    if n is None:
+        n = _slice_width(cout_p, blocks)
+    elif n not in _SLICES or cout_p % n:
+        raise ValueError(f"conv3d kernel: no N {n} slices of Cout {cout}")
     elem = 2 if x_dtype == torch.bfloat16 else 4
     manual = not (x_aligned and (cin * elem) % 16 == 0)
     sw = 128 if n % 64 == 0 else 64 if n % 32 == 0 else 32
@@ -176,9 +208,10 @@ def _lib():
     })
 
 
-def _launch(x, w, b, out_dtype, taps):
+def _launch(x, w, b, out_dtype, taps, n=None):
     """x [B, Tp, H, W, Cin]; w [3, 3, 3, Cin, Cout] (taps 3) or [3, 3, Cin,
-    Cout] (taps 1)."""
+    Cout] (taps 1); ``n``: the plan's slice width (default
+    ``conv_plan``'s; a timing harness may pass another instantiation)."""
     bn_, tp, hh, ww, cin = x.shape
     if w.shape[:-1] != (3,) * (taps // 3 + 2) + (cin,):
         raise ValueError(f"conv3d kernel: weight {tuple(w.shape)} for input "
@@ -191,7 +224,9 @@ def _launch(x, w, b, out_dtype, taps):
         raise ValueError("conv3d kernel: tensors on two devices")
     cout = w.shape[-1]
     x = x.contiguous()          # read as it is: no bf16 copy of x
-    plan = conv_plan(cin, cout, x.dtype, x.data_ptr() % 16 == 0)
+    tiles = -(-hh // TILE_H) * -(-ww // TILE_W)
+    plan = conv_plan(cin, cout, x.dtype, x.data_ptr() % 16 == 0,
+                     blocks=bn_ * (tp - taps + 1) * tiles, n=n)
     wp = prepared_weight(w)
     bias = b.float().contiguous() if b is not None else None
     y = torch.empty((bn_, tp - taps + 1, hh, ww, cout), dtype=out_dtype,

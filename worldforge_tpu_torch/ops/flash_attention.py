@@ -4,7 +4,12 @@ Counterpart of ``worldforge_tpu/ops/flash_attention.py::flash_attention``;
 the Pallas TPU kernel ``_fa_kernel`` (:34, ``pallas_call`` :124) becomes the
 CUDA C++ kernels in ``csrc/flash_attention.cu`` (the design note and what
 bounds them on the H100 are at the top of that file): bf16 on the shared
-``wgmma`` / TMA loop of ``csrc/attention_sm90.cuh``; fp32 with head dim 64,
+``wgmma`` / TMA loop of ``csrc/attention_sm90.cuh``, or at head dim 128 and
+short key runs on the persistent kernel of ``csrc/attention_short_sm90.cuh``
+(the host-side ``_bf16_plan`` picks the route, the walk and the grid, which
+the kernel refuses where it does not compile them; the key tiles and the
+shared memory follow from the route and the key count,
+``csrc/attention_bf16_plan.cuh``); fp32 with head dim 64,
 80 or 128 on ``csrc/attention_f32_sm90.cuh`` (every product three TF32
 ``wgmma`` products fed by a TMA ring, each tile split into TF32 hi / lo
 planes once in shared memory); fp32 with head dim 384 or 512 on the
@@ -179,9 +184,98 @@ def _fwd_plan(b, sq, sk, h, d, variant=None):
                    -(-sq // rows) * b * h)
 
 
+class Bf16Plan(NamedTuple):
+    """How the bf16 forward kernel cuts one call. ``route`` 0: the long-row
+    loop of ``csrc/attention_sm90.cuh``, one block per (128-query tile,
+    head), a ring of ``kv_bufs`` stages of 128 keys. ``route`` 1: the
+    short-key kernel of ``csrc/attention_short_sm90.cuh``, ``grid``
+    persistent blocks, each taking a share of the (b * h, query tile)
+    items in the order ``walk`` gives (0: head by head, 1: heads fastest,
+    as the kernel's ``Walk`` and ``Item``); K / V ``resident`` for a head
+    in ``kv_bufs`` buffers of ``kv_unit_bytes`` where they fit, else a ring
+    of ``kv_bufs`` stages; ``q_bufs`` Q buffers of 128 rows, in which O is
+    staged for its TMA store. ``full_tiles`` 128-key tiles and a last one
+    ``tail`` keys wide (0: none) cover Sk (``key_tiles``); ``items`` (b * h
+    * query tiles) is the work. The entry point takes the route, the walk
+    and the grid; the layout follows from the route and Sk
+    (``csrc/attention_bf16_plan.cuh``, read here through
+    ``csrc/flash_plan.cpp``). No device scratch."""
+    route: int
+    full_tiles: int
+    tail: int
+    resident: bool
+    kv_bufs: int
+    q_bufs: int
+    kv_unit_bytes: int
+    smem_bytes: int
+    walk: int
+    items: int
+    grid: int
+
+    @property
+    def key_tiles(self):
+        """The widths of the key tiles at Sk, in order."""
+        return (128,) * self.full_tiles + ((self.tail,) if self.tail else ())
+
+
+_SHORT_BF16_KEYS = 2048    # at or below this many keys (d 128): route 1
+
+
+@functools.lru_cache(maxsize=4096)
+def _bf16_layout(route, d, sk):
+    """(full tiles, tail, resident, K / V buffers, Q buffers, bytes of a K /
+    V buffer or stage, shared-memory bytes) of ``route`` at head dim ``d``
+    and ``sk`` keys, as ``csrc/flash_attention.cu`` compiles it."""
+    out = (ctypes.c_int * 7)()
+    if not _plan_lib().wf_flash_bf16_plan(route, d, sk, out):
+        raise ValueError(f"flash_attention bf16 kernel: no route {route} at "
+                         f"head dim {d} and {sk} keys")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=4096)
+def _bf16_plan(b, sq, sk, h, d, route=None, num_sms=_H100_SMS, walk=None):
+    """The bf16 forward kernel's plan for q [b, sq, h, d] and k [b, sk, h,
+    d] on a card of ``num_sms`` SMs: route ``route`` (default 1, the
+    short-key kernel, at head dim 128 for 1 to ``_SHORT_BF16_KEYS`` keys,
+    else 0, the long-row loop) and, on route 1, ``walk`` (default heads
+    fastest where two resident buffers hold K / V: a head's few keys, the
+    next head's load in flight, and the blocks in flight read every head of
+    the same tokens; else head by head, since one resident buffer is
+    reloaded at each change of head and streamed tiles gain nothing from
+    the other order; ``chip_smoke.py`` times both walks) on one block an
+    SM, never more blocks than items. Route 0 runs one block per query tile
+    and head, walk 0."""
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention bf16 kernel: no instantiation for "
+                         f"head dim {d}")
+    if route is None:
+        route = int(d == 128 and 1 <= sk <= _SHORT_BF16_KEYS)
+    full, tail, resident, kv_bufs, q_bufs, unit, smem = _bf16_layout(
+        route, d, sk)
+    items = -(-sq // 128) * b * h
+    if route == 0:
+        if walk not in (None, 0):
+            raise ValueError("flash_attention bf16 kernel: route 0 has walk "
+                             "0")
+        return Bf16Plan(0, full, tail, False, kv_bufs, q_bufs, unit, smem, 0,
+                        items, items)
+    walk = int(resident and kv_bufs == 2) if walk is None else walk
+    if walk not in (0, 1):
+        raise ValueError(f"flash_attention bf16 kernel: no walk {walk}")
+    return Bf16Plan(1, full, tail, bool(resident), kv_bufs, q_bufs, unit,
+                    smem, walk, items, min(items, num_sms))
+
+
+@functools.lru_cache(maxsize=16)
+def _num_sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
-    """The kernel on CUDA tensors; fp32 cut as ``plan`` says (default
-    ``_fwd_plan``'s; a timing harness may pass another compiled variant)."""
+    """The kernel on CUDA tensors, cut as ``plan`` says (default
+    ``_bf16_plan``'s or ``_fwd_plan``'s; a timing harness may pass another
+    compiled route or variant)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if q.dtype not in _KERNEL_HEAD_DIMS or d not in _KERNEL_HEAD_DIMS[q.dtype]:
@@ -203,15 +297,15 @@ def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
            for st in t.stride()[:-1]):
         raise ValueError("flash_attention kernel: every stride of q, k and v "
                          "must be a multiple of 16 bytes (TMA)")
-    if q.dtype == torch.float32 and plan is None:
-        plan = _fwd_plan(b, sq, sk, h, d)
-    if plan is not None and not 0 < plan.blocks < 2 ** 31:
-        raise ValueError(f"flash_attention kernel: {plan.blocks} blocks "
+    if plan is None:
+        plan = (_fwd_plan(b, sq, sk, h, d) if q.dtype == torch.float32 else
+                _bf16_plan(b, sq, sk, h, d, num_sms=_num_sms(q.device)))
+    blocks = plan.grid if isinstance(plan, Bf16Plan) else plan.blocks
+    if not 0 < blocks < 2 ** 31:
+        raise ValueError(f"flash_attention kernel: {blocks} blocks "
                          f"(gridDim.x holds 1 to 2^31 - 1)")
-    if kv_lens is not None:
+    if kv_lens is not None:   # else every batch row has sk keys
         kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    elif plan is None:   # bf16 reads a length per batch row; fp32 takes none
-        kv_lens = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     o = torch.empty_like(q)
     m = l = None
     if return_lse:
@@ -224,8 +318,9 @@ def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
             l.data_ptr() if l is not None else None, b, sq, sk, h, d,
             float(scale))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if plan is None:
-        err = lib.wf_flash_attention(*ptrs, stream)
+    if isinstance(plan, Bf16Plan):
+        err = lib.wf_flash_attention(*ptrs, plan.route, plan.walk,
+                                     plan.grid, stream)
     else:
         err = lib.wf_flash_attention_f32(
             *ptrs, plan.variant, plan.rows, plan.key_tile, plan.stages,
@@ -246,10 +341,18 @@ def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("flash_attention", {
-        "wf_flash_attention": ([p] * 7 + [i] * 5 + [ctypes.c_float, p], i),
+        "wf_flash_attention": ([p] * 7 + [i] * 5 + [ctypes.c_float]
+                               + [i] * 3 + [p], i),
         "wf_flash_attention_f32": ([p] * 7 + [i] * 5 + [ctypes.c_float]
                                    + [i] * 6 + [p], i),
         "wf_flash_attention_error_string": ([i], ctypes.c_char_p),
+    })
+
+
+def _plan_lib():
+    i = ctypes.c_int
+    return _build.bind("flash_plan", {
+        "wf_flash_bf16_plan": ([i] * 3 + [ctypes.POINTER(i)], i),
     })
 
 
