@@ -388,6 +388,25 @@ def in_turns(calls: dict, iters: int) -> dict:
     return ms
 
 
+def pass_ms(fn) -> dict:
+    """Device ms of each pass of kernel 1's two-pass fp32 route in one call
+    of ``fn``, by kernel name (``torch.profiler``), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in ("fa_f32_scores_kernel", "fa_f32_pv_kernel"):
+            if name in e.key:
+                out[name] = out.get(name, 0.0) + getattr(
+                    e, "device_time_total",
+                    getattr(e, "cuda_time_total", 0)) / 1e3
+    return out
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -482,6 +501,11 @@ def phase_build():
     emit({"phase": "build", "part": "fa_f32_wgmma_ptxas",
           "instantiations": _ptxas_functions(logs.get("flash_attention", ""),
                                              "fa_f32_wgmma_kernel")})
+    emit({"phase": "build", "part": "fa_f32_wide_ptxas",
+          "instantiations": [
+              f for needle in ("fa_f32_scores_kernel", "fa_f32_pv_kernel")
+              for f in _ptxas_registers(logs.get("flash_attention", ""),
+                                        needle)]})
     emit({"phase": "build", "part": "short_and_conv_ptxas",
           "instantiations": [
               f for source, needle in (
@@ -590,7 +614,14 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
     v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     kl = None if kv_len is None else torch.full(
         (b,), kv_len, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     out = flash_attention(q, k, v, kv_lens=kl)
+    torch.cuda.synchronize()
+    # what one call holds beyond its inputs: the output and, on the
+    # two-pass route (fp32 d 384 / 512), the scratch its plan names
+    call_peak = torch.cuda.max_memory_allocated() - base
     ref = flash_attention_plain(q, k, v, kv_lens=kl)
     torch.cuda.synchronize()
     diff = out.float() - ref.float()
@@ -620,8 +651,13 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
         bms, by = bound(3 * flops, io_bytes, PEAK_TF32_FLOPS)
         extra = {"bound_basis": "3 TF32 products at 495 TFLOP/s",
                  "fma_bound_ms": bound(flops, io_bytes, PEAK_FP32_FLOPS)[0]}
+    plan = _flash_plan(b, sq, sk, h, d, dtype)
+    if plan.get("passes", 1) > 1:
+        extra["pass_device_ms"] = pass_ms(
+            lambda: flash_attention(q, k, v, kv_lens=kl))
     rec = {"check": label, "shape": [b, sq, sk, h, d], "dtype": str(dtype),
-           "kv_len": kv_len, "plan": _flash_plan(b, sq, sk, h, d, dtype),
+           "kv_len": kv_len, "plan": plan, "call_peak_bytes": call_peak,
+           "output_bytes": nbytes(out),
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol_rel,
            "rel_l2_err": rel_l2, "tol_rel_l2": tol_l2,
            "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -632,7 +668,7 @@ def _check_flash(gen, records, b, sq, sk, h, d, dtype, tol_rel, tol_l2,
 
 
 def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
-                        kv_lens=(0, 77, 300), variant=None):
+                        kv_lens=(0, 77, 300), variant=None, chunk_tiles=None):
     """Kernel 1's kv_lens masking and return_lse outputs at a small shape:
     by default batch rows with kv_len 0, a ragged length (not a multiple of
     any kv tile) and the full length; with B = 2 and Sq = Sk = 333, a ragged
@@ -640,18 +676,23 @@ def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
     without reading the next batch row. o, m and l are held against the
     plain version; a kv_len = 0 row must be exactly zero with m = -1e30,
     l = 0. ``variant``: the fp32 wgmma kernel's variant to launch (0 long
-    rows, 1 short; default the wrapper's choice)."""
+    rows, 1 short; default the wrapper's choice). ``chunk_tiles``: at fp32
+    d 384 / 512, the 128-row query tiles a chunk of the two-pass route
+    takes (default the plan's: one chunk at these sizes)."""
     from worldforge_tpu_torch.ops.flash_attention import (
         NEG_INF, _fwd_plan, _launch, flash_attention, flash_attention_plain)
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dtype)
     kv_lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-    if variant is None:
+    plan = None
+    if variant is not None or chunk_tiles is not None:
+        plan = _fwd_plan(b, sq, sk, h, d, variant, chunk_tiles=chunk_tiles)
+    if plan is None:
         o, m, l = flash_attention(q, k, v, kv_lens=kv_lens, return_lse=True)
     else:
         o, m, l = _launch(q, k, v, kv_lens, 1.0 / math.sqrt(d), True,
-                          plan=_fwd_plan(b, sq, sk, h, d, variant))
+                          plan=plan)
     ro, rm, rl = flash_attention_plain(q, k, v, kv_lens=kv_lens,
                                        return_lse=True)
     torch.cuda.synchronize()
@@ -669,10 +710,14 @@ def _check_flash_masked(gen, records, d, dtype, b=3, sq=200, sk=300, h=2,
     ok = (zero_row and bool(torch.isfinite(o).all()) and o_rel <= tol_o
           and m_err <= tol_ml and l_rel <= tol_ml)
     label = f"flash_attention kv_lens+lse {dtype} d{d}"
-    rec = {"check": label if variant is None else f"{label} variant {variant}",
+    if variant is not None:
+        label += f" variant {variant}"
+    if chunk_tiles is not None:
+        label += f" in {plan.chunks} chunks of {plan.chunk_tiles} tiles"
+    rec = {"check": label,
            "shape": [b, sq, sk, h, d], "kv_lens": kv_lens.tolist(),
-           "plan": (_flash_plan(b, sq, sk, h, d, dtype) if variant is None
-                    else _fwd_plan(b, sq, sk, h, d, variant)._asdict()),
+           "plan": (_flash_plan(b, sq, sk, h, d, dtype) if plan is None
+                    else plan._asdict()),
            "zero_row_exact": zero_row, "o_max_rel_err": o_rel,
            "tol_o_rel": tol_o, "m_err": m_err, "l_rel_err": l_rel,
            "tol_m_l": tol_ml, "ok": ok}
@@ -765,19 +810,27 @@ def _check_flash_variants(gen, records, b, sq, sk, h, d, label, iters):
 
 
 def _check_flash_plan_refusals(records):
-    """The fp32 entry point refuses, before it launches anything, a plan
-    its instantiation was not compiled for (16 more bytes of shared memory)
-    and a variant it does not have (1 at head dim 80); no launch is
-    counted."""
+    """The fp32 entry point refuses, before it launches anything, a variant
+    it does not have (1 at head dims 80 and 512), a two-pass chunk whose
+    scratch is 16 bytes short, a two-pass chunk of no tiles, and a chunk at
+    a one-pass head dim; no launch is counted."""
     from worldforge_tpu_torch.ops.flash_attention import (
         _fwd_plan, _launch, flash_attention)
     q80 = torch.zeros((1, 64, 1, 80), device="cuda")
     q64 = torch.zeros((1, 64, 1, 64), device="cuda")
+    q512 = torch.zeros((1, 300, 1, 512), device="cuda")
     plan = _fwd_plan(1, 64, 64, 1, 64)
-    cases = {"smem_bytes + 16": (q64, plan._replace(
-                 smem_bytes=plan.smem_bytes + 16), "invalid configuration"),
-             "variant 1 at d 80": (q80, _fwd_plan(1, 64, 64, 1, 80)._replace(
-                 variant=1), "invalid argument")}
+    wide = _fwd_plan(1, 300, 300, 1, 512)
+    cases = {"variant 1 at d 80": (q80, _fwd_plan(1, 64, 64, 1, 80)._replace(
+                 variant=1), "invalid argument"),
+             "variant 1 at d 512": (q512, wide._replace(variant=1),
+                                    "invalid argument"),
+             "d 512 scratch - 16": (q512, wide._replace(
+                 scratch_bytes=wide.scratch_bytes - 16), "invalid argument"),
+             "d 512 chunk of 0 tiles": (q512, wide._replace(chunk_tiles=0),
+                                        "invalid argument"),
+             "chunk at d 64": (q64, plan._replace(chunk_tiles=1),
+                               "invalid configuration")}
     before = flash_attention.launches
     errors = {}
     for name, (x, bad, _) in cases.items():
@@ -1238,6 +1291,15 @@ def phase_kernels():
                      (80, torch.float32), (512, torch.float32)):
         _check_flash_masked(gen, records, d, dtype, b=2, sq=333, sk=333,
                             kv_lens=(333, 129))
+    # the two-pass route over several chunks: 3 x 3 query tiles (the last
+    # of each batch row ragged) in chunks of 4, 4 and 1 tiles, the first
+    # two spanning batch rows, kv_lens full, ragged and 0 (its own
+    # generator, so the later checks' inputs stay as they were)
+    chunk_gen = torch.Generator(device="cuda").manual_seed(19)
+    for d in (384, 512):
+        _check_flash_masked(chunk_gen, records, d, torch.float32, b=3,
+                            sq=333, sk=333, h=1, kv_lens=(333, 200, 0),
+                            chunk_tiles=4)
     # the warp's and the encoders' shapes: the DINO backbone and the VGGT
     # aggregator at 294 x 518 (21 x 37 patches + 5 special tokens), the
     # camera head's trunk over S = 1 frame, CLIP-H (16 heads of 80)
@@ -2053,8 +2115,11 @@ KERNEL1_INSTANTIATIONS = {
     **{f"fp32 d{d}": f"sm90f32::fa_f32_wgmma_kernel<{d}, 0> (3xTF32 "
                      f"wgmma, TMA ring; csrc/attention_f32_sm90.cuh)"
        for d in (80, 128)},
-    **{f"fp32 d{d}": f"fa_f32_tf32_kernel<{d}> (3xTF32 mma.sync, cp.async; "
-                     f"csrc/flash_attention.cu)" for d in (384, 512)},
+    **{f"fp32 d{d}": f"sm90f32w::fa_f32_scores_kernel<{d}> then "
+                     f"sm90f32w::fa_f32_pv_kernel<{d}> (two passes a chunk "
+                     f"of query tiles, 3xTF32 wgmma, TMA rings, scores in a "
+                     f"scratch of at most 256 MiB; "
+                     f"csrc/attention_f32_wide_sm90.cuh)" for d in (384, 512)},
 }
 SFM_PATH_KERNELS = ("flash_attention",)
 
@@ -2062,9 +2127,12 @@ SFM_PATH_KERNELS = ("flash_attention",)
 class Launches(dict):
     """One run's launches by wrapper (kernel 1's also by instantiation, as
     ``"flash_attention fp32 d512"``); ``by_shape`` holds the wrappers'
-    ``launches_by_shape``, {wrapper: {shape key: launches}}."""
+    ``launches_by_shape``, {wrapper: {shape key: launches}}; ``passes``
+    kernel 1's device launches by instantiation (two a chunk at fp32 d 384
+    / 512, else one a call)."""
 
     by_shape: dict
+    passes: dict
 
 
 def _reset_counters():
@@ -2074,6 +2142,7 @@ def _reset_counters():
         if hasattr(fn, "launches_by_shape"):
             fn.launches_by_shape = {}
     counters["flash_attention"].launches_by_instantiation = {}
+    counters["flash_attention"].passes_by_instantiation = {}
 
 
 def _read_counters():
@@ -2084,6 +2153,7 @@ def _read_counters():
     out.by_shape = {name: dict(fn.launches_by_shape)
                     for name, fn in counters.items()
                     if hasattr(fn, "launches_by_shape")}
+    out.passes = dict(counters["flash_attention"].passes_by_instantiation)
     return out
 
 
@@ -5334,8 +5404,9 @@ def _profile_longcat_guided_forward(pipe, pe, pmask):
 KERNEL_GROUPS = (
     ("bsa (kernel 5)", ("bsatiles",)),
     ("flash attention (kernel 1)", ("densetiles", "attn_short_kernel",
-                                    "fa_f32_tf32_kernel",
-                                    "fa_f32_wgmma_kernel")),
+                                    "fa_f32_wgmma_kernel",
+                                    "fa_f32_scores_kernel",
+                                    "fa_f32_pv_kernel")),
     ("rope (kernel 2)", ("rope_qk_kernel",)),
     ("modulated LN (kernel 3)", ("mod_ln_kernel",)),
     ("conv3d (kernel 4)", ("conv3d_kernel",)),
@@ -7911,6 +7982,10 @@ def main() -> int:
                 if k.startswith("flash_attention ")}
             row["instantiations"] = {
                 inst: KERNEL1_INSTANTIATIONS[inst]
+                for inst in row["launches_by_instantiation"]}
+            row["device_launches_by_instantiation"] = {
+                inst: sum(getattr(c, "passes", {}).get(inst, 0)
+                          for c in by_path.values())
                 for inst in row["launches_by_instantiation"]}
         if "grid_checks" in rec:
             row["grid_checks"] = rec["grid_checks"]

@@ -1,14 +1,16 @@
 """Kernel 1's fp32 path without a card: the host-side plan of the forward
 kernel (``_fwd_plan`` in ``worldforge_tpu_torch/ops/flash_attention.py``),
 and models of the kernel written out in plain PyTorch here: the 3xTF32
-arithmetic (``tf32_split``, ``attention_3xtf32``) and the key order of its
-V^T planes (``vt_key_order``). These models check the design, not the
-kernel: the CUDA kernels, and with them the key order the splitter writes,
-are held against ``flash_attention_plain`` only by ``chip_smoke.py`` on the
-H100."""
+arithmetic (``tf32_split``, ``attention_3xtf32``), the two passes of head
+dims 384 and 512 with their chunk loop (``attention_two_pass``) and the key
+order of its V^T planes (``vt_key_order``). These models check the design,
+not the kernel: the CUDA kernels, and with them the key order the splitter
+writes, are held against ``flash_attention_plain`` only by
+``chip_smoke.py`` on the H100."""
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import jax.numpy as jnp
@@ -34,6 +36,7 @@ SHAPES = [
     (8, 6656, 6656, 1),        # SVD VAE mid
     (5, 6240, 6240, 1),        # Wan2.1 VAE mid, 480 x 832
     (1, 14080, 14080, 1),      # Wan2.1 VAE mid, 704 x 1280
+    (24, 6240, 6240, 1),       # Wan2.1 VAE mid, the avatar's 93-frame decode
     (1, 257, 257, 16),         # CLIP-H
     (1, 1, 1, 16),             # VGGT camera trunk, S = 1
     (2, 333, 333, 2),          # ragged query and key tiles
@@ -51,9 +54,14 @@ def _variants(d):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("b,sq,sk,h", SHAPES)
 def test_fwd_plan_fits_and_covers(b, sq, sk, h, d):
+    if d in (384, 512):
+        _two_pass_plan_fits_and_covers(b, sq, sk, h, d)
+        return
     for variant in (None, *_variants(d)):
         plan = tfa._fwd_plan(b, sq, sk, h, d, variant)
         assert plan.smem_bytes <= 232448        # the H100's 227 KB a block
+        assert (plan.chunk_tiles, plan.chunks, plan.scratch_bytes,
+                plan.passes) == (0, 1, 0, 1)
         # every query in exactly one block of its (batch, head) row: the
         # blocks' tiles cover the rows with less than one tile to spare
         q_tiles, rest = divmod(plan.blocks, b * h)
@@ -70,20 +78,61 @@ def test_fwd_plan_fits_and_covers(b, sq, sk, h, d):
             assert d * plan.key_tile * 4 % 1024 == 0
 
 
+def _two_pass_plan_fits_and_covers(b, sq, sk, h, d):
+    """The two-pass route (d 384 / 512): both kernels fit 227 KB; every
+    query row falls in exactly one 128-row tile and every tile in exactly
+    one chunk (the chunks cover the b * h * tiles with less than a chunk to
+    spare, the last one possibly shorter); the scratch holds a chunk's
+    scores and partials and stays within 256 MiB; two launches a chunk."""
+    plan = tfa._fwd_plan(b, sq, sk, h, d)
+    assert plan.smem_bytes <= 232448 and plan.score_smem_bytes <= 232448
+    assert plan.threads == 384 and plan.rows == 128
+    q_tiles = -(-sq // plan.rows)
+    assert (q_tiles - 1) * plan.rows < sq <= q_tiles * plan.rows
+    n_tiles = q_tiles * b * h
+    assert 1 <= plan.chunk_tiles <= n_tiles
+    assert (plan.chunks - 1) * plan.chunk_tiles < n_tiles
+    assert n_tiles <= plan.chunks * plan.chunk_tiles
+    key_tiles = -(-sk // plan.score_tile)
+    assert plan.scratch_bytes == plan.chunk_tiles * plan.rows * key_tiles * (
+        plan.score_tile * 4 + 8)
+    assert plan.scratch_bytes <= 256 << 20
+    assert plan.passes == 2 * plan.chunks
+    assert plan.blocks == plan.chunk_tiles * max(key_tiles, d // 128)
+    assert plan.blocks < 2 ** 31
+    # a chunk and the 32-key stages of pass 2 fall on whole pass-1 tiles
+    assert plan.score_tile % plan.key_tile == 0
+
+
 def test_fwd_plan_layouts():
-    """The numbers ``csrc/attention_f32_sm90.cuh`` and
-    ``csrc/flash_attention.cu`` compile (the wrapper passes the plan, and
-    the kernel refuses any other)."""
-    want = {(64, 0): (128, 64, 2, 384, 197712),
-            (64, 1): (64, 32, 2, 256, 99408),
-            (80, 0): (128, 32, 2, 384, 144464),
-            (128, 0): (64, 32, 2, 256, 197712),
-            (384, 0): (64, 32, 1, 256, 217600),
-            (512, 0): (32, 32, 1, 256, 217088)}
+    """The numbers ``csrc/attention_f32_plan.cuh`` gives the host through
+    ``csrc/flash_plan.cpp``: those ``csrc/attention_f32_wide_sm90.cuh``
+    lays its passes out by, and those ``csrc/flash_attention.cu`` holds the
+    one-pass kernels of ``csrc/attention_f32_sm90.cuh`` to."""
+    want = {(64, 0): (128, 64, 2, 384, 197712, 0, 0, 0),
+            (64, 1): (64, 32, 2, 256, 99408, 0, 0, 0),
+            (80, 0): (128, 32, 2, 384, 144464, 0, 0, 0),
+            (128, 0): (64, 32, 2, 256, 197712, 0, 0, 0),
+            # pass 2: 3 stages of S, V raw, V^T hi / lo (4 x 16 KB); pass
+            # 1: 4 stages of Q raw, K hi / lo (3 x 16 KB); 3 mbarriers a
+            # stage; 1 KB of alignment
+            (384, 0): (128, 32, 3, 384, 197704, 128, 4, 197728),
+            (512, 0): (128, 32, 3, 384, 197704, 128, 4, 197728)}
     for (d, variant), plan in want.items():
         got = tfa._fwd_plan(4, 1000, 1000, 2, d, variant)
         assert (got.rows, got.key_tile, got.stages, got.threads,
-                got.smem_bytes) == plan
+                got.smem_bytes, got.score_tile, got.score_stages,
+                got.score_smem_bytes) == plan
+    # the main shapes' chunks on the H100's 132 SMs: the fewest waves of
+    # both passes within the 256 MiB cap (pass 2's 1,664 blocks at d 512
+    # in 13 waves, the fewest there can be: 6 chunks of 66 tiles x 4
+    # column blocks, then 20 tiles; d 384's 735 in 6)
+    d512 = tfa._fwd_plan(8, 6656, 6656, 1, 512)
+    assert (d512.chunk_tiles, d512.chunks, d512.passes) == (66, 7, 14)
+    d384 = tfa._fwd_plan(5, 6240, 6240, 1, 384)
+    assert (d384.chunk_tiles, d384.chunks) == (43, 6)
+    refine = tfa._fwd_plan(1, 14080, 14080, 1, 384)
+    assert refine.chunks == 4 and refine.scratch_bytes <= 256 << 20
     # two short-variant blocks share an SM at d 64 (228 KB an SM, 1 KB of
     # it reserved a block)
     assert 2 * (tfa._fwd_plan(1, 1, 1, 1, 64, 1).smem_bytes + 1024) <= 233472
@@ -101,9 +150,14 @@ def test_fwd_variant_choice():
     for s in short_rows:
         assert tfa._fwd_plan(*s).variant == 1, s
     assert tfa._fwd_plan(1, 1, 1, 16, 128).variant == 0
-    for d, variant in ((80, 1), (128, 1), (384, 1), (64, 2)):
+    for d, variant in ((80, 1), (128, 1), (384, 1), (512, 1), (64, 2)):
         with pytest.raises(ValueError, match="no variant"):
             tfa._fwd_plan(1, 64, 64, 1, d, variant)
+    # a chunk is a two-pass notion, of at least one query tile
+    with pytest.raises(ValueError, match="no chunks"):
+        tfa._fwd_plan(1, 64, 64, 1, 64, chunk_tiles=1)
+    with pytest.raises(ValueError, match="at least one query tile"):
+        tfa._fwd_plan(1, 64, 64, 1, 512, chunk_tiles=0)
     with pytest.raises(ValueError, match="head dim 96"):
         tfa._fwd_plan(1, 64, 64, 1, 96)
 
@@ -280,6 +334,200 @@ def test_3xtf32_attention_matches_jax_reference(rng):
                                rtol=1e-5)
 
 
+# ------------------------------------------------------------ two passes
+
+
+def attention_two_pass(q, k, v, *, kv_lens=None, scale=None, chunk_tiles=None,
+                       products=3):
+    """Head dims 384 / 512 as ``csrc/attention_f32_wide_sm90.cuh`` computes
+    them, in plain PyTorch: the call cut into chunks of ``chunk_tiles``
+    128-row query tiles, numbered flat over (b * h, tile) (default: one
+    chunk); per chunk, pass 1 writes each (tile, 128-key tile)'s scores S =
+    scale Q.K^T (summed one 32-float depth stage at a time, the stages added
+    in fp32; keys at or past kv_len -1e30, key tiles wholly past it
+    skipped) and each row's max and sum of exp over the tile; pass 2 merges
+    a row's (max, sum) pairs into m and l, then adds each 32-key tile's
+    exp(S - m).V (masked keys 0) into O in fp32 and divides by l (0 where l
+    is 0). Every product is ``_matmul_3xtf32``'s (``products`` 1: one TF32
+    pass). Ragged tiles are zero-padded, as TMA fills them. Returns o [B,
+    Sq, H, D] and m, l [B, H, Sq]. The sums run in another order than on the
+    tensor cores: this models the passes, the chunks and the split, not the
+    hardware's additions."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rows, score_keys, keys, depth = 128, 128, 32, 32
+    q_tiles = -(-sq // rows)
+    nkt = max(1, -(-sk // score_keys))
+    n_tiles = q_tiles * b * h
+
+    def pad(x, n):
+        out = torch.zeros((b * h, n, d), dtype=torch.float32)
+        out[:, :x.shape[1]] = x.float().permute(0, 2, 1, 3).reshape(
+            b * h, x.shape[1], d)
+        return out
+
+    qp, kp, vp = pad(q, q_tiles * rows), pad(k, nkt * score_keys), pad(
+        v, nkt * score_keys)
+    kl = (torch.full((b,), sk) if kv_lens is None
+          else kv_lens.to(torch.int64).clamp(0, sk))
+    o = torch.zeros((b * h, q_tiles * rows, d))
+    m = torch.full((b * h, q_tiles * rows), tfa.NEG_INF)
+    l = torch.zeros((b * h, q_tiles * rows))
+    chunk_tiles = chunk_tiles or n_tiles
+    for t0 in range(0, n_tiles, chunk_tiles):
+        tiles = range(t0, min(t0 + chunk_tiles, n_tiles))
+        s_all = torch.full((len(tiles), rows, nkt * score_keys), math.nan)
+        parts = torch.full((len(tiles), rows, nkt, 2), math.nan)
+        for i, tile in enumerate(tiles):            # pass 1
+            bh, qi = divmod(tile, q_tiles)
+            kv_len = int(kl[bh // h])
+            qt = qp[bh, qi * rows:(qi + 1) * rows]
+            for kt in range(nkt):
+                k0 = kt * score_keys
+                if k0 >= kv_len:
+                    continue
+                kt_ = kp[bh, k0:k0 + score_keys]
+                s = torch.zeros((rows, score_keys))
+                for c in range(0, d, depth):
+                    s = s + _matmul_3xtf32(qt[:, c:c + depth],
+                                           kt_[:, c:c + depth].T, products)
+                s = s * scale
+                s[:, torch.arange(score_keys) >= kv_len - k0] = tfa.NEG_INF
+                mj = s.amax(dim=-1)
+                s_all[i, :, k0:k0 + score_keys] = s
+                parts[i, :, kt, 0] = mj
+                parts[i, :, kt, 1] = torch.exp(s - mj[:, None]).sum(dim=-1)
+        for i, tile in enumerate(tiles):            # pass 2
+            bh, qi = divmod(tile, q_tiles)
+            kv_len = int(kl[bh // h])
+            mm = torch.full((rows,), tfa.NEG_INF)
+            ll = torch.zeros(rows)
+            for kt in range(-(-kv_len // score_keys)):
+                mj, lj = parts[i, :, kt, 0], parts[i, :, kt, 1]
+                mn = torch.maximum(mm, mj)
+                ll = ll * torch.exp(mm - mn) + lj * torch.exp(mj - mn)
+                mm = mn
+            acc = torch.zeros((rows, d))
+            for k0 in range(0, kv_len, keys):
+                st = s_all[i, :, k0:k0 + keys]
+                valid = (torch.arange(keys) < kv_len - k0)[None, :]
+                p = torch.where(valid, torch.exp(st - mm[:, None]),
+                                torch.zeros_like(st))
+                acc = acc + _matmul_3xtf32(p, vp[bh, k0:k0 + keys], products)
+            inv = torch.where(ll == 0, torch.zeros_like(ll), 1.0 / ll)
+            o[bh, qi * rows:(qi + 1) * rows] = acc * inv[:, None]
+            m[bh, qi * rows:(qi + 1) * rows] = mm
+            l[bh, qi * rows:(qi + 1) * rows] = ll
+    o = o[:, :sq].reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    return o, m[:, :sq].reshape(b, h, sq), l[:, :sq].reshape(b, h, sq)
+
+
+# B 3 x two 128-row tiles (200 rows: a ragged last tile), 300 keys (three
+# pass-1 tiles, the last ragged), kv_lens full, ragged and 0; chunks of 4
+# tiles: the first spans two batch rows, the last holds two (ragged)
+TWO_PASS = dict(b=3, sq=200, sk=300, h=1, kv_lens=(300, 77, 0),
+                chunk_tiles=4)
+
+
+@pytest.fixture(scope="module", params=(384, 512))
+def two_pass_case(request):
+    """Inputs, kv_lens and the model's outputs on them, at unit scale and
+    x8, for head dim 384 and 512 (seeded apart from the ``rng``
+    fixture)."""
+    d, c = request.param, TWO_PASS
+    gen = np.random.default_rng(d)
+    q, k, v = _qkv(gen, c["b"], c["sq"], c["sk"], c["h"], d)
+    kl = torch.tensor(c["kv_lens"])
+    out = {"d": d, "kl": kl, "qkv": (q, k, v)}
+    out["model"] = attention_two_pass(q, k, v, kv_lens=kl,
+                                      chunk_tiles=c["chunk_tiles"])
+    q8, k8, v8 = (x * 8 for x in (q, k, v))
+    out["qkv8"] = (q8, k8, v8)
+    out["model8"] = attention_two_pass(q8, k8, v8, kv_lens=kl,
+                                       chunk_tiles=c["chunk_tiles"])
+    out["one_pass8"] = attention_two_pass(q8, k8, v8, kv_lens=kl,
+                                          chunk_tiles=c["chunk_tiles"],
+                                          products=1)
+    return out
+
+
+def test_two_pass_matches_plain_and_float64(two_pass_case):
+    """The two passes keep fp32 accuracy, with the gates of
+    ``test_3xtf32_attention_matches_fp32``: within 1e-6 of
+    ``flash_attention_plain`` in relative L2 and 4e-6 of the largest output,
+    and against float64 at most twice the plain version's error plus 1e-7;
+    m and l as the plain version gives them; the kv_len = 0 row exactly
+    zero with m = -1e30 and l = 0."""
+    c = two_pass_case
+    q, k, v = c["qkv"]
+    kl = c["kl"]
+    o, m, l = c["model"]
+    ro, rm, rl = tfa.flash_attention_plain(q, k, v, kv_lens=kl,
+                                           return_lse=True)
+    live = kl > 0
+    exact = _exact(q, k, v, kl)[live]
+    top = float(exact.abs().max())
+    err = float((o[live].double() - exact).abs().max()) / top
+    plain_err = float((ro[live].double() - exact).abs().max()) / top
+    seen = f"two-pass {err:.3g}, plain {plain_err:.3g} of the largest output"
+    assert _rel_l2(o[live], ro[live]) <= 1e-6, seen
+    assert _max_rel(o[live], ro[live]) <= 4e-6, seen
+    assert err <= 2 * plain_err + 1e-7, seen
+    assert float(((m[live] - rm[live]).abs() / (1 + rm[live].abs())).max()) \
+        <= 1e-6
+    assert float(((l[live] - rl[live]).abs() / rl[live]).max()) <= 1e-5
+    assert not o[~live].any()
+    assert (m[~live] == tfa.NEG_INF).all() and not l[~live].any()
+
+
+def test_two_pass_matches_jax_reference(two_pass_case):
+    """The same arithmetic against the JAX package's fp32 reference
+    (``ops/attention.py::sdpa_reference``) on the same inputs, on the rows
+    with keys (a kv_len = 0 row gives the mean of V there, zeros here)."""
+    c = two_pass_case
+    q, k, v = c["qkv"]
+    kl = c["kl"].numpy().astype(np.int32)
+    want = np.asarray(sdpa_reference(*(jnp.asarray(x.numpy())
+                                       for x in (q, k, v)),
+                                     kv_lens=jnp.asarray(kl)))
+    live = kl > 0
+    np.testing.assert_allclose(c["model"][0].numpy()[live], want[live],
+                               atol=2e-6, rtol=1e-5)
+
+
+def test_two_pass_inputs_x8(two_pass_case):
+    """On inputs x8 (scores 64x larger) the two passes stay within the
+    card's 1e-4 gate against float64 (``chip_smoke.py``'s precision
+    check), where one TF32 pass misses it."""
+    c = two_pass_case
+    q, k, v = c["qkv8"]
+    kl = c["kl"]
+    live = kl > 0
+    exact = _exact(q, k, v, kl)[live]
+    top = float(exact.abs().max())
+
+    def err(x):
+        return float((x[live].double() - exact).abs().max()) / top
+
+    assert err(c["model8"][0]) <= 1e-4
+    assert err(c["one_pass8"][0]) > 1e-4
+
+
+def test_two_pass_chunks_change_nothing(rng):
+    """Each tile's arithmetic does not depend on the chunk it falls in: one
+    tile a chunk, a ragged cut and the whole call in one chunk give the same
+    bits, m and l too."""
+    q, k, v = _qkv(rng, 2, 300, 140, 1, 384)
+    kl = torch.tensor([140, 33])
+    whole = attention_two_pass(q, k, v, kv_lens=kl)
+    for tiles in (1, 4):
+        cut = attention_two_pass(q, k, v, kv_lens=kl, chunk_tiles=tiles)
+        for a, b in zip(cut, whole):
+            assert torch.equal(a, b)
+
+
 # ------------------------------------------------------------ V^T key order
 
 
@@ -334,3 +582,21 @@ def test_vt_key_order_matches_the_fragments():
     for j in range(keys // 8):
         assert order[8 * j:8 * j + 4] == [8 * j + k for k in (0, 2, 4, 6)]
         assert order[8 * j + 4:8 * j + 8] == [8 * j + k for k in (1, 3, 5, 7)]
+
+
+def test_f32_plan_export_refuses_what_the_kernel_lacks():
+    """``wf_flash_f32_plan`` gives no plan where the entry point refuses:
+    a head dim or variant with no instantiation, a chunk at a one-pass head
+    dim, a two-pass chunk of no tiles; the scratch of a two-pass chunk
+    grows with its tiles, in 64 bits past 2 GiB."""
+    lib = tfa._plan_lib()
+    out = (ctypes.c_longlong * 11)()
+    for d, variant, chunk in ((96, 0, 0), (80, 1, 0), (128, 1, 0),
+                              (512, 1, 1), (64, 2, 0), (64, 0, 1),
+                              (384, 0, 0), (512, 0, -1)):
+        assert lib.wf_flash_f32_plan(d, variant, 1000, chunk, out) == 0, (
+            d, variant, chunk)
+    one = tfa._f32_layout(512, 0, 6656, 1)
+    big = tfa._f32_layout(512, 0, 6656, 40000)
+    assert big.scratch_bytes == 40000 * one.scratch_bytes > 2 ** 31
+    assert tfa._f32_layout(384, 0, 0, 1).score_key_tiles == 1

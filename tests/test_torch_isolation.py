@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``worldforge_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
-on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``worldforge_tpu_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports JAX or the JAX
+package, and the entry points run on the card unless the caller asks for
+the CPU."""
 
 import ast
 import pathlib
@@ -10,7 +11,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "worldforge_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path):

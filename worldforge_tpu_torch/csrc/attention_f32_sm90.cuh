@@ -43,9 +43,8 @@ constexpr int kSplitters = 96;   // warps 1-3 of warpgroup 0
 // The launch plan of head dim D, variant V: 0 for long rows, 1 for short
 // ones (one consumer warpgroup of 64 rows and 32-key tiles: at d 64 two
 // blocks share an SM, so one block's loads overlap another's epilogue).
-// ops/flash_attention.py::_fwd_plan computes the same numbers; the entry
-// point (wf_flash_attention_f32) runs only the plan it was compiled for.
-// flash_attention.cu instantiates variant 1 at d 64 only.
+// flash_attention.cu holds it to attention_f32_plan.cuh's one_pass_plan,
+// which the wrapper reads, and instantiates variant 1 at d 64 only.
 template <int D, int V = 0>
 struct Plan {
   static constexpr int C = D == 128 || V == 1 ? 1 : 2;  // consumer warpgroups
@@ -719,18 +718,6 @@ fa_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------- host side
 
-// The kernel's plan as the wrapper states it: query rows a block, keys a
-// tile, ring stages, threads, dynamic shared-memory bytes.
-template <int D, int V>
-inline void plan_of(int* out) {
-  using L = Plan<D, V>;
-  out[0] = L::Rows;
-  out[1] = L::KT;
-  out[2] = L::NS;
-  out[3] = L::Threads;
-  out[4] = (int)L::bytes;
-}
-
 template <int D, int V>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_lens, float* o, float* m, float* l, int B,
@@ -763,18 +750,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   p.scale = scale;
   const long blocks = (long)((Sq + L::Rows - 1) / L::Rows) * B * H;
   if (blocks < 1 || blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  // the shared-memory limit, once per instantiation and device
-  static unsigned long long smem_set = 0;
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  err = cudaFuncSetAttribute(fa_f32_wgmma_kernel<D, V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L::bytes);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !((smem_set >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(fa_f32_wgmma_kernel<D, V>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L::bytes);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) smem_set |= 1ull << dev;
-  }
   fa_f32_wgmma_kernel<D, V><<<(unsigned)blocks, L::Threads, L::bytes, stream>>>(
       tq, tk, tv, p);
   return cudaGetLastError();

@@ -69,25 +69,38 @@
 //     long-variant blocks below one wave) has one consumer warpgroup and
 //     32-key tiles in 97 KB, so two blocks share an SM and one's loads and
 //     split overlap another's epilogue. The host's plan (ops/
-//     flash_attention.py::_fwd_plan) picks the variant and is passed to the
-//     entry point, which runs only the plan its instantiation was compiled
-//     for. No scratch in device memory: the split planes live in shared
+//     flash_attention.py::_fwd_plan) picks the variant and passes it to the
+//     entry point, which refuses one it does not compile; the layout
+//     follows from the head dim and variant (attention_f32_plan.cuh, which
+//     the host reads through flash_plan.cpp). No scratch in device memory: the split planes live in shared
 //     memory (193 KB at d 64 and 128, 141 KB at d 80).
 //   * fp32 d = 384, 512 (the Wan2.1 and SVD VAEs' single-head mid
-//     attention) stay on the mma.sync kernel below (fa_f32_tf32_kernel),
-//     chosen by head dim in wf_flash_attention_f32: a 64-row O accumulator
-//     of 384 or 512 columns is 192 or 256 fp32 registers a thread in one
-//     warpgroup, and Q's hi / lo planes alone are 196 or 262 KB, so the
-//     wgmma layout above does not fit them. That kernel runs 3xTF32
-//     mma.sync m16n8k8 products: each 16-row group has WPG warps, each
-//     owning 1/WPG of O's columns and computing 1/WPG of S's depth; the
-//     parts of S meet in shared memory, which also turns S from the
-//     accumulator layout into P's A-operand layout. d = 384 runs 64 query
-//     rows a block with two warps a group; d = 512 32 rows with four warps a
-//     group: 64 rows would need 283 KB of shared memory for Q, K, V and S.
-//     Both are 256 threads. K and V tiles of 32 keys are loaded with
-//     cp.async, each while the other one is in use. Its products are summed
-//     in short runs (a few k-steps of S, one kv tile of O) added in fp32.
+//     attention): attention_f32_wide_sm90.cuh, two passes, each a GEMM of
+//     3xTF32 wgmma m64n128k8 products fed by a TMA ring, with the scores in
+//     a device scratch between them. A 64-row O of 384 / 512 columns would
+//     be 192 / 256 fp32 registers a thread in one warpgroup (twice that with
+//     the fresh accumulator each key tile needs), and Q's hi / lo planes at
+//     64 rows 196 / 262 KB, so the one-pass layout above does not fit. Pass
+//     1 (fa_f32_scores_kernel) computes a 128 x 128 tile of S = scale
+//     Q.K^T a block, the depth streamed in 32-float stages (a 4-stage ring
+//     of Q raw and K hi / lo, 48 KB a stage, 193 KB), and writes S and
+//     each row's (max, sum of exp) over its 128 keys. Pass 2
+//     (fa_f32_pv_kernel) takes 128 rows x 128 columns of O a block: it
+//     merges the row's partials into the exact m and l (so O is never
+//     rescaled), then streams 32-key stages of S and V (a 3-stage ring of S,
+//     V raw and V^T hi / lo, 64 KB a stage, 193 KB), P = exp(S - m) split
+//     in registers as the A operand, O / l stored at the end. Both: one
+//     producer thread, 96 splitter threads, two consumer warpgroups of 64
+//     rows taking turns; a consumer thread holds 64 + 64 accumulator and
+//     32 fragment registers (setmaxnreg 224 / 56). The host (ops/
+//     flash_attention.py::_fwd_plan) cuts a call into chunks of 128-row
+//     query tiles, flat over (b * h, tile), so the scratch (S of the chunk
+//     and its partials, sized by attention_f32_plan.cuh) stays within 256
+//     MiB, and picks the chunk that gives the fewest waves of both passes
+//     on the card's SMs; the entry point takes the chunk and the scratch and
+//     launches the two passes chunk by chunk on the caller's stream
+//     (2 launches a chunk, no host synchronisation, scratch from the
+//     caller, so CUDA graphs capture it).
 //   * Blocks are numbered on gridDim.x alone (x = bh * qtiles + query tile),
 //     whose limit is 2^31 - 1: on gridDim.y, B*H would stop at 65,535, and
 //     the SVD UNet's temporal attention has B*H = (H/8)(W/8) x 5 rows at its
@@ -97,330 +110,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "attention_sm90.cuh"
 #include "attention_short_sm90.cuh"
 #include "attention_f32_sm90.cuh"
+#include "attention_f32_wide_sm90.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------- fp32 3xTF32
-
-constexpr int kFK = 32;          // keys per kv tile
-constexpr int kFThreads = 256;   // 8 warps: (QB / 16) groups x WPG warps
-
-// The tiling of head dim D: QB query rows per block, WPG warps per 16-row
-// group (QB / 16 * WPG = 8 warps).
-template <int D>
-struct F32Tile {
-  static constexpr int QB = D > 384 ? 32 : 64;
-  static constexpr int WPG = D > 384 ? 4 : 2;
-  static_assert(QB / 16 * WPG * 32 == kFThreads, "8 warps a block");
-};
-
-template <int D>
-struct F32Smem {
-  static constexpr int QB = F32Tile<D>::QB, WPG = F32Tile<D>::WPG;
-  // Row strides (floats) chosen so the fragment loads hit 32 distinct banks:
-  // Q and K rows are read as (row lane/4, column lane%4), so a stride of 4
-  // times an odd number mod 32 (4 for d 64, 128, 384, 512; 20 for d 80); V
-  // rows as (row lane%4, column lane/4), so 8 mod 32 (24 for d 80).
-  static constexpr int LQ = D + 4, LK = D + 4, LV = D + 8, LS = kFK + 4;
-  static constexpr int q = 0, k = QB * LQ, v = k + kFK * LK,
-                       s = v + kFK * LV;
-  static constexpr size_t bytes = sizeof(float) * (s + WPG * QB * LS);
-  static_assert(bytes <= 232448, "227 KB of shared memory a block");
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage `rows` rows of D floats (global row stride `gs`) into shared memory
-// with row stride `ld`; rows at or past `valid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int rows, int valid, long gs,
-                                          int ld) {
-  constexpr int VPR = D / 4;
-  for (int i = threadIdx.x; i < rows * VPR; i += kFThreads) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * ld + c, src + (long)(ok ? r : 0) * gs + c, ok);
-  }
-}
-
-// x = hi + lo, both TF32 (round to nearest, ties away).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// c += a . b for a 16x8 (row) TF32 A, an 8x8 (col) TF32 B, fp32 C.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in fp32 accuracy: the small cross terms first, lo.lo dropped
-// (it is below fp32 rounding).
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4],
-                                           const float (&b)[2]) {
-  uint32_t h0, l0, h1, l1;
-  split_tf32(b[0], h0, l0);
-  split_tf32(b[1], h1, l1);
-  mma_tf32(c, alo, h0, h1);
-  mma_tf32(c, ahi, l0, l1);
-  mma_tf32(c, ahi, h0, h1);
-}
-
-__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
-}
-
-// One block per (QB-query tile, b*h); warp w takes rows 16*(w/WPG) .. +16
-// and part w%WPG: O's columns [part*D/WPG, +D/WPG) and S's depth likewise.
-// m16n8k8 fragments (g = lane/4, t = lane%4): A holds (g, t), (g+8, t),
-// (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); C holds
-// (g, 2t..2t+1) and (g+8, 2t..2t+1).
-template <int D>
-__global__ void __launch_bounds__(kFThreads, 1)
-fa_f32_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const int* __restrict__ kv_lens, float* __restrict__ o,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   int Sq, int Sk, int H, float scale) {
-  using L = F32Smem<D>;
-  constexpr int QB = L::QB, WPG = L::WPG;
-  constexpr int HD = D / WPG;    // O columns / S depth per warp
-  constexpr int NO = HD / 8;     // O column blocks per warp
-  // The tensor cores add into their fp32 accumulator with truncation, a
-  // bias that grows with the number of products summed: so each product
-  // is summed over at most KC k-steps (S) or one kv tile (O), NG column
-  // blocks at a time, and those partial sums are added in fp32.
-  constexpr int KC = HD / 8 < 8 ? HD / 8 : 8;
-  constexpr int NG = NO < 8 ? NO : 8;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm + L::q;
-  float* Ks = fsm + L::k;
-  float* Vs = fsm + L::v;
-  float* Ss = fsm + L::s;        // [WPG parts][QB rows][LS]
-
-  const int qtiles = (Sq + QB - 1) / QB;
-  const int bh = blockIdx.x / qtiles, b = bh / H, h = bh % H;
-  const int q0 = (blockIdx.x % qtiles) * QB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int rg = warp / WPG, part = warp % WPG;
-  const int r0 = rg * 16 + g, r1 = r0 + 8;       // this thread's rows
-  const long rs = (long)H * D;                   // token stride
-  const int kv_len = kv_lens != nullptr ? max(0, min(kv_lens[b], Sk)) : Sk;
-  const int ntiles = (kv_len + kFK - 1) / kFK;   // tiles past kv_len skip
-  const float* qb = q + ((long)b * Sq + q0) * rs + (long)h * D;
-  const float* kb = k + (long)b * Sk * rs + (long)h * D;
-  const float* vb = v + (long)b * Sk * rs + (long)h * D;
-
-  if (ntiles > 0) {
-    stage_f32<D>(Qs, qb, QB, min(QB, Sq - q0), rs, L::LQ);
-    stage_f32<D>(Ks, kb, kFK, min(kFK, Sk), rs, L::LK);
-  }
-  cp_async_commit();
-  if (ntiles > 0) stage_f32<D>(Vs, vb, kFK, min(kFK, Sk), rs, L::LV);
-  cp_async_commit();
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;   // running max of rows r0, r1
-  float l0 = 0.f, l1 = 0.f;           // this thread's part of their sums
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int key0 = t * kFK;
-    cp_async_wait<1>();               // Q and K(t) have landed
-    __syncthreads();
-
-    // this warp's part of S's depth: rows r0, r1 x 32 keys x D/WPG, summed
-    // in chunks of KC k-steps that are added in fp32
-    float sp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sp[j][0] = sp[j][1] = sp[j][2] = sp[j][3] = 0.f;
-#pragma unroll 1
-    for (int k0 = 0; k0 < HD / 8; k0 += KC) {
-      float tp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        tp[j][0] = tp[j][1] = tp[j][2] = tp[j][3] = 0.f;
-#pragma unroll
-      for (int kk = k0; kk < k0 + KC; ++kk) {
-        const int d0 = part * HD + kk * 8 + t4;
-        const float a[4] = {Qs[r0 * L::LQ + d0], Qs[r1 * L::LQ + d0],
-                            Qs[r0 * L::LQ + d0 + 4], Qs[r1 * L::LQ + d0 + 4]};
-        uint32_t ahi[4], alo[4];
-        split4(a, ahi, alo);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float* kr = Ks + (8 * j + g) * L::LK + d0;
-          const float bk[2] = {kr[0], kr[4]};
-          mma_3xtf32(tp[j], ahi, alo, bk);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sp[j][e] += tp[j][e];
-    }
-    float* sh = Ss + part * QB * L::LS;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float2*>(sh + r0 * L::LS + 8 * j + 2 * t4) =
-          make_float2(sp[j][0], sp[j][1]);
-      *reinterpret_cast<float2*>(sh + r1 * L::LS + 8 * j + 2 * t4) =
-          make_float2(sp[j][2], sp[j][3]);
-    }
-    __syncthreads();                  // S parts written; K(t) is free
-    if (t + 1 < ntiles)
-      stage_f32<D>(Ks, kb + (long)(key0 + kFK) * rs, kFK,
-                   min(kFK, Sk - key0 - kFK), rs, L::LK);
-    cp_async_commit();
-
-    // S = the sum of the WPG parts, read in P's A-operand layout: k-step kk
-    // covers keys 8kk .. 8kk+7, s[kk] = (r0, t4), (r1, t4), (r0, t4+4),
-    // (r1, t4+4)
-    float s[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = (e & 1) ? r1 : r0;
-        const int col = 8 * kk + t4 + (e >> 1) * 4;
-        float sum = Ss[row * L::LS + col];
-#pragma unroll
-        for (int w = 1; w < WPG; ++w) sum += Ss[(w * QB + row) * L::LS + col];
-        s[kk][e] = key0 + col < kv_len ? sum * scale : kNegInf;
-      }
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      mx0 = fmaxf(mx0, fmaxf(s[kk][0], s[kk][2]));
-      mx1 = fmaxf(mx1, fmaxf(s[kk][1], s[kk][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      s[kk][0] = expf(s[kk][0] - mn0);
-      s[kk][1] = expf(s[kk][1] - mn1);
-      s[kk][2] = expf(s[kk][2] - mn0);
-      s[kk][3] = expf(s[kk][3] - mn1);
-      sum0 += s[kk][0] + s[kk][2];
-      sum1 += s[kk][1] + s[kk][3];
-    }
-    l0 = al0 * l0 + sum0;
-    l1 = al1 * l1 + sum1;
-    uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split4(s[kk], phi[kk], plo[kk]);
-
-    cp_async_wait<1>();               // V(t) has landed
-    __syncthreads();
-    // O = alpha O + P V over this warp's D/WPG columns, NG column blocks at a
-    // time: each tile's product is summed apart and added in fp32
-#pragma unroll
-    for (int n0 = 0; n0 < NO; n0 += NG) {
-      float tp[NG][4];
-#pragma unroll
-      for (int i = 0; i < NG; ++i)
-        tp[i][0] = tp[i][1] = tp[i][2] = tp[i][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* vr = Vs + (8 * kk + t4) * L::LV + part * HD + g;
-#pragma unroll
-        for (int i = 0; i < NG; ++i) {
-          const float bv[2] = {vr[8 * (n0 + i)], vr[4 * L::LV + 8 * (n0 + i)]};
-          mma_3xtf32(tp[i], phi[kk], plo[kk], bv);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NG; ++i) {
-        float* a = acc[n0 + i];
-        a[0] = fmaf(a[0], al0, tp[i][0]);
-        a[1] = fmaf(a[1], al0, tp[i][1]);
-        a[2] = fmaf(a[2], al1, tp[i][2]);
-        a[3] = fmaf(a[3], al1, tp[i][3]);
-      }
-    }
-    __syncthreads();                  // V(t) and the S parts are free
-    if (t + 1 < ntiles)
-      stage_f32<D>(Vs, vb + (long)(key0 + kFK) * rs, kFK,
-                   min(kFK, Sk - key0 - kFK), rs, L::LV);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the row sums are spread over the 4 lanes of a row group
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-  const bool ok0 = q0 + r0 < Sq, ok1 = q0 + r1 < Sq;
-  float* o0 = o + ((long)b * Sq + q0 + r0) * rs + (long)h * D + part * HD;
-  float* o1 = o + ((long)b * Sq + q0 + r1) * rs + (long)h * D + part * HD;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = 8 * n + 2 * t4;
-    if (ok0)
-      *reinterpret_cast<float2*>(o0 + c) =
-          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (ok1)
-      *reinterpret_cast<float2*>(o1 + c) =
-          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  if (m_out != nullptr && part == 0 && t4 == 0) {
-    if (ok0) {
-      m_out[(long)bh * Sq + q0 + r0] = m0;
-      l_out[(long)bh * Sq + q0 + r0] = l0;
-    }
-    if (ok1) {
-      m_out[(long)bh * Sq + q0 + r1] = m1;
-      l_out[(long)bh * Sq + q0 + r1] = l1;
-    }
-  }
-}
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
@@ -461,58 +156,18 @@ static_assert(sm90::Layout<64>::bytes == sm90short::long_bytes(64) &&
                   sm90::kStages == sm90short::kStages,
               "route 0's layout and long_plan disagree");
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const int* kv_lens, void* o, float* m, float* l,
-                       int B, int Sq, int Sk, int H, float scale,
-                       cudaStream_t stream) {
-  const size_t bytes = F32Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_f32_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  constexpr int QB = F32Tile<D>::QB;
-  const long blocks = (long)((Sq + QB - 1) / QB) * B * H;
-  if (blocks < 1 || blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  fa_f32_tf32_kernel<D><<<(unsigned)blocks, kFThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_lens, static_cast<float*>(o), m, l,
-      Sq, Sk, H, scale);
-  return cudaGetLastError();
+// The one-pass kernels' layout is the one the host's plan reports
+// (attention_f32_plan.cuh::one_pass_plan).
+template <int D, int V>
+constexpr bool same_plan() {
+  using L = sm90f32::Plan<D, V>;
+  constexpr f32plan::Plan p = f32plan::one_pass_plan(D, V);
+  return L::Rows == p.rows && L::KT == p.key_tile && L::NS == p.stages &&
+         L::Threads == p.threads && L::bytes == (size_t)p.smem;
 }
-
-// The mma.sync kernel's plan: query rows a block, keys a tile, stages (one
-// K and one V tile, each loaded while the other is in use), threads,
-// dynamic shared-memory bytes.
-template <int D>
-void plan_mma_sync(int* out) {
-  out[0] = F32Tile<D>::QB;
-  out[1] = kFK;
-  out[2] = 1;
-  out[3] = kFThreads;
-  out[4] = (int)F32Smem<D>::bytes;
-}
-
-// The compiled plan of fp32 head dim D, variant V into out[5] (query rows a
-// block, keys a tile, ring stages, threads, dynamic shared-memory bytes):
-// the wgmma kernel at d 64 (variants 0, long rows, and 1, short rows), 80
-// and 128 (variant 0), the mma.sync kernel at d 384 and 512 (variant 0).
-// False when there is no such instantiation.
-bool f32_plan(int D, int V, int* out) {
-  if (V == 1 && D == 64) {
-    sm90f32::plan_of<64, 1>(out);
-    return true;
-  }
-  if (V != 0) return false;
-  switch (D) {
-    case 64: sm90f32::plan_of<64, 0>(out); return true;
-    case 80: sm90f32::plan_of<80, 0>(out); return true;
-    case 128: sm90f32::plan_of<128, 0>(out); return true;
-    case 384: plan_mma_sync<384>(out); return true;
-    case 512: plan_mma_sync<512>(out); return true;
-  }
-  return false;
-}
+static_assert(same_plan<64, 0>() && same_plan<64, 1>() && same_plan<80, 0>() &&
+                  same_plan<128, 0>(),
+              "the one-pass kernels and one_pass_plan disagree");
 
 }  // namespace
 
@@ -551,28 +206,35 @@ int wf_flash_attention(const void* q, const void* k, const void* v,
   return launch_bf16<128>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
 }
 
-// fp32 flash attention laid out by the host's plan (variant V, rows,
-// key_tile, stages, threads, smem_bytes: ops/flash_attention.py::_fwd_plan),
-// run by the instantiation of head dim D and variant V, which must have been
-// compiled for exactly that plan. Refused before anything runs:
+// fp32 flash attention on the instantiation of head dim D and variant V
+// (ops/flash_attention.py::_fwd_plan; the layout follows from them,
+// attention_f32_plan.cuh). At d 384 and 512 the host also picks the chunk
+// (`chunk_tiles` 128-row query tiles a chunk) and passes the scratch, at
+// least sm90f32w::scratch_bytes(Sk, chunk_tiles) bytes; the one-pass
+// kernels take chunk_tiles 0 and no scratch. Refused before anything runs:
 // cudaErrorInvalidValue for a head dim and variant with no instantiation,
-// cudaErrorInvalidConfiguration for another plan. kv_lens may be null:
-// every batch row then has Sk keys.
+// a chunk below one tile or a scratch too small; cudaErrorInvalidConfiguration
+// for a chunk at a one-pass head dim. kv_lens may be null: every batch row
+// then has Sk keys.
 int wf_flash_attention_f32(const void* q, const void* k, const void* v,
                            const void* kv_lens, void* o, void* m, void* l,
                            int B, int Sq, int Sk, int H, int D, float scale,
-                           int V, int rows, int key_tile, int stages,
-                           int threads, int smem_bytes, void* stream) {
-  int own[5];
-  if (!f32_plan(D, V, own)) return (int)cudaErrorInvalidValue;
-  const int plan[5] = {rows, key_tile, stages, threads, smem_bytes};
-  if (!std::equal(own, own + 5, plan))
-    return (int)cudaErrorInvalidConfiguration;
+                           int V, int chunk_tiles, void* scratch,
+                           long long scratch_bytes, void* stream) {
   const int* kl = static_cast<const int*>(kv_lens);
   float* op = static_cast<float*>(o);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32plan::two_pass(D, V)) {
+    if (D == 384)
+      return sm90f32w::launch<384>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale,
+                                   chunk_tiles, scratch, scratch_bytes, s);
+    return sm90f32w::launch<512>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale,
+                                 chunk_tiles, scratch, scratch_bytes, s);
+  }
+  if (!f32plan::one_pass(D, V)) return (int)cudaErrorInvalidValue;
+  if (chunk_tiles != 0) return (int)cudaErrorInvalidConfiguration;
   using sm90f32::launch;
   switch (D) {
     case 64:
@@ -580,12 +242,8 @@ int wf_flash_attention_f32(const void* q, const void* k, const void* v,
                : launch<64, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
     case 80:
       return launch<80, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
-    case 128:
-      return launch<128, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
-    case 384:
-      return launch_f32<384>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
   }
-  return launch_f32<512>(q, k, v, kl, o, mp, lp, B, Sq, Sk, H, scale, s);
+  return launch<128, 0>(q, k, v, kl, op, mp, lp, B, Sq, Sk, H, scale, s);
 }
 
 const char* wf_flash_attention_error_string(int err) {

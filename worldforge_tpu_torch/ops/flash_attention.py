@@ -12,11 +12,18 @@ shared memory follow from the route and the key count,
 ``csrc/attention_bf16_plan.cuh``); fp32 with head dim 64,
 80 or 128 on ``csrc/attention_f32_sm90.cuh`` (every product three TF32
 ``wgmma`` products fed by a TMA ring, each tile split into TF32 hi / lo
-planes once in shared memory); fp32 with head dim 384 or 512 on the
-``mma.sync`` kernel ``fa_f32_tf32_kernel``. The fp32 launch is laid out by
-the host-side ``_fwd_plan`` (variant, rows, key tile, ring stages, threads,
-shared memory; no device scratch), which the kernel refuses if it is not
-the plan compiled for that head dim and variant.
+planes once in shared memory); fp32 with head dim 384 or 512 on the two
+passes of ``csrc/attention_f32_wide_sm90.cuh`` (S = Q.K^T, then O =
+exp(S - m).V / l, each a GEMM of three TF32 ``wgmma`` products fed by TMA,
+the scores of one chunk of query tiles in a device scratch of at most 256
+MiB between them). The host-side ``_fwd_plan`` picks the variant and, at
+d 384 / 512, the chunk; the rest of the layout (rows, key tile, ring
+stages, threads, shared memory, the scratch's bytes) follows from the head
+dim, the variant, the key count and the chunk in one plain C++ header,
+``csrc/attention_f32_plan.cuh``, which the kernels include and which the
+host reads through ``csrc/flash_plan.cpp``. The entry point takes the
+variant, the chunk and the scratch, and refuses a variant it does not
+compile, a short scratch or a chunk where there is none.
 
 ``flash_attention`` launches the kernel for CUDA tensors and uses
 ``flash_attention_plain`` only for tensors on the CPU. Both follow the
@@ -103,9 +110,21 @@ class FwdPlan(NamedTuple):
     """How the fp32 forward kernel cuts one call: ``variant`` 0 (long rows)
     or 1 (short rows, head dim 64 only), ``rows`` query rows a block,
     ``key_tile`` keys a ring stage, ``stages`` ring stages, ``threads`` a
-    block, ``smem_bytes`` of dynamic shared memory, ``blocks`` in the grid
-    (on ``gridDim.x`` alone). The call allocates no device scratch: the
-    TF32 hi / lo planes of Q, K and V^T live in shared memory."""
+    block, ``smem_bytes`` of dynamic shared memory, ``blocks`` in the
+    largest grid (on ``gridDim.x`` alone).
+
+    At head dims 64, 80 and 128 one kernel runs one grid and the call
+    allocates no device scratch (the TF32 hi / lo planes of Q, K and V^T
+    live in shared memory): the ``score_*`` fields and ``chunk_tiles`` are
+    0, ``chunks`` 1 and ``passes`` 1. At 384 and 512 two kernels run per
+    chunk of ``chunk_tiles`` 128-row query tiles (flat over b * h and the
+    tiles; ``chunks`` of them, the last possibly shorter), ``passes`` = 2 *
+    ``chunks`` launches a call: pass 1 takes ``score_tile`` keys a block
+    through ``score_stages`` depth stages in ``score_smem_bytes``, pass 2
+    the ``rows``, ``key_tile``, ``stages`` and ``smem_bytes`` above; the
+    call allocates ``scratch_bytes`` of fp32 scratch (a chunk's scores and
+    the per-key-tile max and sum of exp). The fields are
+    ``csrc/attention_f32_plan.cuh``'s."""
     variant: int
     rows: int
     key_tile: int
@@ -113,10 +132,19 @@ class FwdPlan(NamedTuple):
     threads: int
     smem_bytes: int
     blocks: int
+    score_tile: int = 0
+    score_stages: int = 0
+    score_smem_bytes: int = 0
+    chunk_tiles: int = 0
+    chunks: int = 1
+    scratch_bytes: int = 0
+    passes: int = 1
 
 
 _H100_SMS = 132
 _SHORT_KEYS = 64           # at or below this many keys: the short variant
+_TWO_PASS_HEAD_DIMS = (384, 512)
+_SCRATCH_CAP = 256 << 20   # bytes of scratch a call at most
 
 
 def _fwd_variant(b, sq, sk, h, d, num_sms=_H100_SMS):
@@ -133,55 +161,105 @@ def _fwd_variant(b, sq, sk, h, d, num_sms=_H100_SMS):
     return int(sk <= _SHORT_KEYS or -(-sq // 128) * b * h < num_sms)
 
 
+class _F32Layout(NamedTuple):
+    """``csrc/attention_f32_plan.cuh``'s plan of one head dim, variant, key
+    count and chunk (``wf_flash_f32_plan``)."""
+    rows: int
+    key_tile: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    score_tile: int
+    score_stages: int
+    score_smem_bytes: int
+    cols: int
+    score_key_tiles: int
+    scratch_bytes: int
+
+
 @functools.lru_cache(maxsize=4096)
-def _fwd_plan(b, sq, sk, h, d, variant=None):
+def _f32_layout(d, variant, sk, chunk_tiles):
+    """The fp32 layout ``csrc/flash_attention.cu`` compiles for head dim
+    ``d`` and ``variant``, at ``sk`` keys and, at d 384 / 512, chunks of
+    ``chunk_tiles`` query tiles (0 for the one-pass kernels)."""
+    out = (ctypes.c_longlong * len(_F32Layout._fields))()
+    if not _plan_lib().wf_flash_f32_plan(d, variant, sk, chunk_tiles, out):
+        raise ValueError(f"flash_attention fp32 kernel: no variant {variant} "
+                         f"at head dim {d}")
+    return _F32Layout(*out)
+
+
+def _wide_chunk_tiles(n_tiles, one, d, num_sms):
+    """The query tiles a chunk of the two-pass route takes (``one``: the
+    layout of a one-tile chunk): at most as many as keep the scratch within
+    ``_SCRATCH_CAP``, and among those the count whose chunks take the
+    fewest waves of blocks on ``num_sms`` SMs (one block an SM), each
+    pass's waves weighted by its block's work (pass 1: ``score_tile`` x
+    ``rows`` scores over ``d``; pass 2: ``rows`` x ``cols`` outputs over
+    the padded keys); the largest count on a tie."""
+    nkt = one.score_key_tiles
+    cap = max(1, _SCRATCH_CAP // one.scratch_bytes)
+    ncol = d // one.cols
+
+    def chunk(t):
+        return (-(-t * nkt // num_sms) * d
+                + -(-t * ncol // num_sms) * nkt * one.score_tile)
+
+    def cost(tiles):
+        full, rest = divmod(n_tiles, tiles)
+        return full * chunk(tiles) + (chunk(rest) if rest else 0)
+
+    return min(range(1, min(cap, n_tiles) + 1), key=lambda t: (cost(t), -t))
+
+
+@functools.lru_cache(maxsize=4096)
+def _fwd_plan(b, sq, sk, h, d, variant=None, num_sms=_H100_SMS,
+              chunk_tiles=None):
     """The fp32 forward kernel's plan for q [b, sq, h, d] and k [b, sk, h,
     d], as ``csrc/flash_attention.cu`` compiles it for head dim ``d`` and
-    ``variant`` (default: ``_fwd_variant``'s). The wrapper passes it to the
-    kernel, which runs no other.
+    ``variant`` (default: ``_fwd_variant``'s), on a card of ``num_sms``
+    SMs. The layout is ``csrc/attention_f32_plan.cuh``'s, read through
+    ``csrc/flash_plan.cpp``; the wrapper passes the variant and, at d 384 /
+    512, the chunk and its scratch to the kernel, which refuses a variant
+    it does not compile.
 
-    wgmma route: two consumer warpgroups of 64 query rows (one at d 128,
-    whose Q planes and O accumulator are twice as wide, and in the short
-    variant) plus a producer and splitter warpgroup; ring stages of 64 keys
-    at d 64 (variant 0), else 32; shared memory Q as it lands (split in the
-    consumers' registers with two consumer warpgroups) or Q hi / lo, then
-    per stage K hi / lo (K lands in the hi plane, split in place) and V^T
-    hi / lo, then, with two consumer warpgroups, raw V of each stage as it
-    lands (with one, V lands in the V^T lo plane), then 4 mbarriers a stage
-    and 2 for Q, and 1 KB to align the base to the 128-byte swizzle's
-    1024-byte atom. mma_sync route: 64 rows (d 384) or 32 (d 512), 32-key
-    tiles, 256 threads, row strides padded against bank conflicts."""
-    if d in (64, 80, 128):
-        if variant is None:
-            variant = _fwd_variant(b, sq, sk, h, d)
-        if variant not in (0, 1) or (variant and d != 64):
-            raise ValueError(f"flash_attention fp32 kernel: no variant "
-                             f"{variant} at head dim {d}")
-        consumers = 1 if d == 128 or variant else 2
-        rows = 64 * consumers
-        key_tile = 64 if d == 64 and not variant else 32
-        stages = 2
-        threads = 128 * (consumers + 1)
-        # Q raw only (split in the consumers' registers) and a stage's K hi
-        # / lo, V^T hi / lo and raw V; with one consumer warpgroup Q's hi /
-        # lo planes and a stage without raw V
-        q_planes, planes = (1, 5) if consumers == 2 else (2, 4)
-        smem = (q_planes * rows * d * 4 + stages * planes * key_tile * d * 4
-                + 8 * (4 * stages + 2) + 1024)
-    elif d in (384, 512):
-        if variant not in (None, 0):
-            raise ValueError(f"flash_attention fp32 kernel: no variant "
-                             f"{variant} at head dim {d}")
-        variant = 0
-        rows, wpg, key_tile, stages, threads = ((64, 2) if d == 384 else
-                                                (32, 4)) + (32, 1, 256)
-        smem = 4 * (rows * (d + 4) + key_tile * (d + 4) + key_tile * (d + 8)
-                    + wpg * rows * (key_tile + 4))
-    else:
+    d 64 / 80 / 128, the one-pass wgmma route: one grid of ``rows``-row
+    blocks per (batch, head) row.
+
+    d 384 / 512, the two-pass route: 128 query rows a block in both passes;
+    pass 1 one block per (query tile, 128-key tile) of the chunk, pass 2 one
+    per (query tile, 128 columns). The chunk is ``_wide_chunk_tiles``'s (or
+    ``chunk_tiles``: a check may force several chunks), its scratch at most
+    256 MiB; ``blocks`` is the larger of a full chunk's two grids."""
+    if d not in _KERNEL_HEAD_DIMS[torch.float32]:
         raise ValueError(f"flash_attention fp32 kernel: no instantiation for "
                          f"head dim {d}")
-    return FwdPlan(variant, rows, key_tile, stages, threads, smem,
-                   -(-sq // rows) * b * h)
+    if d in _TWO_PASS_HEAD_DIMS:
+        variant = 0 if variant is None else variant
+        one = _f32_layout(d, variant, sk, 1)
+        n_tiles = -(-sq // one.rows) * b * h
+        if chunk_tiles is None:
+            chunk_tiles = _wide_chunk_tiles(n_tiles, one, d, num_sms)
+        if chunk_tiles < 1:
+            raise ValueError("flash_attention fp32 kernel: a chunk holds at "
+                             "least one query tile")
+        chunk_tiles = min(chunk_tiles, n_tiles)
+        chunks = -(-n_tiles // chunk_tiles)
+        lay = _f32_layout(d, variant, sk, chunk_tiles)
+        return FwdPlan(
+            variant, lay.rows, lay.key_tile, lay.stages, lay.threads,
+            lay.smem_bytes,
+            chunk_tiles * max(lay.score_key_tiles, d // lay.cols),
+            lay.score_tile, lay.score_stages, lay.score_smem_bytes,
+            chunk_tiles, chunks, lay.scratch_bytes, 2 * chunks)
+    if chunk_tiles is not None:
+        raise ValueError(f"flash_attention fp32 kernel: no chunks at head "
+                         f"dim {d}")
+    if variant is None:
+        variant = _fwd_variant(b, sq, sk, h, d)
+    lay = _f32_layout(d, variant, sk, 0)
+    return FwdPlan(variant, lay.rows, lay.key_tile, lay.stages, lay.threads,
+                   lay.smem_bytes, -(-sq // lay.rows) * b * h)
 
 
 class Bf16Plan(NamedTuple):
@@ -298,8 +376,10 @@ def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
         raise ValueError("flash_attention kernel: every stride of q, k and v "
                          "must be a multiple of 16 bytes (TMA)")
     if plan is None:
-        plan = (_fwd_plan(b, sq, sk, h, d) if q.dtype == torch.float32 else
-                _bf16_plan(b, sq, sk, h, d, num_sms=_num_sms(q.device)))
+        sms = _num_sms(q.device)
+        plan = (_fwd_plan(b, sq, sk, h, d, num_sms=sms)
+                if q.dtype == torch.float32 else
+                _bf16_plan(b, sq, sk, h, d, num_sms=sms))
     blocks = plan.grid if isinstance(plan, Bf16Plan) else plan.blocks
     if not 0 < blocks < 2 ** 31:
         raise ValueError(f"flash_attention kernel: {blocks} blocks "
@@ -318,13 +398,22 @@ def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
             l.data_ptr() if l is not None else None, b, sq, sk, h, d,
             float(scale))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    passes = 1
     if isinstance(plan, Bf16Plan):
         err = lib.wf_flash_attention(*ptrs, plan.route, plan.walk,
                                      plan.grid, stream)
     else:
+        # the two-pass route's scores and partials, from the caching
+        # allocator on this stream; its size depends on the shapes only, so
+        # a CUDA graph's warm-up and capture take the same
+        scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                               device=q.device)
+                   if plan.scratch_bytes else None)
         err = lib.wf_flash_attention_f32(
-            *ptrs, plan.variant, plan.rows, plan.key_tile, plan.stages,
-            plan.threads, plan.smem_bytes, stream)
+            *ptrs, plan.variant, plan.chunk_tiles,
+            scratch.data_ptr() if scratch is not None else None,
+            plan.scratch_bytes, stream)
+        passes = plan.passes
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.wf_flash_attention_error_string(err).decode())
@@ -335,6 +424,8 @@ def _launch(q, k, v, kv_lens, scale, return_lse, plan=None):
     shape = flash_attention.launches_by_shape
     key = (inst, b * h, sq, sk)
     shape[key] = shape.get(key, 0) + 1
+    by = flash_attention.passes_by_instantiation
+    by[inst] = by.get(inst, 0) + passes
     return (o, m, l) if return_lse else o
 
 
@@ -344,7 +435,8 @@ def _lib():
         "wf_flash_attention": ([p] * 7 + [i] * 5 + [ctypes.c_float]
                                + [i] * 3 + [p], i),
         "wf_flash_attention_f32": ([p] * 7 + [i] * 5 + [ctypes.c_float]
-                                   + [i] * 6 + [p], i),
+                                   + [i] * 2 + [p, ctypes.c_longlong, p],
+                                   i),
         "wf_flash_attention_error_string": ([i], ctypes.c_char_p),
     })
 
@@ -353,6 +445,8 @@ def _plan_lib():
     i = ctypes.c_int
     return _build.bind("flash_plan", {
         "wf_flash_bf16_plan": ([i] * 3 + [ctypes.POINTER(i)], i),
+        "wf_flash_f32_plan": ([i] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
+                              i),
     })
 
 
@@ -537,7 +631,9 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
     64, 80, 128, 384 or 512) and raise on anything else; CPU tensors take
     ``flash_attention_plain``. Each launch adds one to ``launches``, to
     ``launches_by_instantiation["fp32 d512"]`` (its dtype and head dim) and
-    to ``launches_by_shape[("fp32 d512", B * H, Sq, Sk)]``.
+    to ``launches_by_shape[("fp32 d512", B * H, Sq, Sk)]``; the kernel
+    launches it made (two a chunk at fp32 d 384 / 512, else one) go to
+    ``passes_by_instantiation["fp32 d512"]``.
 
     Where q, k or v requires a gradient (and autograd records), CUDA
     tensors go through ``_FlashAttentionFn`` (the backward kernel: bf16 with
@@ -566,3 +662,4 @@ def flash_attention(q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
 flash_attention.launches = 0
 flash_attention.launches_by_instantiation = {}
 flash_attention.launches_by_shape = {}
+flash_attention.passes_by_instantiation = {}

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 _COUNTER_ATTRS = ("launches", "launches_by_instantiation",
-                  "launches_by_shape")
+                  "launches_by_shape", "passes_by_instantiation")
 
 
 def counted_wrappers() -> list:
