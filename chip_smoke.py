@@ -510,7 +510,7 @@ def phase_build():
           "instantiations": [
               f for source, needle in (
                   ("flash_attention", "attn_short_kernel"),
-                  ("conv3d", "conv3d_kernelILi160E"))
+                  ("conv3d", "conv3d_kernel"))
               for f in _ptxas_registers(logs.get(source, ""), needle)]})
 
 
@@ -1118,6 +1118,17 @@ def _check_mod_ln(gen, records, s, d, iters):
     return rec
 
 
+def _conv_plan_rec(taps, b, t, hh, ww, cin, cout, x_dtype):
+    """Kernel 4's route, output box, slice width and channel chunk for a
+    call (``ops/conv3d.py::conv_plan``)."""
+    from worldforge_tpu_torch.ops.conv3d import conv_plan
+    p = conv_plan(cin, cout, x_dtype, taps=taps, batch=b, frames=t,
+                  height=hh, width=ww,
+                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"route": p.route_name, "box": [p.box_f, p.box_r, p.box_w],
+            "n": p.n, "ck": p.ck, "walk": p.walk, "blocks": p.blocks}
+
+
 def _conv_errors(out, ref32):
     """The kernel's error against the plain version's fp32 result, over the
     largest |ref|. A bf16 output is first allowed its own rounding (one
@@ -1155,6 +1166,7 @@ def _check_conv(gen, records, t, hh, ww, cin, cout, iters, label, b=1,
     tol = 1e-3
     rec = {"check": label, "shape": [b, t, hh, ww, cin, cout],
            "dtype_in": str(x_dtype), "dtype_out": str(out_dtype),
+           "plan": _conv_plan_rec(3, b, t, hh, ww, cin, cout, x_dtype),
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
            "ok": bool(torch.isfinite(out).all()) and rel <= tol}
     if iters:
@@ -1206,6 +1218,7 @@ def _check_conv2d(gen, records, n, hh, ww, cin, cout, iters, label,
     tol = 1e-3
     rec = {"check": label, "shape": [n, hh, ww, cin, cout],
            "dtype_in": str(x_dtype), "dtype_out": str(out_dtype),
+           "plan": _conv_plan_rec(1, 1, n, hh, ww, cin, cout, x_dtype),
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
            "ok": bool(torch.isfinite(out).all()) and rel <= tol}
     if iters:
@@ -1232,11 +1245,13 @@ def _check_conv2d(gen, records, n, hh, ww, cin, cout, iters, label,
 
 
 # Small ragged cases of kernel 4, held to the same gate: (B, T, H, W, Cin,
-# Cout, x dtype, out dtype). They cover Tp = 3, a ragged H (13) and W (103,
-# 40, 7), Cin 3 (x staged by the producer's threads) and 16 / 96 / 192 /
-# 384 (x by TMA: bf16 into the slab, fp32 through the staging buffers),
-# Cout 3 and 32, the N slices 16, 32, 96 (x2) and 128 (x3), B = 2, and
-# every pairing of fp32 and bf16 in and out.
+# Cout, x dtype, out dtype). They cover Tp = 3 to 6, a ragged H (5, 8, 13)
+# and W (5, 7, 13, 26, 40, 103), each route: the tile route's 8 x 32 box and
+# other boxes (W 13: two frames a box), Cin 3 / 4 / 8 on the fold, Cout 3 /
+# 4 / 8 on the walk (x by TMA into the bf16 slab or through the fp32
+# staging, CK 16 and 32, and by the producer's threads at Cin 10), Cin 16 /
+# 96 / 192 / 384 on the tile route (the N slices 16, 32, 96 (x2) and 128
+# (x3)), B = 2, and every pairing of fp32 and bf16 in and out.
 _F32, _BF16 = torch.float32, torch.bfloat16
 CONV_RAGGED = (
     (1, 1, 13, 103, 3, 32, _F32, _F32),
@@ -1248,10 +1263,22 @@ CONV_RAGGED = (
     (1, 1, 13, 103, 96, 3, _F32, _F32),
     (1, 2, 5, 7, 3, 96, _BF16, _BF16),
     (1, 1, 13, 103, 384, 32, _F32, _F32),
+    (2, 1, 5, 7, 4, 8, _BF16, _F32),
+    (1, 4, 13, 26, 8, 3, _F32, _BF16),
+    (1, 3, 13, 7, 3, 96, _F32, _BF16),
+    (2, 3, 8, 13, 96, 4, _BF16, _F32),
+    (1, 2, 13, 5, 32, 8, _F32, _F32),
+    (1, 4, 5, 26, 48, 3, _F32, _BF16),
+    (2, 4, 13, 13, 10, 3, _F32, _F32),
+    (1, 1, 5, 26, 96, 3, _BF16, _BF16),
+    (2, 2, 8, 13, 64, 96, _F32, _F32),
+    (1, 4, 5, 13, 32, 160, _BF16, _BF16),
 )
 # (N, H, W, Cin, Cout, x dtype, out dtype) for the one-tap instantiation;
 # Cout 320 on N 160 in bf16 and fp32, 1280 on N 128 where the wave model
-# takes it (24 frames of 8 x 13)
+# takes it (24 frames of 8 x 13, two frames a box), Cin 3 on the fold (one
+# slice of Cout 3 / 16), Cin 4 / 8 and Cout 3 / 4 on the tile route, 1, 2,
+# 24 and 25 frames
 CONV2D_RAGGED = (
     (1, 13, 103, 16, 32, _F32, _F32),
     (3, 13, 103, 3, 3, _F32, _F32),
@@ -1260,6 +1287,12 @@ CONV2D_RAGGED = (
     (24, 17, 33, 320, 320, _BF16, _BF16),
     (1, 13, 103, 16, 320, _F32, _F32),
     (24, 7, 13, 64, 1280, _F32, _F32),
+    (25, 5, 7, 4, 512, _F32, _F32),
+    (24, 8, 13, 64, 1280, _BF16, _BF16),
+    (1, 13, 26, 8, 320, _F32, _BF16),
+    (2, 8, 5, 320, 4, _F32, _F32),
+    (25, 13, 13, 128, 3, _BF16, _F32),
+    (2, 5, 26, 3, 3, _BF16, _BF16),
 )
 
 
@@ -1562,51 +1595,7 @@ def _dc_kernel_checks(gen, records):
                             f"conv2d_3x3 svd {cin}->{cout} {n}x{hh}x{ww}")
         if i in conv_rows:
             rows[conv_rows[i]] = rec
-    _check_conv2d_slice_widths(gen, records)
     return rows
-
-
-def _check_conv2d_slice_widths(gen, records, iters=3):
-    """Kernel 4's slice width at every ``DC_CONV2D`` pair against the one
-    it had before N 160 (the widest of 128, 96, 32, 16 that divides the
-    padded Cout). Where the plans differ, both are held against
-    ``conv2d_3x3_plain`` at ``_check_conv``'s gate and timed in turns on
-    the same inputs, fp32 in and out as the UNet calls them; the other
-    pairs run the same plan as before, which the record lists."""
-    from worldforge_tpu_torch.ops import conv3d as cv
-    same, rec_pairs = [], []
-    for n, hh, ww, cin, cout in DC_CONV2D:
-        blocks = n * -(-hh // cv.TILE_H) * -(-ww // cv.TILE_W)
-        cout_p = -(-cout // 16) * 16
-        old_n = next(w for w in (128, 96, 32, 16) if cout_p % w == 0)
-        new = cv.conv_plan(cin, cout, blocks=blocks)
-        if new == cv.conv_plan(cin, cout, n=old_n):
-            same.append([n, hh, ww, cin, cout])
-            continue
-        x = torch.randn((n, hh, ww, cin), generator=gen, device="cuda")
-        w = torch.randn((3, 3, cin, cout), generator=gen,
-                        device="cuda") / math.sqrt(9 * cin)
-        bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
-        ref = cv.conv2d_3x3_plain(x, w, bias, out_dtype=torch.float32)
-        calls = {f"n{width}": (lambda width=width: cv._launch(
-                     x[None], w, bias, torch.float32, 1, n=width)[0])
-                 for width in (new.n, old_n)}
-        errs = {name: _conv_errors(fn(), ref)[1] for name, fn in calls.items()}
-        turns = in_turns(calls, iters)
-        mean = {name: sum(t) / 2 for name, t in turns.items()}
-        rec_pairs.append({
-            "shape": [n, hh, ww, cin, cout], "new_n": new.n, "old_n": old_n,
-            "turns_ms": turns, "new_ms": mean[f"n{new.n}"],
-            "old_ms": mean[f"n{old_n}"],
-            "new_over_old": mean[f"n{new.n}"] / mean[f"n{old_n}"],
-            "max_rel_err": errs})
-    torch.cuda.synchronize()
-    rec = {"check": "conv2d_3x3 svd slice widths (new vs before N 160)",
-           "pairs": rec_pairs, "same_plan_pairs": same, "tol_rel": 1e-3,
-           "ok": all(e <= 1e-3 for p in rec_pairs
-                     for e in p["max_rel_err"].values())}
-    records.append(rec)
-    return rec
 
 
 # ------------------------------------------------------------ backward kernels
@@ -1997,14 +1986,16 @@ def _require_launches(launches, names, phase):
                          f"path: {idle}")
 
 
-# kernel 4's one-tap rows at the SVD UNet's Cout-320 level and its 640 /
-# 1280 convs: (row, its (Cin, Cout), index in ``DC_CONV2D``), each counted
-# at its own shape
+# kernel 4's one-tap rows at the SVD UNet's Cout-320 level, its 640 / 1280
+# convs and its 16 x 26 and 8 x 13 levels: (row, its (Cin, Cout), index in
+# ``DC_CONV2D``), each counted at its own shape
 DC_CONV_ROWS = tuple(
-    (f"conv2d_3x3 (svd unet {cin}->{cout})", (cin, cout), i)
-    for i, (cin, cout) in ((0, (320, 320)), (1, (8, 320)), (2, (640, 320)),
-                           (3, (960, 320)), (4, (640, 640)),
-                           (10, (1280, 1280))))
+    (f"conv2d_3x3 (svd unet {cin}->{cout}{level})", (cin, cout), i)
+    for i, (cin, cout), level in (
+        (0, (320, 320), ""), (1, (8, 320), ""), (2, (640, 320), ""),
+        (3, (960, 320), ""), (4, (640, 640), ""), (10, (1280, 1280), ""),
+        (13, (2560, 1280), " 16x26"), (14, (2560, 1280), " 8x13"),
+        (15, (1280, 1280), " 8x13")))
 # the SVD UNet's spatial attention at its second and third levels (the
 # tokens / 4 and / 16, the heads x 2 and x 4)
 DC_LEVEL_ROW = "flash_attention fp32 d64 (svd unet spatial level {})"

@@ -226,14 +226,27 @@ def test_conv3d_causal_matches_pallas(rng, t, hh, ww, cin, cout):
 
 
 def test_conv3d_weight_layout_for_the_kernel(rng):
-    """The kernel stages weights as bf16 [27, Cin16, Cout16], zero-padded."""
+    """The kernel stages weights as bf16 [27, Cin16, Cout16], zero-padded;
+    for Cin <= 8 (the fold route) as [28, 8, Cout16]: 8 channels a tap and
+    a last zero tap, so that two taps fill a k16 step; a one-tap weight as
+    [10, 8, Cout16] at Cin <= 4 and Cout <= 128, else [9, Cin16, Cout16]."""
     w = torch.from_numpy(rng.standard_normal((3, 3, 3, 3, 5)).astype(
         np.float32))
     wp = tconv.prepare_weight(w)
-    assert wp.shape == (27, 16, 16) and wp.dtype == torch.bfloat16
-    torch.testing.assert_close(wp[:, :3, :5].float(),
+    assert wp.shape == (28, 8, 16) and wp.dtype == torch.bfloat16
+    torch.testing.assert_close(wp[:27, :3, :5].float(),
                                w.reshape(27, 3, 5).bfloat16().float())
     assert not wp[:, 3:].any() and not wp[:, :, 5:].any()
+    assert not wp[27].any()
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3, 9, 5)).astype(
+        np.float32))
+    wp = tconv.prepare_weight(w)
+    assert wp.shape == (27, 16, 16)
+    torch.testing.assert_close(wp[:, :9, :5].float(),
+                               w.reshape(27, 9, 5).bfloat16().float())
+    assert not wp[:, 9:].any() and not wp[:, :, 5:].any()
+    assert tconv.prepare_weight(w[0, :, :, :6]).shape == (9, 16, 16)
+    assert tconv.prepare_weight(w[0, :, :, :3]).shape == (10, 8, 16)
 
 
 @pytest.mark.parametrize("x_dtype,out_dtype", [
@@ -276,73 +289,131 @@ DC_CONV2D_PAIRS = [(320, 320), (8, 320), (640, 320), (960, 320), (640, 640),
                    (2560, 1280), (3, 128), (128, 128), (256, 128),
                    (256, 256), (128, 3), (128, 256), (512, 256), (512, 512),
                    (256, 512), (512, 8), (4, 512)]
+# (frames, H, W) the port gives kernel 4: the Wan2.1 VAE at 17 x 480 x 832
+# and its levels, the SVD UNet's four levels on a 24-frame window of 64 x
+# 104 latents, the depth tools' 320 x 512 levels on the published 110-frame
+# window, the 1024 x 1024 forward's on 8 frames, and ragged sizes
+PORT_SIZES = [(17, 480, 832), (9, 240, 416), (5, 120, 208), (5, 60, 104),
+              (24, 64, 104), (24, 32, 52), (24, 16, 26), (24, 8, 13),
+              (110, 40, 64), (110, 20, 32), (110, 10, 16), (110, 5, 8),
+              (8, 128, 128), (8, 64, 64), (8, 32, 32), (8, 16, 16)]
+RAGGED_SIZES = [(3, 7, 7), (2, 13, 13), (1, 103, 103), (5, 13, 103),
+                (4, 103, 7), (25, 7, 13)]
+
+
+def _plan(cin, cout, taps=1, frames=1, h=8, w=32, batch=1,
+          dtype=torch.float32):
+    return tconv.conv_plan(cin, cout, dtype, taps=taps, batch=batch,
+                           frames=frames, height=h, width=w)
 
 
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cin,cout", VAE_CONV_SHAPES + DC_CONV2D_PAIRS)
 def test_conv3d_plan_fits_the_kernel(cin, cout, x_dtype):
-    """The tile plan the wrapper hands the kernel: 256 output pixels a
-    block, N slices that divide the padded Cout (the whole Cout where it is
-    one of the kernel's widths, 160 for a multiple of 160), a Cin chunk
-    that divides the padded Cin, 2 to 4 stages, x by TMA unless its rows
-    are no multiple of 16 bytes (Cin = 3 in either type, Cin = 4 in bf16),
-    fp32 x through one or two fp32 staging buffers, and shared memory that
-    holds the ring, the staging and the epilogue's tile within 227 KB."""
+    """The plan the kernel launches (``csrc/conv3d_plan.cuh``, read through
+    the host library): the route from the taps, Cin and Cout (the fold for
+    Cin <= 8 at three taps and Cin <= 4 into one slice at one, the walk for
+    Cout <= 8 and Cin <= 112 at three, else the tile route), N slices
+    that divide the padded Cout (the whole Cout where it is one of the
+    kernel's widths, 160 for a multiple of 160 on the 8 x 32 box), a Cin
+    chunk that divides the padded Cin, 2 to 4 stages, x by TMA unless its
+    rows are no multiple of 16 bytes, fp32 x through one or two fp32
+    staging buffers, and shared memory that holds the ring, the staging,
+    the resident weights or the epilogue's tile within 227 KB."""
     dtype = getattr(torch, x_dtype)
-    p = tconv.conv_plan(cin, cout, dtype)
-    assert p.tile[0] * p.tile[1] == 256
-    assert p.cin_p % 16 == 0 and p.cin_p - cin < 16
-    assert p.cout_p % 16 == 0 and p.cout_p - cout < 16
-    assert p.n in (16, 32, 96, 128, 160) and p.n * p.nslices == p.cout_p
-    assert p.nslices == 1 or p.cout_p > 128
-    assert p.n == 160 if p.cout_p % 160 == 0 else p.n <= 128
-    assert p.ck in (16, 32) and p.cin_p % p.ck == 0
-    assert 2 <= p.stages <= 4
-    assert p.manual == (cin * dtype.itemsize % 16 != 0)
-    fp32_tma = x_dtype == "float32" and not p.manual
-    assert (p.staging in (1, 2)) if fp32_tma else p.staging == 0
-    assert p.n % (p.swizzle_bytes // 2) == 0
-    assert p.stage_bytes % 1024 == 0 and p.staging_bytes % 1024 == 0
-    assert p.stage_bytes >= 9 * p.ck * p.n * 2 + 10 * 34 * p.ck * 2
-    assert p.staging_bytes >= 10 * 34 * p.ck * 4
-    assert p.smem_bytes == 1024 + max(
-        p.stages * p.stage_bytes + p.staging * p.staging_bytes,
-        p.epilogue_bytes) + 8 * (2 * p.stages + p.staging)
-    assert p.smem_bytes <= 227 * 1024
-    assert tconv.conv_plan(cin, cout, dtype) == p
+    for taps in (3, 1):
+        p = _plan(cin, cout, taps=taps, dtype=dtype)
+        cout_p = -(-cout // 16) * 16
+        route = ("fold" if cin <= 8 and (taps == 3 or cin <= 4 and
+                                          cout_p <= 128) else
+                 "walk" if taps == 3 and cout <= 8 and
+                 -(-cin // 16) * 16 <= 112 else "tile")
+        assert p.route_name == route
+        assert p.cout_p % 16 == 0 and p.cout_p - cout < 16
+        assert p.n in (16, 32, 96, 128, 160) and p.n * p.nslices == p.cout_p
+        assert p.smem_bytes <= p.smem_limit == 232448
+        assert 2 <= p.stages <= 4 or (route == "fold" and 4 <= p.stages <= 8)
+        assert p.weight_bytes == p.taps_k * p.cin_p * p.n * 2 or (
+            route == "tile" and p.weight_bytes == 9 * p.ck * p.n * 2)
+        if route == "fold":
+            assert (p.cin_p, p.ck, p.taps_k, p.ksteps) == (
+                8, 8, 9 * taps + 1, (9 * taps + 1) // 2)
+            assert p.manual and p.staging == 0 and p.epilogue_bytes == 0
+            assert p.stage_bytes >= p.slab_pix * 16
+            assert p.smem_bytes == (1024 + -(-p.weight_bytes // 1024) * 1024
+                                    + p.stages * p.stage_bytes
+                                    + 8 * (2 * p.stages + 1))
+            continue
+        assert p.cin_p % 16 == 0 and p.cin_p - cin < 16
+        assert p.ck in (16, 32) and p.cin_p % p.ck == 0
+        assert p.taps_k == 9 * taps and p.ksteps == p.ck // 16 * 9
+        assert p.manual == (cin * dtype.itemsize % 16 != 0)
+        fp32_tma = x_dtype == "float32" and not p.manual
+        assert (p.staging in (1, 2)) if fp32_tma else p.staging == 0
+        assert p.stage_bytes % 1024 == 0 and p.staging_bytes % 1024 == 0
+        assert p.staging_bytes >= p.slab_pix * p.ck * 4
+        if route == "walk":
+            assert (p.n, p.nslices, p.epilogue_bytes) == (16, 1, 0)
+            assert p.stage_bytes >= p.slab_pix * p.ck * 2
+            assert p.smem_bytes == (1024 + -(-p.weight_bytes // 1024) * 1024
+                                    + p.stages * p.stage_bytes
+                                    + p.staging * p.staging_bytes
+                                    + 8 * (2 * p.stages + p.staging + 1))
+            continue
+        # 128 for 160 only where both divide Cout (the wave model)
+        assert p.n in ((160, 128) if p.cout_p % 640 == 0 else (160,)) \
+            if p.cout_p % 160 == 0 else p.n <= 128
+        assert p.n % (p.swizzle_bytes // 2) == 0
+        assert p.stage_bytes >= 9 * p.ck * p.n * 2 + p.slab_pix * p.ck * 2
+        assert p.smem_bytes == 1024 + max(
+            p.stages * p.stage_bytes + p.staging * p.staging_bytes,
+            p.epilogue_bytes) + 8 * (2 * p.stages + p.staging)
+        assert _plan(cin, cout, taps=taps, dtype=dtype) == p
 
 
 def test_conv3d_plan_main_shapes():
     """Pinned plans: 96 -> 96 on fp32 x runs whole (N 96, 64-byte swizzle)
     with two 32-channel stages and one fp32 staging buffer; 384 -> 384 as
     three 128-wide slices (128-byte swizzle), three 16-channel stages and
-    two staging buffers on fp32 x, two 32-channel stages on bf16 x;
-    conv_in (Cin 3) stages x by hand."""
-    p = tconv.conv_plan(96, 96)
-    assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
-            p.manual, p.smem_bytes) == (96, 1, 32, 2, 1, 64, False, 200744)
-    p = tconv.conv_plan(384, 384)
+    two staging buffers on fp32 x, two 32-channel stages on bf16 x, all on
+    the 8 x 32 box; conv_in (Cin 3) on the fold (28 taps of 8 channels, 14
+    k16 steps, a ring of eight input-frame slabs), conv_out (Cout 3) on
+    the walk (the whole weight resident, one output-frame run a block)."""
+    full = dict(taps=3, frames=17, h=480, w=832)
+    p = _plan(96, 96, **full)
+    assert (p.route_name, p.n, p.nslices, p.ck, p.stages, p.staging,
+            p.swizzle_bytes, p.manual, p.smem_bytes) == (
+        "tile", 96, 1, 32, 2, 1, 64, False, 200744)
+    assert (p.box_f, p.box_r, p.box_w, p.blocks) == (1, 8, 32, 17 * 60 * 26)
+    p = _plan(384, 384, taps=3)
     assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
             p.smem_bytes) == (128, 3, 16, 3, 2, 128, 190528)
-    p = tconv.conv_plan(384, 384, torch.bfloat16)
+    p = _plan(384, 384, taps=3, dtype=torch.bfloat16)
     assert (p.ck, p.stages, p.staging, p.smem_bytes) == (32, 2, 0, 193568)
-    p = tconv.conv_plan(3, 96)
-    assert (p.cin_p, p.ck, p.stages, p.staging, p.manual) == (16, 16, 4, 0,
-                                                              True)
+    p = _plan(3, 96, **full)
+    assert (p.route_name, p.cin_p, p.ck, p.taps_k, p.ksteps, p.stages,
+            p.staging, p.manual, p.walk, p.blocks, p.smem_bytes) == (
+        "fold", 8, 8, 28, 14, 8, 0, True, 17, 60 * 26, 93320)
+    p = _plan(96, 3, **full)
+    assert (p.route_name, p.n, p.ck, p.stages, p.staging, p.walk, p.blocks,
+            p.weight_bytes, p.smem_bytes) == (
+        "walk", 16, 32, 2, 2, 17, 60 * 26, 27 * 96 * 16 * 2, 217144)
     assert tconv.conv_plan(96, 96, x_aligned=False).manual
     # the SVD UNet's 320 -> 320 as two slices of 160 (64-byte swizzle),
     # three 16-channel stages and two staging buffers on fp32 x, at any
-    # block count; 1280 as ten slices of 128 at the UNet's 8 x 13 level,
-    # with the same 16-channel stages
-    p = tconv.conv_plan(320, 320)
-    assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
-            p.smem_bytes) == (160, 2, 16, 3, 2, 64, 218176)
-    assert tconv.conv_plan(320, 320, blocks=768) == p
-    assert tconv.conv_plan(320, 320, blocks=8) == p
-    p, q = tconv.conv_plan(1280, 1280), tconv.conv_plan(1280, 1280,
-                                                        blocks=24)
+    # launch size; 1280 at the UNet's 8 x 13 level as ten slices of 128 over
+    # boxes of two whole frames (one wave of 120 blocks)
+    for frames, h in ((1, 8), (24, 64)):
+        p = _plan(320, 320, frames=frames, h=h, w=128)
+        assert (p.n, p.nslices, p.ck, p.stages, p.staging, p.swizzle_bytes,
+                p.smem_bytes) == (160, 2, 16, 3, 2, 64, 218176)
+    p = _plan(1280, 1280, frames=24, h=32, w=52)
+    q = _plan(1280, 1280, frames=24, h=8, w=13)
     assert (p.n, p.nslices, q.n, q.nslices) == (160, 8, 128, 10)
-    assert (p.ck, p.stages, p.staging) == (q.ck, q.stages, q.staging)
+    assert (q.box_f, q.box_r, q.box_w, q.blocks) == (2, 8, 13, 120)
+    # one tap: the chunk is the launch's own (32 fits beside the two-frame
+    # box's 300-pixel slab at N 128); both orders of the sums are one
+    assert (p.ck, q.ck, q.stages, q.staging) == (16, 32, 2, 1)
 
 
 # (CoutP, frames, H, W, N): the wave model's choice at the SVD UNet's 3x3
@@ -362,57 +433,143 @@ WAVE_CHOICES = [(320, 24, 64, 104, 160), (640, 24, 64, 104, 160),
 
 @pytest.mark.parametrize("cout_p,frames,h,w,n", WAVE_CHOICES)
 def test_conv3d_slice_width_by_waves(cout_p, frames, h, w, n):
-    """With the launch's block count the plan takes 160 or 128, where Cout
-    is a multiple of both, by the fewest waves of one block an SM, each as
-    long as N + 80 columns: 160 except where 8 slices of 160 leave the
-    second wave emptier than 10 of 128 (the UNet's 8 x 13 level); every
-    other width, the VAE's on strips too, is the widest that divides Cout,
-    as without a block count."""
-    blocks = frames * -(-h // tconv.TILE_H) * -(-w // tconv.TILE_W)
-    assert tconv._slice_width(cout_p, blocks) == n
-    cin = 320
-    assert tconv.conv_plan(cin, cout_p, blocks=blocks).n == n
-    assert tconv._slice_width(cout_p) == next(
-        s for s in (160, 128, 96, 32, 16) if s <= cout_p and
-        cout_p % s == 0)
+    """With the launch's blocks the plan takes 160 or 128, where Cout is a
+    multiple of both, by the fewest waves of one block an SM, each as long
+    as N + 80 columns: 160 except where 8 slices of 160 leave the wave
+    emptier than 10 of 128 (the UNet's 8 x 13 level); every other width,
+    the VAE's on strips too, is the widest that divides Cout. At three taps
+    the channel chunk is the widest N's either way, so the sums keep their
+    order."""
+    p = _plan(320, cout_p, frames=frames, h=h, w=w)
+    assert p.n == n
+    assert p.nslices * p.n == cout_p
+    widest = next(s for s in (160, 128, 96, 32, 16)
+                  if s <= cout_p and cout_p % s == 0)
+    assert n == widest or (widest, n) == (160, 128)
+    assert p.blocks == p.nslices * p.tiles_f * p.tiles_h * p.tiles_w
+    # at three taps the chunk (which orders the sums) follows no launch size
+    ck = {_plan(320, cout_p, taps=3, frames=many, h=h, w=w).ck
+          for many in (1, 24, 1000)}
+    assert len(ck) == 1
 
 
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cin,cout", VAE_CONV_SHAPES + DC_CONV2D_PAIRS)
 def test_conv3d_plan_off_160_is_the_narrower_sets(cin, cout, x_dtype):
-    """Where the padded Cout is no multiple of 160, the plan is the one the
-    slice widths 128, 96, 32, 16 alone give (the widest that divides it):
-    the same N, Cin chunk, stages, staging and shared memory, so those
-    pairs launch the same instantiation as before N 160 was added. A slice
-    width the kernel lacks or that does not divide Cout raises."""
+    """Where the padded Cout is no multiple of 160, N is the widest of 128,
+    96, 32, 16 that divides it at every launch size; a shape no route takes
+    (a temporal tap count other than 1 or 3, an empty input) raises."""
     dtype = getattr(torch, x_dtype)
     cout_p = -(-cout // 16) * 16
     narrow = next(s for s in (128, 96, 32, 16) if cout_p % s == 0)
-    forced = tconv.conv_plan(cin, cout, dtype, n=narrow)
-    assert forced.n == narrow and forced.n * forced.nslices == cout_p
     if cout_p % 160:
-        assert tconv.conv_plan(cin, cout, dtype) == forced
-        for frames, h, w in ((24, 64, 104), (8, 13, 103), (1, 17, 208)):
-            blocks = frames * -(-h // tconv.TILE_H) * -(-w // tconv.TILE_W)
-            assert tconv.conv_plan(cin, cout, dtype, blocks=blocks) == forced
-    for bad in (64, 48) + ((160,) if cout_p % 160 else ()):
-        with pytest.raises(ValueError, match=f"no N {bad} slices"):
-            tconv.conv_plan(cin, cout, dtype, n=bad)
+        for frames, h, w in ((24, 64, 104), (8, 13, 103), (1, 17, 208),
+                             (24, 8, 13)):
+            p = _plan(cin, cout, frames=frames, h=h, w=w, dtype=dtype)
+            assert p.route_name == "walk" or p.n == narrow
+    for bad in (dict(taps=2), dict(frames=0), dict(h=0)):
+        with pytest.raises(ValueError, match="no plan"):
+            _plan(cin, cout, dtype=dtype, **bad)
+
+
+def _writes(p, batch, frames, h, w):
+    """A pure-Python model of the kernel's map from (block, M row) to
+    output pixel (``csrc/conv3d.cu``: ``tile_block``, ``walk_block``,
+    ``fold_block``), for one N slice: how many times each output pixel
+    [batch, frames, h, w] is written, and the real rows' share of all the
+    M rows the launch computes."""
+    tile = p.route_name == "tile"
+    run = p.box_f if tile else p.walk
+    slices = p.nslices if p.route_name == "fold" or tile else 1
+    idx = np.arange(0, p.blocks, slices) // slices      # slice 0's blocks
+    bf, t = idx % (batch * p.tiles_f), idx // (batch * p.tiles_f)
+    b, t0 = bf // p.tiles_f, (bf % p.tiles_f) * run
+    x0, y0 = (t % p.tiles_w) * p.box_w, (t // p.tiles_w) * p.box_r
+    m = np.arange(256)
+    plane = p.box_r * p.box_w
+    f, dy, dx = m // plane, m % plane // p.box_w, m % p.box_w
+    real = m < (p.box_f if tile else 1) * plane
+    count = np.zeros((batch, frames, h, w), np.int64)
+    rows = 0
+    for k in range(1 if tile else run):
+        # the frame of each (block, row): the box's frames (tile) or the
+        # walk's k-th output frame, where the run has one
+        tt = t0[:, None] + (f[None, :] if tile else k)
+        if not tile:
+            live = (t0 + k < frames) | (k == 0)
+            tt, bb = tt[live], b[live]
+            yy, xx = y0[live, None] + dy, x0[live, None] + dx
+        else:
+            bb, yy, xx = b, y0[:, None] + dy, x0[:, None] + dx
+        ok = real[None, :] & (tt < frames) & (yy < h) & (xx < w)
+        tt, bb = (np.broadcast_to(a, ok.shape) for a in (tt, bb[:, None]))
+        np.add.at(count, (bb[ok], tt[ok], yy[ok], xx[ok]), 1)
+        rows += ok.shape[0] * 256
+    return count, count.sum() / rows
+
+
+@pytest.mark.parametrize("frames,h,w", PORT_SIZES + RAGGED_SIZES)
+def test_conv3d_routes_cover_every_pixel_once(frames, h, w):
+    """Each route's blocks, through the kernel's map of M rows to pixels,
+    write every output pixel exactly once, at every width the port runs and
+    at ragged sizes, with batch 2; at the port's sizes at least 80% of the
+    M rows a launch computes are real pixels where the K loop is long (the
+    SVD UNet's 8 x 13 level: 41% on the 8 x 32 box; short K loops keep the
+    8 x 32 box at W >= 32), and every slab holds its box's taps."""
+    for cin, cout, taps in ((1280, 1280, 1), (2560, 1280, 1), (96, 96, 3),
+                            (3, 96, 3), (96, 3, 3), (8, 320, 1), (64, 32, 3),
+                            (3, 128, 1)):
+        p = _plan(cin, cout, taps=taps, frames=frames, h=h, w=w, batch=2)
+        count, share = _writes(p, 2, frames, h, w)
+        assert (count == 1).all(), (cin, cout, p)
+        long_k = -(-cin // 16) * 16 * taps >= 128 and p.n > 16
+        if (frames, h, w) in PORT_SIZES and p.route_name == "tile" and long_k:
+            assert share >= 0.8, (cin, cout, share, p)
+        assert p.slab_pix == p.box_f * (p.box_r + 2) * (p.box_w + 2)
+        assert p.slab_pix <= (340 if w % 32 == 0 else 432)
+        assert p.box_f * p.box_r * p.box_w <= 256
+        if w % 32 == 0:
+            assert (p.box_f, p.box_r, p.box_w) == (1, 8, 32)
+
+
+# the Wan2.1 VAE's widths at 480 x 832 and at the refine's 704 x 1280
+VAE_WIDTHS = (832, 416, 208, 104, 1280, 640, 320, 160)
+
+
+@pytest.mark.parametrize("w", VAE_WIDTHS)
+def test_conv3d_route_and_k_order_follow_no_height_or_frames(w):
+    """The route and the order of each output's sums (the padded Cin, the
+    taps and, at three taps, the channel chunk and the k16 steps of a
+    stage, which interleave chunks with temporal taps; at one tap every
+    chunk sums each 16-channel block's nine taps in turn) are the same for
+    every strip height 17-242 and every chunk length, so that the VAE's
+    H-strips and streaming chunks are bit-equal to the whole frame; only the
+    box, the walk, the stages and the grid may follow H and T."""
+    for cin, cout in VAE_CONV_SHAPES:
+        for taps in (3, 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                order = {(p.route, p.cin_p, p.taps_k) + (
+                             (p.ck, p.ksteps) if taps == 3 else ())
+                         for h in range(17, 243, 5)
+                         for frames in (1, 2, 3, 4, 5, 9, 17, 21)
+                         for p in [_plan(cin, cout, taps=taps, frames=frames,
+                                         h=h, w=w, dtype=dtype)]}
+                assert len(order) == 1, (cin, cout, taps, dtype, order)
 
 
 def test_conv3d_prepared_weight_cache(rng):
-    """The bf16 [27, CinP, CoutP] weight is made once per weight tensor,
+    """The bf16 weight layout is made once per weight tensor,
     and made again when the tensor changes in place or is replaced."""
     w = torch.from_numpy(rng.standard_normal((3, 3, 3, 3, 5)).astype(
         np.float32))
     wp = tconv.prepared_weight(w)
-    assert wp.shape == (27, 16, 16) and wp.dtype == torch.bfloat16
+    assert wp.shape == (28, 8, 16) and wp.dtype == torch.bfloat16
     assert torch.equal(wp, tconv.prepare_weight(w))
     assert tconv.prepared_weight(w) is wp
     w.mul_(2.0)
     wp2 = tconv.prepared_weight(w)
     assert wp2 is not wp
-    torch.testing.assert_close(wp2[:, :3, :5].float(),
+    torch.testing.assert_close(wp2[:27, :3, :5].float(),
                                w.reshape(27, 3, 5).bfloat16().float())
     assert tconv.prepared_weight(w) is wp2
     w2 = w.clone()
@@ -481,7 +638,8 @@ def test_conv2d_3x3_matches_jax_conv_of_bf16_operands(rng, n, hh, ww, cin,
                 TP.conv({"w": tw, "b": tb}, tx, padding=1,
                         bf16_operands=True)):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    assert tconv.prepare_weight(tw).shape == (9, 16, _r16(cout))
+    assert tconv.prepare_weight(tw).shape == (
+        (10, 8, _r16(cout)) if cin <= 4 else (9, _r16(cin), _r16(cout)))
     full = np.asarray(JP.conv({"w": jnp.asarray(w), "b": jnp.asarray(b)},
                               jnp.asarray(x), padding="SAME"))
     np.testing.assert_allclose(TP.conv({"w": tw, "b": tb}, tx,

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 into ``build/kernels/<name>-<hash>.so`` at the repository root; the hash
 covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
 edited source or header is never served by a stale library. A
-``csrc/<name>.cpp`` (host code the wrappers and the CPU tests read, such as
-kernel 1's bf16 layout) is built the same way by the host's C++ compiler.
+``csrc/<name>.cpp`` (host code the wrappers and the CPU tests read: kernel
+1's layouts, kernel 4's launch plan) is built the same way by the host's
+C++ compiler.
 Nothing is built when a module is imported: the CPU tests import every
 module on a host without ``nvcc``.
 """
@@ -29,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 CUDA_SOURCES = ("flash_attention", "conv3d", "bsa", "flash_attention_bwd")
-HOST_SOURCES = ("flash_plan",)
+HOST_SOURCES = ("flash_plan", "conv_plan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

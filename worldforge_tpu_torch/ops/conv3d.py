@@ -5,22 +5,32 @@ Pallas TPU kernel ``_conv_kernel`` (:39, ``pallas_call`` :119) becomes the
 CUDA C++ implicit GEMM on TMA and wgmma in ``csrc/conv3d.cu`` (the design
 note and what bounds it on the H100 are at the top of that file). The
 kernel reads x in the type it is given (fp32 or bf16) and rounds it to bf16
-as it stages it; ``conv_plan`` picks its tiles and ``prepared_weight`` makes
-the bf16 weight layout once per weight tensor.
+as it stages it. Its launch plan is ``csrc/conv3d_plan.cuh``, plain C++
+that the kernel includes and the host reads through ``csrc/conv_plan.cpp``
+(``conv_plan``): one of three routes, a function of the temporal taps, the
+width, Cin, Cout and x's type alone (the tile route; the walk for Cout <= 8
+at three taps; the fold for Cin <= 8 at three taps and Cin <= 4 into one
+Cout slice at one), and the output box, slice width,
+channel chunk, ring and grid. ``prepared_weight`` makes the route's bf16
+weight layout once per weight tensor.
 
 Contract: x [B, T+2, H, W, Cin] already front-padded in time, SAME spatial
 padding, w [3, 3, 3, Cin, Cout] (DHWIO), optional bias [Cout]. Inputs and
 weights are rounded to bf16, products accumulate in fp32, the fp32 bias is
-added and the result is cast to ``out_dtype``.
+added and the result is cast to ``out_dtype``. The order of each output's
+sums follows the route alone, so an H-strip or a chunk of frames sums as
+the whole does.
 
 ``conv2d_3x3`` is the same kernel with one temporal tap: the stride-1 3x3
 SAME convolution of every frame [N, H, W, Cin] with w [3, 3, Cin, Cout],
-on the same contract (the VAE decoder's resample convs on the card).
+on the same contract (the VAE decoder's resample convs and the SVD UNet's
+and VAE's 3x3 convs on the card).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -65,124 +75,121 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _round1024(n: int) -> int:
-    return -(-n // 1024) * 1024
-
-
-TILE_H, TILE_W = 8, 32              # output rows x pixels of one block
-SMEM_LIMIT = 232448                 # shared memory a block may use (227 KB)
-_SLICES = (160, 128, 96, 32, 16)     # N instantiations of the kernel
-_MAX_STAGES = 4
+ROUTES = ("tile", "walk", "fold")   # conv3d_plan.cuh's Route, in order
+_PLAN_FIELDS = (
+    "route", "n", "nslices", "ck", "cin_p", "cout_p", "taps_k", "src",
+    "stages", "staging", "box_f", "box_r", "box_w", "slab_pix", "tiles_f",
+    "tiles_h", "tiles_w", "walk", "ksteps", "swizzle_bytes", "weight_bytes",
+    "stage_bytes", "staging_bytes", "epilogue_bytes", "smem_bytes", "blocks",
+    "smem_limit")
+_H100_SMS = 132
 
 
 @dataclass(frozen=True)
 class ConvPlan:
-    """One launch of ``csrc/conv3d.cu``: the block's output tile, the Cout
-    slice N each block computes (``nslices`` of them), the Cin chunk CK of
-    one pipeline stage, the ring's depth, how x reaches shared memory (TMA,
-    through ``staging`` fp32 buffers for fp32 x; ``manual``: the producer's
-    threads), the swizzle of the weight panels and the dynamic shared
-    memory, counted as the kernel's ``Plan`` does."""
-    cin_p: int
-    cout_p: int
-    tile: tuple
+    """One launch of ``csrc/conv3d.cu``, as ``csrc/conv3d_plan.cuh`` makes
+    it (read through ``csrc/conv_plan.cpp``): the route (``ROUTES``), the
+    Cout slice N a block computes (``nslices`` of them), the channel chunk
+    CK of a stage (8 in the fold), the prepared weight's padded Cin and Cout
+    and its leading taps, how x reaches shared memory (``src``: 0 TMA into
+    the bf16 slab, 1 TMA through ``staging`` fp32 buffers, 2 the producer's
+    threads), the ring's depth, the output box of a block (``box_f`` frames
+    x ``box_r`` rows x ``box_w`` columns) and the boxes over T, H and W, the
+    output frames a walking block covers, the k16 steps of a stage, the
+    weight panels' swizzle, the bytes of the weights (a stage's, or resident
+    in the walk and the fold), of a stage, of a staging buffer, of the
+    epilogue's tile, the dynamic shared memory, the grid and the 227 KB
+    limit."""
+    route: int
     n: int
     nslices: int
     ck: int
+    cin_p: int
+    cout_p: int
+    taps_k: int
+    src: int
     stages: int
-    manual: bool
     staging: int
+    box_f: int
+    box_r: int
+    box_w: int
+    slab_pix: int
+    tiles_f: int
+    tiles_h: int
+    tiles_w: int
+    walk: int
+    ksteps: int
     swizzle_bytes: int
+    weight_bytes: int
     stage_bytes: int
     staging_bytes: int
     epilogue_bytes: int
     smem_bytes: int
+    blocks: int
+    smem_limit: int
+
+    @property
+    def route_name(self) -> str:
+        return ROUTES[self.route]
+
+    @property
+    def manual(self) -> bool:
+        return self.src == 2
 
 
-_H100_SMS = 132
-_SLICE_OVERHEAD = 80   # a block's slab staging and fragment loads, in columns
+def _plan_lib():
+    i = ctypes.c_int
+    return _build.bind("conv_plan", {
+        "wf_conv3d_plan": ([i] * 10 + [ctypes.POINTER(ctypes.c_longlong)],
+                           i)})
 
 
-def _slice_width(cout_p: int, blocks: Optional[int] = None) -> int:
-    """N of a Cout padded to ``cout_p``: the widest instantiation at most
-    ``cout_p`` that divides it (``cout_p`` itself where it is one). Where
-    that is 160, Cout is a multiple of 128 too and the launch's ``blocks``
-    of one slice (frames x tiles of 8 x 32 pixels) are given, 160 or 128 by
-    a wave model: ceil(slices x blocks / SMs) waves of one block an SM,
-    each as long as N + 80 columns (each slice stages the halo'd input
-    slab and loads every A fragment again). On the H100 (``chip_smoke.py``'s
-    one-tap timings at every SVD UNet pair) that keeps 160 except at the
-    UNet's 8 x 13 level, where 1280 as 10 slices of 128 fills the second
-    wave better than 8 of 160. Both widths stage the same channel chunk a
-    step (16 on fp32 x, 32 on bf16), so the sums run in the same order
-    either way; other widths could change it, and a tiled VAE's strips
-    must sum as the whole frame does."""
-    n = next(s for s in _SLICES if s <= cout_p and cout_p % s == 0)
-    if n != 160 or blocks is None or cout_p % 128:
-        return n
-    return min((160, 128), key=lambda s: (
-        -(-cout_p // s * blocks // _H100_SMS) * (s + _SLICE_OVERHEAD), -s))
-
-
+@functools.lru_cache(maxsize=1024)
 def conv_plan(cin: int, cout: int, x_dtype=torch.float32,
-              x_aligned: bool = True, blocks: Optional[int] = None,
-              n: Optional[int] = None) -> ConvPlan:
-    """The tile plan for Cin -> Cout on x of ``x_dtype``. N is ``n`` where
-    given (an instantiation that divides CoutP: a timing harness's other
-    slice width), else ``_slice_width(CoutP, blocks)``'s: the widest of
-    160, 128, 96, 32, 16 that divides CoutP, 128 in place of 160 where the
-    launch's ``blocks`` of one slice make it the faster (the two 64-row
-    accumulators are N fp32 registers a consumer thread). TMA reads
-    x where a row of Cin elements is a multiple of 16 bytes and x is
-    16-byte aligned, else the producer's threads stage it (``manual``); an
-    fp32 x goes through fp32 staging buffers, two where they fit, else one.
-    CK is 32 where it divides CinP and fits with two stages, else 16; the
-    ring takes as many stages (2 to 4) as fit in 227 KB."""
-    cin_p, cout_p = _round16(cin), _round16(cout)
-    if n is None:
-        n = _slice_width(cout_p, blocks)
-    elif n not in _SLICES or cout_p % n:
-        raise ValueError(f"conv3d kernel: no N {n} slices of Cout {cout}")
+              x_aligned: bool = True, *, taps: int = 3, batch: int = 1,
+              frames: int = 1, height: int = 8, width: int = 32,
+              sms: int = _H100_SMS) -> ConvPlan:
+    """The launch plan of a conv with ``taps`` temporal taps over x [batch,
+    frames + taps - 1, height, width, cin] of ``x_dtype`` (``x_aligned``:
+    16-byte aligned) to ``cout`` channels on a card of ``sms`` SMs: the
+    kernel's own numbers, from ``csrc/conv3d_plan.cuh``. The route follows
+    taps, the width, Cin, Cout and x's type alone: ``fold`` for Cin <= 8 at
+    3 taps (at 1 tap for Cin <= 4 into one slice of Cout <= 128), ``walk``
+    for Cout <= 8 at 3 taps (Cin <= 112), else ``tile``, whose box
+    is 8 x 32 at widths that are multiples of 32 and otherwise the box of
+    at most 256 pixels with the most real rows (``choose_box``); N is the
+    widest of 160 / 128 / 96 / 32 / 16 that divides the padded Cout, 128
+    for 160 where the launch's blocks make it fill fewer waves; CK is 32
+    where it divides CinP and fits with two stages at the route's largest
+    slab, else 16; the ring takes as many stages (2 to 4) as fit in 227 KB.
+    None of the box, the walk, the stages and the grid changes the order of
+    the sums. Raises where no route takes the shape. Cached: a launch's
+    host time counts beside kernels of a tenth of a millisecond."""
     elem = 2 if x_dtype == torch.bfloat16 else 4
-    manual = not (x_aligned and (cin * elem) % 16 == 0)
-    sw = 128 if n % 64 == 0 else 64 if n % 32 == 0 else 32
-    slab_pix = (TILE_H + 2) * (TILE_W + 2)
-    epilogue = 4 * TILE_H * TILE_W * (n + 8)
-
-    def sizes(ck):
-        stage = _round1024(9 * ck * n * 2) + _round1024(slab_pix * ck * 2)
-        return stage, _round1024(slab_pix * ck * 4)
-
-    def total(ck, stages, nstg):
-        stage, stg = sizes(ck)
-        return (1024 + max(stages * stage + nstg * stg, epilogue)
-                + 8 * (2 * stages + nstg))
-
-    staging_options = (2, 1) if elem == 4 and not manual else (0,)
-    for ck in (32, 16):
-        if cin_p % ck:
-            continue
-        fits = [(nstg, st) for nstg in staging_options
-                for st in range(_MAX_STAGES, 1, -1)
-                if total(ck, st, nstg) <= SMEM_LIMIT]
-        if fits or ck == 16:
-            break
-    nstg, stages = fits[0] if fits else (staging_options[-1], 2)
-    stage, stg = sizes(ck)
-    return ConvPlan(cin_p, cout_p, (TILE_H, TILE_W), n, cout_p // n, ck,
-                    stages, manual, nstg, sw, stage, stg, epilogue,
-                    total(ck, stages, nstg))
+    out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    if not _plan_lib().wf_conv3d_plan(taps, batch, frames, height, width,
+                                      cin, cout, int(elem == 2),
+                                      int(bool(x_aligned)), sms, out):
+        raise ValueError(f"conv3d kernel: no plan for {cin} -> {cout} at "
+                         f"{taps} taps, [{batch}, {frames}, {height}, "
+                         f"{width}]")
+    return ConvPlan(*(int(v) for v in out))
 
 
 def prepare_weight(w: torch.Tensor) -> torch.Tensor:
-    """[KT, 3, 3, Cin, Cout] -> bf16 [9 KT, Cin16, Cout16] zero-padded to
-    multiples of 16, the layout the kernel stages from (a 2-D [3, 3, Cin,
-    Cout] weight is KT = 1)."""
+    """[KT, 3, 3, Cin, Cout] (or [3, 3, Cin, Cout], KT = 1) -> the bf16
+    layout the kernel stages from, zero-padded: [9 KT, Cin16, Cout16]
+    (Cin, Cout to multiples of 16), or on the fold route (Cin <= 8 at KT =
+    3; Cin <= 4 and Cout <= 128 at KT = 1) [9 KT + 1, 8, Cout16] (8
+    channels a tap and a last zero tap, so that two taps fill each k16
+    step)."""
     cin, cout = w.shape[-2], w.shape[-1]
     taps = w.numel() // (cin * cout)
-    wp = torch.zeros((taps, _round16(cin), _round16(cout)),
-                     dtype=torch.bfloat16, device=w.device)
-    wp[:, :cin, :cout] = w.reshape(taps, cin, cout).to(torch.bfloat16)
+    fold = cin <= 8 and (taps == 27 or (cin <= 4 and _round16(cout) <= 128))
+    rows, cin_p = (taps + 1, 8) if fold else (taps, _round16(cin))
+    wp = torch.zeros((rows, cin_p, _round16(cout)), dtype=torch.bfloat16,
+                     device=w.device)
+    wp[:taps, :cin, :cout] = w.reshape(taps, cin, cout).to(torch.bfloat16)
     return wp
 
 
@@ -203,15 +210,14 @@ def prepared_weight(w: torch.Tensor) -> torch.Tensor:
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("conv3d", {
-        "wf_conv3d_causal": ([p, p, p, p] + [i] * 17 + [p], i),
+        "wf_conv3d_causal": ([p, p, p, p] + [i] * 13 + [p], i),
         "wf_conv3d_error_string": ([i], ctypes.c_char_p),
     })
 
 
-def _launch(x, w, b, out_dtype, taps, n=None):
+def _launch(x, w, b, out_dtype, taps):
     """x [B, Tp, H, W, Cin]; w [3, 3, 3, Cin, Cout] (taps 3) or [3, 3, Cin,
-    Cout] (taps 1); ``n``: the plan's slice width (default
-    ``conv_plan``'s; a timing harness may pass another instantiation)."""
+    Cout] (taps 1)."""
     bn_, tp, hh, ww, cin = x.shape
     if w.shape[:-1] != (3,) * (taps // 3 + 2) + (cin,):
         raise ValueError(f"conv3d kernel: weight {tuple(w.shape)} for input "
@@ -224,9 +230,10 @@ def _launch(x, w, b, out_dtype, taps, n=None):
         raise ValueError("conv3d kernel: tensors on two devices")
     cout = w.shape[-1]
     x = x.contiguous()          # read as it is: no bf16 copy of x
-    tiles = -(-hh // TILE_H) * -(-ww // TILE_W)
-    plan = conv_plan(cin, cout, x.dtype, x.data_ptr() % 16 == 0,
-                     blocks=bn_ * (tp - taps + 1) * tiles, n=n)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = conv_plan(cin, cout, x.dtype, x.data_ptr() % 16 == 0, taps=taps,
+                     batch=bn_, frames=tp - taps + 1, height=hh, width=ww,
+                     sms=sms)
     wp = prepared_weight(w)
     bias = b.float().contiguous() if b is not None else None
     y = torch.empty((bn_, tp - taps + 1, hh, ww, cout), dtype=out_dtype,
@@ -235,10 +242,9 @@ def _launch(x, w, b, out_dtype, taps, n=None):
     err = lib.wf_conv3d_causal(
         x.data_ptr(), wp.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(), bn_, tp,
-        taps, hh, ww, cin, plan.cin_p, cout, plan.cout_p, plan.n, plan.ck,
-        plan.stages, int(plan.manual), plan.staging, plan.smem_bytes,
-        _DTYPE_CODE[x.dtype],
-        _DTYPE_CODE[out_dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        taps, hh, ww, cin, cout, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+        sms, plan.route, plan.n, plan.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("conv3d kernel launch failed: "
                            + lib.wf_conv3d_error_string(err).decode())
